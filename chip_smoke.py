@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Drives the port's main path on one CUDA card and stops with a nonzero
+exit at the first failure:
+
+  1. build — compiles kernels B1 (SDV GEMV) and B2 (SDV GEMM) from
+     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+  2. kernels — each kernel against its plain torch version bit for bit,
+     and against the exact integer product (float64 on the card, exact
+     while |sum| < 2^53), at the main path's (K, M) shapes, for the
+     INT32 W4A8 plan and the wide DSP48E2 W4A8 (n=3, [2, K, G] limb
+     planes) plan; times each kernel, its plain version and
+     ``torch._int_mm`` (the library yardstick, never used by the port);
+  3. serve — full-width tinyllama-1.1b from a seeded torch init, packed
+     by ``serve_params(compute="sdv", min_size=1024)``: a 16-token
+     prefill of 8 prompts (128 GEMM rows -> B2), 16 greedy decode steps
+     at batch 8 (-> B1), then ``single_batch_loop`` as the serve CLI runs
+     it; the launch counters are reset before and read after each run.
+     The reduced model on the card is held against the same model on
+     the CPU (plain kernel versions).
+
+The last two lines of standard output are the ``kernels`` JSON line and
+``{"ok": true, "device": {...}}``; the card's name and power limit come
+before them.
+
+  python3 chip_smoke.py
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 tensor ops/s
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+#: the main path's projection shapes (K, M) and how often one tinyllama
+#: layer runs each: q/o 2048->2048, k/v 2048->256, gate/up 2048->5632,
+#: down 5632->2048
+LAYER_SHAPES = {(2048, 2048): 2, (2048, 256): 2, (2048, 5632): 2,
+                (5632, 2048): 1}
+B1_ROWS, B2_ROWS = (1, 8), (9, 128)
+DECODE_ROWS, PREFILL_ROWS = 8, 128
+BATCH, PROMPT, NEW = 8, 16, 16
+#: reduced model, card vs CPU: every packed GEMM is exact on both, but the
+#: bf16 elementwise ops and the bf16 LM-head product round differently on
+#: the card; a one-ulp bf16 change upstream of the per-row int8 activation
+#: quantizer moves an activation by one step and compounds over the
+#: layers (0.051 observed on this check, H100, 700 W)
+LOGIT_ATOL = 0.1
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def event_ms(fn, reps, flush=None):
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events around
+    each call; ``flush`` runs before each, outside the events), after two
+    untimed calls."""
+    import torch
+    fn()
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.library("sdv")
+    log = build.library_path("sdv").with_suffix(".log").read_text()
+    regs = [line.split("ptxas info    :")[-1].strip()
+            for line in log.splitlines() if "Used" in line]
+    print(f"[build] sdv.cu -> {build.library_path('sdv').name} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{build.build_seconds['sdv']:.1f} s); {len(regs)} kernels, e.g. "
+          f"{regs[:2]}")
+
+
+def phase_kernels(dev):
+    """Every kernel vs its plain version and the exact product; timings.
+    Returns per-kernel sums over one layer's projections (INT32 plan)."""
+    import torch
+    from repro_torch.core.datapath import DSP48E2, plan_sdv
+    from repro_torch.kernels import ops, ref, sdv_matmul, sdv_matvec
+    from repro_torch.models.quantized import default_sdv_plan
+
+    plans = {"int32 W4A8 n=2": default_sdv_plan(4, 8),
+             "dsp48e2 W4A8 n=3": plan_sdv(DSP48E2, 4, 8, signed_a=True,
+                                          signed_b=True, park_sign_bits=True)}
+    check(plans["dsp48e2 W4A8 n=3"].n == 3, plans["dsp48e2 W4A8 n=3"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_                    # evicts the 50 MB L2
+    layer = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                        bytes=0, ops=0)
+             for name in ("B1", "B2")}
+    max_err = {"B1": 0, "B2": 0}
+    t_phase = time.perf_counter()
+    for pname, plan in plans.items():
+        for (k, m), mult in LAYER_SHAPES.items():
+            w = torch.randint(-8, 8, (m, k), generator=gen, device=dev)
+            words = ops.prepare_sdv_weights(w, plan)
+            for kname, rows_list in (("B1", B1_ROWS), ("B2", B2_ROWS)):
+                for rows in rows_list:
+                    x = torch.randint(-127, 128, (rows, k), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                    if kname == "B1":
+                        xt = x.T.contiguous()
+                        def run():
+                            return sdv_matvec.sdv_matvec(xt, words, plan=plan)
+                    else:
+                        def run():
+                            return sdv_matmul.sdv_matmul(x, words, plan=plan)
+                    got = run()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    want = sdv_matmul.sdv_matmul_plain(x, words, plan)
+                    torch.cuda.synchronize()
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                    exact = ref.sdv_matmul_ref(x, w)          # float64, exact
+                    err = int((got.long() - want.long()).abs().max())
+                    max_err[kname] = max(max_err[kname], err)
+                    check(err == 0, f"{kname} != plain at {pname} K={k} "
+                                    f"M={m} rows={rows} (max err {err})")
+                    check(torch.equal(got.reshape(rows, -1)[:, :m], exact),
+                          f"{kname} != exact product at {pname} K={k} "
+                          f"M={m} rows={rows}")
+                    ms = event_ms(run, reps=10, flush=flush)
+                    nbytes = (x.numel() * 4 + words.numel() * 4
+                              + got.numel() * 4)
+                    ops_n = 2 * rows * m * k
+                    b_ms, b_by = bound_ms(nbytes, ops_n)
+                    lib_ms = int_mm_ms(x, w, flush)
+                    print(f"[kernels] {kname} {pname} K={k} M={m} rows={rows}: "
+                          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+                          f"{b_ms / ms:.1%} of bound), plain {plain_ms:.1f} ms, "
+                          f"_int_mm {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
+                          f" ms, exact")
+                    main_rows = DECODE_ROWS if kname == "B1" else PREFILL_ROWS
+                    if pname.startswith("int32") and rows == main_rows:
+                        acc = layer[kname]
+                        acc["ms"] += mult * ms
+                        acc["plain_ms"] += mult * plain_ms
+                        acc["bytes"] += mult * nbytes
+                        acc["ops"] += mult * ops_n
+                        if lib_ms is None or acc["library_ms"] is None:
+                            acc["library_ms"] = None
+                        else:
+                            acc["library_ms"] += mult * lib_ms
+    for kname, acc in layer.items():
+        acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
+        acc["max_abs_err"] = max_err[kname]
+    print(f"[kernels] all shapes exact, {time.perf_counter() - t_phase:.1f} s")
+    return layer
+
+
+def int_mm_ms(x, w, flush):
+    """``torch._int_mm`` on the unpacked int8 operands (rows padded to 32,
+    its smallest accepted row count above 16), or None if refused."""
+    import torch
+    rows = max(32, x.shape[0])
+    a = torch.zeros((rows, x.shape[1]), dtype=torch.int8, device=x.device)
+    a[:x.shape[0]] = x.to(torch.int8)
+    b = w.to(torch.int8).T                    # [K, M], column-major
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError as e:
+        print(f"[kernels] _int_mm refused {tuple(a.shape)}x{tuple(b.shape)}: "
+              f"{str(e).splitlines()[0]}")
+        return None
+    return event_ms(lambda: torch._int_mm(a, b), reps=10, flush=flush)
+
+
+def counts():
+    from repro_torch.kernels import sdv_matmul, sdv_matvec
+    return {"B1": sdv_matvec.sdv_matvec.launches,
+            "B2": sdv_matmul.sdv_matmul.launches,
+            "plain": sdv_matmul.sdv_matmul_plain.calls}
+
+
+def reset_counts():
+    from repro_torch.kernels import sdv_matmul, sdv_matvec
+    sdv_matvec.sdv_matvec.launches = 0
+    sdv_matmul.sdv_matmul.launches = 0
+    sdv_matmul.sdv_matmul_plain.calls = 0
+
+
+def phase_serve(dev):
+    """Full-width tinyllama-1.1b prefill + greedy decode on the kernels.
+    Returns the launch counts of that main-path run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, serve_params)
+
+    cfg = get_arch("tinyllama-1.1b")
+    per_step = 7 * cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    qparams = serve_params(params, bits=4, min_size=1024, compute="sdv")
+    del params
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}; seeded init + SDV packing in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                           dtype=torch.int32, device=dev)
+    n_prompt = torch.full((BATCH,), PROMPT - 1, dtype=torch.int32,
+                          device=dev)
+    # warm-up (first-call costs of cuBLAS, allocator, kernels): one
+    # prefill and one decode step on a throwaway cache
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    decode_step(cfg, qparams, cache, prompts[:, -1:])
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # prefill: the first PROMPT-1 tokens (all PROMPT columns go through
+    # the GEMMs: 8 x 16 = 128 rows); the last prompt token opens decode
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    c_prefill = counts()
+    check(c_prefill == {"B1": 0, "B2": per_step, "plain": 0},
+          f"prefill launches {c_prefill}, want B2={per_step}")
+    reset_counts()
+    tok = prompts[:, -1:]
+    gen = []
+    t0 = time.perf_counter()
+    for _ in range(NEW):
+        logits, cache = decode_step(cfg, qparams, cache, tok)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    c_decode = counts()
+    check(c_decode == {"B1": NEW * per_step, "B2": 0, "plain": 0},
+          f"decode launches {c_decode}, want B1={NEW * per_step}")
+    check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
+          and logits.dtype == torch.float32, tuple(logits.shape))
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(cache["index"].tolist() == [PROMPT - 1 + NEW] * BATCH,
+          cache["index"].tolist())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    sample = torch.cat(gen, 1)[0].tolist()
+    print(f"[serve] prefill {BATCH}x{PROMPT}: {t_prefill * 1e3:.1f} ms "
+          f"({BATCH * PROMPT / t_prefill:.1f} tok/s), launches {c_prefill}")
+    print(f"[serve] decode {NEW} steps at batch {BATCH}: "
+          f"{t_decode / NEW * 1e3:.1f} ms/step, {BATCH * NEW / t_decode:.1f} "
+          f"tok/s, launches {c_decode}, peak memory {peak:.2f} GiB, "
+          f"sample {sample[:8]}")
+
+    profile_decode(cfg, qparams, cache, tok)
+
+    # the serve CLI's loop (--engine off): teacher-forced prompt + greedy
+    reset_counts()
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
+    c_loop = counts()
+    steps = PROMPT + NEW - 1
+    check(c_loop == {"B1": steps * per_step, "B2": 0, "plain": 0},
+          f"single_batch_loop launches {c_loop}")
+    check(toks.shape == (BATCH, NEW), toks.shape)
+    print(f"[serve] single_batch_loop: {BATCH * steps / dt:.1f} tok/s "
+          f"({steps} steps), launches {c_loop}")
+    return {"B1": c_decode["B1"], "B2": c_prefill["B2"]}
+
+
+def profile_decode(cfg, qparams, cache, tok, steps=2):
+    """Device busy time of decode steps (torch.profiler) against their
+    wall time, and the kernels that take it.  The cache is a copy, so
+    the main path's cache is left as it was."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    cache = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _, cache = decode_step(cfg, qparams, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    dev_us = {e.key: getattr(e, "self_device_time_total", 0.0)
+              for e in events}
+    busy_ms = sum(dev_us.values()) / 1e3 / steps
+    if busy_ms == 0.0:
+        print("[profile] decode step: the profiler saw no device time; "
+              "device busy share not measured")
+        return
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[profile] decode step at batch {BATCH} (profiled): wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({busy_ms / wall_ms:.1%}); top device time per step: "
+          + "; ".join(f"{k[:60]} {v / 1e3 / steps:.2f} ms" for k, v in top))
+
+
+def phase_reference(dev):
+    """The reduced model on the card vs on the CPU (plain kernel
+    versions): same seeded weights, same tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, serve_params)
+
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    cpu = torch.device("cpu")
+    params = init_params(cfg, seed=1, device=cpu)
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab, (3, 5))
+    tokens = rng.integers(0, cfg.vocab, (3, 3, 1))
+    outs = {}
+    for d in (cpu, dev):
+        q = serve_params({k: _to(v, d) for k, v in params.items()}, bits=4,
+                         min_size=1024, compute="sdv")
+        cache = init_cache(cfg, 3, 12, device=d)
+        cache = prefill_step(cfg, q, cache,
+                             torch.tensor(prompt, dtype=torch.int32, device=d),
+                             torch.tensor([5, 3, 0], dtype=torch.int32,
+                                          device=d))
+        logits = []
+        for t in tokens:
+            out, cache = decode_step(cfg, q, cache, torch.tensor(
+                t, dtype=torch.int32, device=d))
+            logits.append(out.cpu())
+        outs[d.type] = torch.stack(logits)
+    card, host = outs["cuda"], outs["cpu"]
+    err = float((card - host).abs().max())
+    check(err <= LOGIT_ATOL, f"reduced model card vs CPU logits differ by "
+                             f"{err} > {LOGIT_ATOL}")
+    top2 = host[..., :cfg.vocab].topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_ATOL
+    same = card[..., :cfg.vocab].argmax(-1) == host[..., :cfg.vocab].argmax(-1)
+    check(bool(same[sure].all()), "greedy tokens differ where the CPU's "
+                                  "top-2 margin exceeds twice the tolerance")
+    print(f"[reference] reduced {cfg.name}: card vs CPU max |dlogit| "
+          f"{err:.4g} (tolerance {LOGIT_ATOL}: bf16 rounding and sum order "
+          f"differ between the card and the CPU)")
+
+
+def _to(v, d):
+    if isinstance(v, dict):
+        return {k: _to(x, d) for k, x in v.items()}
+    return v.to(d)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside chip_smoke.py",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "unknown"
+    print(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    try:
+        phase_build()
+        layer = phase_kernels(dev)
+        launches = phase_serve(dev)
+        phase_reference(dev)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    sources = {"B1": ("sdv_matvec", "src/repro/kernels/sdv_matvec.py:46"),
+               "B2": ("sdv_matmul", "src/repro/kernels/sdv_matmul.py:178")}
+    kernels = []
+    for kname in ("B1", "B2"):
+        acc = layer[kname]
+        kernels.append({
+            "name": f"{kname} {sources[kname][0]}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sdv.cu",
+            "replaces": sources[kname][1],
+            "launches": launches[kname],
+            "max_abs_err": acc["max_abs_err"],
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
+            "library_ms": acc["library_ms"],
+            "per": (f"one tinyllama layer's 7 projections at "
+                    f"{DECODE_ROWS if kname == 'B1' else PREFILL_ROWS} rows, "
+                    "int32 W4A8 plan"),
+        })
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  The build happens at first
+use, into ``build/kernels/`` at the root of the checkout; the library's
+file name carries a hash of its source and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  ``nvcc``'s register
+and shared-memory report (``-Xptxas -v``) is kept beside the library as
+``<name>-<hash>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: seconds each source took to compile in this process (0.0 when an
+#: existing library was loaded)
+build_seconds: dict = {}
+
+
+def nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    library path.  Raises with nvcc's output when the build fails."""
+    out = library_path(name)
+    if out.exists():
+        build_seconds.setdefault(name, 0.0)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds[name] = time.perf_counter() - t0
+    return out
+
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+#: C signatures: name -> (argtypes, restype)
+_SIGNATURES = {
+    "sdv": {
+        "sdv_gemv": ([_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR], _INT),
+        "sdv_gemm": ([_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR], _INT),
+        "sdv_error_string": ([_INT], ctypes.c_char_p),
+    },
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    lib = ctypes.CDLL(str(build(name)))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
+    if err != 0:
+        msg = lib.sdv_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,55 @@
+"""Plain oracles for the SDV kernels (torch port of the SDV part of
+``repro.kernels.ref``).
+
+They use no packing arithmetic at all: the storage words are decoded
+back to integers and multiplied exactly.  The products are taken in
+float64, which is exact while |sum| < 2^53 (every plan with w_a, w_b
+<= 8 at any K below 2^37), and works on the card, where torch has no
+integer matmul.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import limbs
+
+
+def _exact_int_matmul(x_int: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    y = x_int.to(torch.float64) @ w_t.to(torch.float64)
+    return limbs.lo32(y.to(torch.int64))
+
+
+def sdv_matvec_ref(x_int: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+    """Exact integer GEMV batch: x [b, k] ints, w [m, k] ints -> [b, m] i32."""
+    return _exact_int_matmul(x_int, w_int.T)
+
+
+def sdv_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+    """Exact integer GEMM with arbitrary leading batch dims:
+    x [..., k] ints, w [m, k] ints -> [..., m] i32."""
+    return _exact_int_matmul(x_int, w_int.T)
+
+
+def sdv_unpack_words_ref(w_words: torch.Tensor, *, plan) -> torch.Tensor:
+    """Decode [K, G] SDV storage words (or [2, K, G] limb planes) back
+    to integer elements [K, G*n] int32 (lane-major: group g's lanes are
+    columns g*n .. g*n+n-1).
+
+    Signed layout: remainder fields in the low ``plan.packed_width``
+    bits, sign bits parked above (value = r - 2^(w_a-1) s).  Unsigned
+    layout: the lane fields are the values.
+    """
+    if w_words.ndim == 3:
+        word = limbs.from_planes(w_words)
+    else:
+        word = limbs.from_u32(w_words)
+    k, g = word.shape
+    vals = []
+    for i in range(plan.n):
+        if plan.signed_a:
+            r_i = (word >> (i * plan.lane)) & ((1 << (plan.w_a - 1)) - 1)
+            s_i = (word >> (plan.packed_width + i)) & 1
+            vals.append(r_i - (s_i << (plan.w_a - 1)))
+        else:
+            vals.append((word >> (i * plan.lane)) & ((1 << plan.w_a) - 1))
+    return torch.stack(vals, dim=-1).reshape(k, g * plan.n).to(torch.int32)

@@ -1,0 +1,199 @@
+"""SDV packed GEMM (kernel B2) — torch port of
+``repro.kernels.sdv_matmul``.
+
+``sdv_matmul`` computes the exact per-lane dot products of row-major
+integer activations ``[R, K]`` against SDV storage words ``[K, G]``
+(``[2, K, G]`` limb planes for the wide DSP48E2/DSP58 words), returning
+``[R, G, n]`` int32, through the paper's packed arithmetic: the in-word
+pre-adder ``D - A``, one wide multiply per (row, group, k) carrying
+``n`` MACs, mod-4 spill-over tracking at every lane boundary (with a
+virtual observer lane at ``n L``) and the Eq. 3 extractor.
+
+On a CUDA tensor it launches the hand-written Hopper kernel
+``csrc/sdv.cu::sdv_gemm_kernel``; on a CPU tensor it runs
+``sdv_matmul_plain``, the same word arithmetic step by step in int64
+tensor ops.  There is no fallback between the two: a CUDA tensor that
+the kernel cannot take raises.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..core import limbs
+from . import bseg_common, build
+
+#: the kernels' limits and tile shapes (mirrors csrc/sdv.cu)
+MAX_LANES = 15
+GEMV_MAX_ROWS = 8
+GEMV_THREADS = 64
+GEMM_BG, GEMM_BR, GEMM_BK = 64, 32, 32
+_SIGNED_A, _SIGNED_SPILL, _TWO_LIMB = 1, 2, 4
+
+
+def check_operands(x: torch.Tensor, w_words: torch.Tensor, plan, *,
+                   k_axis: int):
+    """Validate the kernels' operands; returns (rows, K, G).
+
+    ``k_axis`` is the activation's K axis: 1 for the GEMM's row-major
+    ``[R, K]``, 0 for the GEMV's K-major ``[K, B]``."""
+    ws = bseg_common.sdv_word_spec(plan)
+    if not ws.exact_wrap:
+        raise ValueError(f"SDV kernels need exact-wrap arithmetic; datapath "
+                         f"{plan.spec.name} rounds (fp32)")
+    if bseg_common.sdv_layout_bits(plan) > plan.spec.w_word:
+        raise ValueError(f"plan overruns its {plan.spec.name} word: {plan}")
+    if plan.n > MAX_LANES or plan.n * plan.lane + 2 > 64:
+        raise ValueError(f"plan n={plan.n}, L={plan.lane} exceeds the "
+                         f"kernels' limit of {MAX_LANES} lanes in 64 bits")
+    if x.dtype != torch.int32 or x.ndim != 2:
+        raise ValueError(f"activations must be 2-D int32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    want_ndim = 3 if ws.limbs == 2 else 2
+    if w_words.dtype != torch.int32 or w_words.ndim != want_ndim:
+        raise ValueError(f"storage words must be int32 with {want_ndim} "
+                         f"dims for this plan, got {tuple(w_words.shape)} "
+                         f"{w_words.dtype}")
+    if ws.limbs == 2 and w_words.shape[0] != 2:
+        raise ValueError(f"limb planes must lead with 2, got "
+                         f"{tuple(w_words.shape)}")
+    k = x.shape[k_axis]
+    if w_words.shape[-2] != k or k < 1:
+        raise ValueError(f"K mismatch: activations {tuple(x.shape)}, words "
+                         f"{tuple(w_words.shape)}")
+    if x.device != w_words.device:
+        raise ValueError(f"operands on {x.device} and {w_words.device}")
+    if not (x.is_contiguous() and w_words.is_contiguous()):
+        raise ValueError("operands must be contiguous")
+    return x.shape[1 - k_axis], k, w_words.shape[-1]
+
+
+def _stored_words(w_words: torch.Tensor) -> torch.Tensor:
+    """Transport array -> int64 words [K, G] (zero-extended int32, or
+    hi:lo limb planes)."""
+    if w_words.ndim == 3:
+        return limbs.from_planes(w_words)
+    return limbs.from_u32(w_words)
+
+
+def sdv_matmul_plain(x: torch.Tensor, w_words: torch.Tensor,
+                     plan) -> torch.Tensor:
+    """Plain torch version of the SDV GEMM: x [R, K] ints, words
+    [K, G] / [2, K, G] -> [R, G, n] int32.
+
+    Repeats the kernel's word arithmetic step by step in int64 tensors
+    (wrapping mod 2^64 like the kernel's uint64), vectorized over
+    (rows, groups, lane boundaries) and looping over k: pre-adder,
+    wide MAC, mod-4 spill tracking, Eq. 3 extraction."""
+    sdv_matmul_plain.calls += 1
+    n, lane, w_a = plan.n, plan.lane, plan.w_a
+    sign_shift = plan.packed_width
+    spill_signed = plan.signed_a or plan.signed_b
+    dev = x.device
+    words = _stored_words(w_words)                          # [K, G]
+    d = words & ((1 << sign_shift) - 1)
+    bound = torch.arange(1, n + 1, device=dev)              # boundaries 1..n
+    if plan.signed_a:
+        sbits = (words >> sign_shift) & ((1 << n) - 1)
+        el = torch.arange(n, device=dev)
+        bits = (sbits[..., None] >> el) & 1                 # [K, G, n]
+        packed = d - (bits << (el * lane + w_a - 1)).sum(-1)
+    else:
+        sbits = torch.zeros_like(d)
+        packed = d
+    # (a_i mod 4) at boundary i; the observer lane n expects 0
+    lsb2 = (d[..., None] >> (bound * lane)) & 3              # [K, G, n]
+    if plan.signed_a and w_a < 3:
+        lsb2 = (lsb2 + 2 * ((sbits[..., None] >> bound) & 1)) & 3
+    lsb2 = torch.where(bound < n, lsb2, 0)
+    shifts = bound * lane
+
+    xs = x.to(torch.int64)
+    r, k = xs.shape
+    acc = torch.zeros((r, words.shape[1]), dtype=torch.int64, device=dev)
+    spill = torch.zeros((r, words.shape[1], n), dtype=torch.int64,
+                        device=dev)
+    for j in range(k):
+        xk = xs[:, j:j + 1]                                  # [R, 1]
+        acc2 = acc + packed[j] * xk                          # wide MAC
+        mm = ((acc2[..., None] >> shifts) - (acc[..., None] >> shifts)
+              - lsb2[j] * (xk & 3)[..., None]) & 3           # [R, G, n]
+        if spill_signed:
+            mm = torch.where(mm == 3, -1, mm)
+        spill += mm
+        acc = acc2
+    fields = (acc[..., None] >> (torch.arange(n, device=dev) * lane)) \
+        & ((1 << lane) - 1)
+    prev = torch.nn.functional.pad(spill[..., :-1], (1, 0))
+    return limbs.lo32(spill * (1 << lane) + fields - prev)
+
+
+sdv_matmul_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count
+
+
+def k_chunk(k: int, blocks: int, step: int, device: torch.device) -> int:
+    """K steps per block: split K until about four blocks per SM are in
+    flight, each chunk a multiple of ``step``."""
+    target = 4 * _sm_count(device.index if device.index is not None
+                           else torch.cuda.current_device())
+    split = max(1, min(-(-k // step), -(-target // blocks)))
+    chunk = -(-k // split)
+    return -(-chunk // step) * step
+
+
+def plan_flags(plan) -> int:
+    flags = _SIGNED_A if plan.signed_a else 0
+    if plan.signed_a or plan.signed_b:
+        flags |= _SIGNED_SPILL
+    if bseg_common.sdv_word_spec(plan).limbs == 2:
+        flags |= _TWO_LIMB
+    return flags
+
+
+def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
+               plan) -> torch.Tensor:
+    """Packed GEMM (kernel B2).
+
+    Args:
+      x_q: [R, K] int32 activations (row-major), values within w_b bits
+        (signed or unsigned per ``plan.signed_b``).
+      w_words: [K, G] int32 storage words (``ops.prepare_sdv_weights``),
+        or [2, K, G] limb planes for the wide words.
+      plan: SDV lane plan on an exact-wrap datapath, n <= 15.
+
+    Returns:
+      [R, G, n] int32 — exact per-lane dot products.  Any K.
+    """
+    r, k, g = check_operands(x_q, w_words, plan, k_axis=1)
+    if x_q.device.type == "cpu":
+        return sdv_matmul_plain(x_q, w_words, plan)
+    out = torch.empty((r, g, plan.n), dtype=torch.int32, device=x_q.device)
+    blocks = -(-g // GEMM_BG) * -(-r // GEMM_BR)
+    chunk = k_chunk(k, blocks, GEMM_BK, x_q.device)
+    lib = build.library("sdv")
+    err = lib.sdv_gemm(x_q.data_ptr(), w_words.data_ptr(), out.data_ptr(),
+                       r, k, g, plan.n, plan.lane, plan.w_a,
+                       plan.packed_width, plan_flags(plan), chunk,
+                       torch.cuda.current_stream(x_q.device).cuda_stream)
+    build.check(lib, err, "sdv_gemm")
+    sdv_matmul.launches += 1
+    return out
+
+
+sdv_matmul.launches = 0
+
+
+def sdv_num_multiplies(rows: int, m: int, k: int, plan) -> int:
+    """Wide multiplies an SDV GEMM spends on an ``[rows, k] @ [k, m]``
+    product: one multiply covers ``plan.n`` output channels, so the
+    reduction vs the naive count ``rows * m * k`` is exactly the packing
+    density."""
+    groups = -(-m // plan.n)
+    return rows * groups * k

@@ -1,0 +1,112 @@
+"""Serving launcher of the torch port: the single-batch loop.
+
+``--engine off`` (the default here) teacher-forces one fixed batch of
+prompts through ``decode_step`` and greedy-decodes ``--new-tokens``,
+every projection on the SDV datapath (kernels B1/B2 on the card).
+``--engine on`` — the continuous-batching engine — is not ported yet.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def single_batch_loop(cfg, qparams, cache, prompts, new_tokens):
+    """Teacher-force one fixed batch of prompts [B, P], then greedy-decode
+    ``new_tokens``.
+
+    Every step synchronizes the card inside the timed loop, so the clock
+    stops only after the device finishes.  Returns (generated tokens
+    [B, new_tokens] numpy, seconds).
+    """
+    from repro_torch.models import decode_step
+    b, plen = prompts.shape
+    smax = plen + new_tokens
+    tok = prompts[:, :1]
+    gen = []
+    t0 = time.perf_counter()
+    for i in range(smax - 1):
+        logits, cache = decode_step(cfg, qparams, cache, tok)
+        if logits.is_cuda:
+            torch.cuda.synchronize(logits.device)
+        if i + 1 < plen:
+            tok = prompts[:, i + 1:i + 2]
+        else:
+            tok = torch.argmax(logits[:, -1:, :cfg.vocab],
+                               dim=-1).to(torch.int32)
+            gen.append(tok[:, 0].cpu().numpy())
+    dt = time.perf_counter() - t0
+    return np.stack(gen, 1), dt
+
+
+def run_single_batch(cfg, args, params, device):
+    from repro_torch.models import init_cache, serve_params
+    qparams = serve_params(params, bits=args.weight_bits, min_size=1024,
+                           compute="sdv", act_bits=args.act_bits)
+    smax = args.prompt_len + args.new_tokens
+    cache = init_cache(cfg, args.batch, smax, device=device)
+    print(f"{cfg.name}: SDV W{args.weight_bits}A{args.act_bits} datapath "
+          f"(default plans), int8 KV cache, batch {args.batch} "
+          f"(single-batch loop, {device})")
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.tensor(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
+        dtype=torch.int32, device=device)
+    gen, dt = single_batch_loop(cfg, qparams, cache, prompts,
+                                args.new_tokens)
+    print(f"{args.batch * (smax - 1) / dt:.1f} tok/s ({device})")
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"peak memory {peak:.2f} GiB")
+    print("sample:", gen[0][:12])
+    return gen, dt
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="reduced config (--no-smoke runs full size)")
+    ap.add_argument("--engine", choices=("on", "off"), default="off",
+                    help="on: the continuous-batching engine (not ported "
+                         "yet); off: the single-batch loop")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--new-tokens", type=int, default=24)
+    ap.add_argument("--weight-bits", type=int, default=4)
+    ap.add_argument("--act-bits", type=int, default=8,
+                    help="activation width on the SDV datapath")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    args = ap.parse_args(argv)
+    if args.engine == "on":
+        print("the serving engine (--engine on) is not ported yet; use "
+              "--engine off", file=sys.stderr)
+        return 2
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import init_params
+
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    params = init_params(cfg, seed=args.seed, device=device)
+    run_single_batch(cfg, args, params, device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

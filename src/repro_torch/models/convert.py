@@ -1,0 +1,36 @@
+"""Carry parameters from the JAX package to the port through numpy.
+
+``params_from_numpy`` takes the JAX package's value tree as numpy
+arrays (``jax.tree_util.tree_map(np.asarray, values(init_params(...)))``)
+and returns the port's tree: the same keys, torch tensors of the same
+dtypes on ``device``.  bfloat16 arrays (numpy's ``ml_dtypes`` extension
+type) cross as their 16-bit patterns, so every value is carried bit for
+bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    arr = np.array(arr)               # a writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device="cuda"):
+    """Nested dict of numpy arrays -> the same dict of torch tensors."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)

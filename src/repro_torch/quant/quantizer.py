@@ -1,0 +1,62 @@
+"""Symmetric per-channel quantization (the FINN-style fixed-point model).
+
+Torch port of the rule in ``repro.quant.quantizer``:
+
+  * signed symmetric (weights, SDV matmul activations):
+        qmax  = 2^(bits-1) - 1
+        scale = max(amax, 1e-8) / qmax
+        q     = clip(round(x / scale), -qmax, qmax)
+  * unsigned asymmetric (BSEG conv activations, Eqs. 9/10 unsigned
+    domain): ``levels = 2^bits - 1``, ``scale = max(hi-lo, 1e-6) /
+    levels``, zero point ``2^(bits-1)``.
+
+``torch.round`` rounds half to even like ``jnp.round``, and the float32
+division comes before the clip in both, so the two packages produce
+the same integers from the same float32 inputs.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def symmetric_qmax(bits: int) -> int:
+    """Largest magnitude of a ``bits``-wide symmetric signed value."""
+    return (1 << (bits - 1)) - 1
+
+
+def symmetric_scale(amax: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-channel dequantization scale from the abs-max statistic."""
+    return torch.clamp_min(amax, 1e-8) / symmetric_qmax(bits)
+
+
+def symmetric_qvalues(x: torch.Tensor, scale: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    """Round-and-clip ``x / scale`` into the symmetric signed range.
+
+    Returns float values holding exact integers in [-qmax, qmax];
+    callers pick the container dtype."""
+    qmax = symmetric_qmax(bits)
+    return torch.clamp(torch.round(x / scale), -qmax, qmax)
+
+
+def asymmetric_levels(bits: int) -> int:
+    """Number of steps of the unsigned ``bits``-wide domain."""
+    return (1 << bits) - 1
+
+
+def asymmetric_zero_point(bits: int) -> int:
+    """The mid-domain zero point (Eqs. 9/10 signed-to-unsigned shift)."""
+    return 1 << (bits - 1)
+
+
+def asymmetric_scale(lo: torch.Tensor, hi: torch.Tensor,
+                     bits: int) -> torch.Tensor:
+    """Step size of the unsigned asymmetric (min/max) rule."""
+    return torch.clamp_min(hi - lo, 1e-6) / asymmetric_levels(bits)
+
+
+def asymmetric_qvalues(x: torch.Tensor, lo: torch.Tensor,
+                       scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Round-and-clip into the unsigned [0, 2^bits) domain."""
+    return torch.clamp(torch.round((x - lo) / scale), 0,
+                       asymmetric_levels(bits))
