@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main path on one CUDA card and stops with a nonzero
+Drives the port's main paths on one CUDA card and stops with a nonzero
 exit at the first failure:
 
   1. build — compiles kernels B1 (SDV GEMV) and B2 (SDV GEMM) from
-     ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+     ``src/repro_torch/kernels/csrc/sdv.cu`` and B3 (BSEG conv2d) from
+     ``csrc/bseg.cu`` with nvcc for sm_90a, one nvcc per source, all
+     started together;
   2. kernels — each kernel against its plain torch version bit for bit,
      and against the exact integer product (float64 on the card, exact
      while |sum| < 2^53), at the main path's (K, M) shapes, for the
@@ -18,7 +20,22 @@ exit at the first failure:
      at batch 8 (-> B1), then ``single_batch_loop`` as the serve CLI runs
      it; the launch counters are reset before and read after each run.
      The reduced model on the card is held against the same model on
-     the CPU (plain kernel versions).
+     the CPU (plain kernel versions);
+  4. conv kernels — B3 at every UltraNet-INT4 conv shape at 416x416,
+     batch 8, on the int32, fp32m, dsp48e2 and dsp58 W4A4 plans, against
+     its plain version bit for bit and the float64 conv oracle; B2 on
+     the im2col plan of the 1x1 head; times each kernel, its plain
+     version and ``torch.nn.functional.conv2d`` on float32 operands with
+     TF32 off (the library yardstick, never used by the port; its
+     difference from the exact conv is printed);
+  5. ultranet — full-width UltraNet-INT4 ``ultranet_forward(mode=
+     "bseg")`` at 416x416, batch 8, with the default INT32 plan (8 B3
+     launches + 1 B2 launch) and with the DSP48E2 BSEG 3x2 plan on all
+     9 convs (9 B3 launches), each bit-exact against ``mode="ref"``;
+     the counters are reset before and read after each run.  The INT32
+     forward's device busy share (torch.profiler, device events only)
+     and the wall time of its operand prep are printed.  A 32x32 frame
+     on the card is held against the same frame on the CPU.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -32,6 +49,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,6 +64,9 @@ LAYER_SHAPES = {(2048, 2048): 2, (2048, 256): 2, (2048, 5632): 2,
 B1_ROWS, B2_ROWS = (1, 8), (9, 128)
 DECODE_ROWS, PREFILL_ROWS = 8, 128
 BATCH, PROMPT, NEW = 8, 16, 16
+#: UltraNet-INT4 at the frame of the repo's Tab. II accounting
+ULTRA_SIZE, ULTRA_BATCH = 416, 8
+CONV_SPECS = ("int32", "fp32m", "dsp48e2", "dsp58")
 #: reduced model, card vs CPU: every packed GEMM is exact on both, but the
 #: bf16 elementwise ops and the bf16 LM-head product round differently on
 #: the card; a one-ulp bf16 change upstream of the per-row int8 activation
@@ -93,17 +114,21 @@ def bound_ms(nbytes, ops):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.library("sdv")
-    log = build.library_path("sdv").with_suffix(".log").read_text()
-    regs = [line.split("ptxas info    :")[-1].strip()
-            for line in log.splitlines() if "Used" in line]
-    print(f"[build] sdv.cu -> {build.library_path('sdv').name} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc "
-          f"{build.build_seconds['sdv']:.1f} s); {len(regs)} kernels, e.g. "
-          f"{regs[:2]}")
+    names = ("sdv", "bseg")
+    with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
+        list(pool.map(build.build, names))
+    for name in names:
+        build.library(name)
+        log = build.library_path(name).with_suffix(".log").read_text()
+        regs = [line.split("ptxas info    :")[-1].strip()
+                for line in log.splitlines() if "Used" in line]
+        print(f"[build] {name}.cu -> {build.library_path(name).name} (nvcc "
+              f"{build.build_seconds[name]:.1f} s); {len(regs)} kernels, "
+              f"e.g. {regs[:2]}")
+    print(f"[build] all sources in {time.perf_counter() - t0:.1f} s")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, flush):
     """Every kernel vs its plain version and the exact product; timings.
     Returns per-kernel sums over one layer's projections (INT32 plan)."""
     import torch
@@ -117,8 +142,6 @@ def phase_kernels(dev):
     check(plans["dsp48e2 W4A8 n=3"].n == 3, plans["dsp48e2 W4A8 n=3"])
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    flush = flush_buf.zero_                    # evicts the 50 MB L2
     layer = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                         bytes=0, ops=0)
              for name in ("B1", "B2")}
@@ -199,18 +222,149 @@ def int_mm_ms(x, w, flush):
     return event_ms(lambda: torch._int_mm(a, b), reps=10, flush=flush)
 
 
+def phase_conv_kernels(dev, flush):
+    """B3 at every UltraNet conv shape on the four W4A4 plans, and B2 on
+    the head's im2col plan: each against its plain version and the
+    float64 oracle, timed beside its bound and the library conv.
+    Returns B3's sums over one forward's 8 3x3 stages (INT32 plan), its
+    per-layer times, and the B2 head time."""
+    import torch
+    from repro_torch.core.datapath import DATAPATHS, plan_bseg
+    from repro_torch.kernels import bseg_conv2d, ops, ref, sdv_matmul
+    from repro_torch.models.ultranet import ultranet_layer_shapes
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    b = ULTRA_BATCH
+    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0,
+               mults=0)
+    per_layer, max_err = [], 0
+    t_phase = time.perf_counter()
+    for spec in CONV_SPECS:
+        plan = plan_bseg(DATAPATHS[spec], 4, 4)
+        tot = dict(ms=0.0, mults=0)
+        for li, s in enumerate(ultranet_layer_shapes(ULTRA_SIZE, ULTRA_SIZE)):
+            h, w, cin, cout, k = s["h"], s["w"], s["cin"], s["cout"], s["k"]
+            x = torch.randint(0, 16, (b, h, w, cin), generator=gen,
+                              device=dev, dtype=torch.int32)
+            taps = torch.randint(-8, 8, (cout, cin, k, k), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            x_pad, kappa, _ = ops.bseg_conv2d_operands(x, taps, plan)
+
+            def run():
+                return bseg_conv2d.bseg_conv2d(x_pad, kappa, plan=plan,
+                                               h_out=h, w_out=w)
+            got = run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = bseg_conv2d.bseg_conv2d_plain(x_pad, kappa, plan,
+                                                 h_out=h, w_out=w)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            exact = ref.conv2d_int_ref(x, taps)              # float64
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            where = f"{spec} L{li} {h}x{w} {cin}->{cout} k{k}"
+            check(err == 0, f"B3 != plain at {where} (max err {err})")
+            check(torch.equal(got, exact), f"B3 != exact conv at {where}")
+            ms = event_ms(run, reps=5, flush=flush)
+            nbytes = x_pad.numel() + kappa.numel() * 4 + got.numel() * 4
+            macs = b * h * w * cout * cin * k * k
+            b_ms, b_by = bound_ms(nbytes, 2 * macs)
+            mults = b * bseg_conv2d.bseg_conv2d_num_multiplies(
+                h, w, cin, cout, k, k, plan)
+            lib_ms, lib_err = conv2d_library_ms(x, taps, exact, flush)
+            print(f"[conv] B3 {where}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+                  f"{b_by}, {b_ms / ms:.1%} of bound; {mults / 1e6:.1f}M "
+                  f"wide multiplies, {mults / ms / 1e6:.2f} G/s), plain "
+                  f"{plain_ms:.1f} ms, F.conv2d fp32 {lib_ms:.4f} ms "
+                  f"(max |err| {lib_err:g}), exact")
+            tot["ms"] += ms
+            tot["mults"] += mults
+            if spec == "int32" and k == 3:
+                per_layer.append(ms)
+                acc["ms"] += ms
+                acc["plain_ms"] += plain_ms
+                acc["library_ms"] += lib_ms
+                acc["bytes"] += nbytes
+                acc["ops"] += 2 * macs
+                acc["mults"] += mults
+        print(f"[conv] B3 {spec} plan (n_k={plan.n_k}, n_i={plan.n_i}, "
+              f"L={plan.lane}): all 9 convs {tot['ms']:.3f} ms, "
+              f"{tot['mults'] / 1e9:.3f}G wide multiplies")
+    acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
+    acc["max_abs_err"] = max_err
+
+    # B2 on the 1x1 head's im2col plan (signed w_a=4 x w_b=5, n=3)
+    plan = ops._im2col_sdv_plan(plan_bseg(DATAPATHS["int32"], 4, 4))
+    s = ultranet_layer_shapes(ULTRA_SIZE, ULTRA_SIZE)[-1]
+    rows = b * s["h"] * s["w"]
+    x = torch.randint(0, 16, (rows, s["cin"]), generator=gen, device=dev,
+                      dtype=torch.int32)
+    w = torch.randint(-8, 8, (s["cout"], s["cin"]), generator=gen,
+                      device=dev)
+    words = ops.prepare_sdv_weights(w, plan)
+    got = sdv_matmul.sdv_matmul(x, words, plan=plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sdv_matmul.sdv_matmul_plain(x, words, plan)
+    torch.cuda.synchronize()
+    head_plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, f"B2 != plain on the head's im2col plan ({err})")
+    check(torch.equal(got.reshape(rows, -1)[:, :s["cout"]],
+                      ref.sdv_matmul_ref(x, w)),
+          "B2 != exact product on the head's im2col plan")
+    head_ms = event_ms(lambda: sdv_matmul.sdv_matmul(x, words, plan=plan),
+                       reps=10, flush=flush)
+    lib_ms = int_mm_ms(x, w, flush)
+    b_ms, b_by = bound_ms(x.numel() * 4 + words.numel() * 4
+                          + got.numel() * 4, 2 * rows * s["cin"] * s["cout"])
+    print(f"[conv] B2 head im2col plan (w_a={plan.w_a}, w_b={plan.w_b}, "
+          f"n={plan.n}) {rows}x{s['cin']} @ {s['cin']}x{s['cout']}: "
+          f"{head_ms:.4f} ms (bound {b_ms:.5f} ms by {b_by}, "
+          f"{b_ms / head_ms:.1%} of bound), plain {head_plain_ms:.1f} ms, "
+          f"_int_mm {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+          "exact")
+    print(f"[conv] all shapes exact, {time.perf_counter() - t_phase:.1f} s")
+    return acc, per_layer, head_ms
+
+
+def conv2d_library_ms(x, taps, exact, flush):
+    """``torch.nn.functional.conv2d`` on float32 NHWC-strided operands
+    (TF32 off): (time, max |difference| from the exact conv).  Direct
+    and GEMM algorithms are exact here (every partial sum stays below
+    2^24); cuDNN's Winograd-type algorithms, which it may pick for 3x3
+    filters, round."""
+    import torch
+    xf = x.permute(0, 3, 1, 2).to(torch.float32)     # channels-last strides
+    wf = taps.to(torch.float32).contiguous(memory_format=torch.channels_last)
+    pad = taps.shape[-1] // 2
+
+    def run():
+        return torch.nn.functional.conv2d(xf, wf, padding=pad)
+    err = float((run().permute(0, 2, 3, 1) - exact).abs().max())
+    return event_ms(run, reps=5, flush=flush), err
+
+
 def counts():
-    from repro_torch.kernels import sdv_matmul, sdv_matvec
+    from repro_torch.kernels import bseg_conv2d, sdv_matmul, sdv_matvec
     return {"B1": sdv_matvec.sdv_matvec.launches,
             "B2": sdv_matmul.sdv_matmul.launches,
-            "plain": sdv_matmul.sdv_matmul_plain.calls}
+            "B3": bseg_conv2d.bseg_conv2d.launches,
+            "plain": sdv_matmul.sdv_matmul_plain.calls
+            + bseg_conv2d.bseg_conv2d_plain.calls}
 
 
 def reset_counts():
-    from repro_torch.kernels import sdv_matmul, sdv_matvec
+    from repro_torch.kernels import bseg_conv2d, sdv_matmul, sdv_matvec
     sdv_matvec.sdv_matvec.launches = 0
     sdv_matmul.sdv_matmul.launches = 0
+    bseg_conv2d.bseg_conv2d.launches = 0
     sdv_matmul.sdv_matmul_plain.calls = 0
+    bseg_conv2d.bseg_conv2d_plain.calls = 0
 
 
 def phase_serve(dev):
@@ -255,7 +409,7 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     c_prefill = counts()
-    check(c_prefill == {"B1": 0, "B2": per_step, "plain": 0},
+    check(c_prefill == {"B1": 0, "B2": per_step, "B3": 0, "plain": 0},
           f"prefill launches {c_prefill}, want B2={per_step}")
     reset_counts()
     tok = prompts[:, -1:]
@@ -268,7 +422,7 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     c_decode = counts()
-    check(c_decode == {"B1": NEW * per_step, "B2": 0, "plain": 0},
+    check(c_decode == {"B1": NEW * per_step, "B2": 0, "B3": 0, "plain": 0},
           f"decode launches {c_decode}, want B1={NEW * per_step}")
     check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
           and logits.dtype == torch.float32, tuple(logits.shape))
@@ -284,7 +438,13 @@ def phase_serve(dev):
           f"tok/s, launches {c_decode}, peak memory {peak:.2f} GiB, "
           f"sample {sample[:8]}")
 
-    profile_decode(cfg, qparams, cache, tok)
+    # a copy of the cache, so the main path's cache is left as it was
+    state = {"cache": {k: v.clone() for k, v in cache.items()}}
+
+    def step():
+        _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
+    profile(f"decode step at batch {BATCH}", step, steps=2,
+            wall_ms=t_decode / NEW * 1e3)
 
     # the serve CLI's loop (--engine off): teacher-forced prompt + greedy
     reset_counts()
@@ -292,7 +452,7 @@ def phase_serve(dev):
     toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
     c_loop = counts()
     steps = PROMPT + NEW - 1
-    check(c_loop == {"B1": steps * per_step, "B2": 0, "plain": 0},
+    check(c_loop == {"B1": steps * per_step, "B2": 0, "B3": 0, "plain": 0},
           f"single_batch_loop launches {c_loop}")
     check(toks.shape == (BATCH, NEW), toks.shape)
     print(f"[serve] single_batch_loop: {BATCH * steps / dt:.1f} tok/s "
@@ -300,35 +460,34 @@ def phase_serve(dev):
     return {"B1": c_decode["B1"], "B2": c_prefill["B2"]}
 
 
-def profile_decode(cfg, qparams, cache, tok, steps=2):
-    """Device busy time of decode steps (torch.profiler) against their
-    wall time, and the kernels that take it.  The cache is a copy, so
-    the main path's cache is left as it was."""
+def profile(label, fn, steps, wall_ms):
+    """Device busy time per call of ``fn`` (torch.profiler) against
+    ``wall_ms``, the unprofiled wall time per call, and the kernels that
+    take it.  Only device events count (kernels, copies, memsets): an
+    aten op's own device time is that of the kernels it launched, which
+    appear as device events too."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import decode_step
-    cache = {k: v.clone() for k, v in cache.items()}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            _, cache = decode_step(cfg, qparams, cache, tok)
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = prof.key_averages()
-    dev_us = {e.key: getattr(e, "self_device_time_total", 0.0)
-              for e in events}
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
     busy_ms = sum(dev_us.values()) / 1e3 / steps
     if busy_ms == 0.0:
-        print("[profile] decode step: the profiler saw no device time; "
+        print(f"[profile] {label}: the profiler saw no device time; "
               "device busy share not measured")
         return
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[profile] decode step at batch {BATCH} (profiled): wall "
-          f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({busy_ms / wall_ms:.1%}); top device time per step: "
-          + "; ".join(f"{k[:60]} {v / 1e3 / steps:.2f} ms" for k, v in top))
+    print(f"[profile] {label}: unprofiled wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over "
+          f"{len(dev_us)} distinct device events; top device time per call: "
+          + "; ".join(f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
 
 
 def phase_reference(dev):
@@ -375,6 +534,126 @@ def phase_reference(dev):
           f"differ between the card and the CPU)")
 
 
+def phase_ultranet(dev, per_layer, card):
+    """Full-width UltraNet-INT4 at 416x416, batch 8, on the default INT32
+    plan and on the DSP48E2 plan, each bit-exact against the float64
+    oracle; then a 32x32 frame on the card against the CPU.  Returns the
+    launch counts of the two main-path runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.datapath import DSP48E2, plan_bseg
+    from repro_torch.models import init_ultranet, ultranet_forward
+
+    b, size = ULTRA_BATCH, ULTRA_SIZE
+    params = init_ultranet(0, device=dev)
+    img = torch.tensor(np.random.default_rng(1).integers(
+        0, 16, (b, size, size, 3)), dtype=torch.int32, device=dev)
+    y_ref = ultranet_forward(params, img, mode="ref", device=dev)
+    check(tuple(y_ref.shape) == (b, size // 16, size // 16, 36)
+          and y_ref.dtype == torch.int32, tuple(y_ref.shape))
+    runs = {"int32": (None, {"B1": 0, "B2": 1, "B3": 8, "plain": 0}),
+            "dsp48e2": ([plan_bseg(DSP48E2, 4, 4)] * 9,
+                        {"B1": 0, "B2": 0, "B3": 9, "plain": 0})}
+    launches = {}
+    for name, (plans, want) in runs.items():
+        def forward():
+            return ultranet_forward(params, img, mode="bseg", plans=plans,
+                                    device=dev)
+        forward()                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        y = forward()
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        launches[name] = counts()
+        check(launches[name] == want,
+              f"ultranet {name} launches {launches[name]}, want {want}")
+        check(torch.equal(y, y_ref),
+              f"ultranet {name} plan differs from the float64 oracle")
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            forward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"[ultranet] {name} plan, {size}x{size} x{b}: bit-exact vs "
+              f"the float64 oracle; {ms:.3f} ms per forward "
+              f"({b / ms * 1e3:.1f} frames/s; first timed forward "
+              f"{t_first * 1e3:.1f} ms), peak memory {peak:.2f} GiB, "
+              f"launches {launches[name]} ({card})")
+        if name == "int32":
+            profile(f"ultranet int32 forward, {size}x{size} x{b}", forward,
+                    steps=2, wall_ms=ms)
+            prep = time_operand_prep(params, dev)
+            print(f"[ultranet] int32 operand prep per forward, synchronised "
+                  f"wall ({card}): {sum(prep.values()):.3f} ms of the "
+                  f"{ms:.3f} ms forward ("
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in prep.items())
+                  + ")")
+    print(f"[ultranet] B3 per layer on the int32 plan, kernels phase, L2 "
+          f"flushed ({card}): "
+          + ", ".join(f"L{i} {t:.3f} ms" for i, t in enumerate(per_layer)))
+
+    # a small frame on the card against the same frame on the CPU
+    cpu = torch.device("cpu")
+    small = np.random.default_rng(2).integers(0, 16, (2, 32, 32, 3))
+    outs = []
+    for d in (cpu, dev):
+        p = init_ultranet(0, device=d)
+        outs.append(ultranet_forward(p, torch.tensor(small), mode="bseg",
+                                     device=d).cpu())
+    check(torch.equal(outs[0], outs[1]), "ultranet 32x32: card != CPU")
+    print("[ultranet] 32x32 x2: card (kernels) == CPU (plain versions)")
+    return launches
+
+
+def time_operand_prep(params, dev, reps=3):
+    """Synchronised wall time (best of ``reps``) that one INT32-plan
+    forward spends preparing its kernels' operands, at the main path's
+    shapes: ``prepare_bseg_conv2d`` (kappa from the weights, redone on
+    every call), the rest of ``bseg_conv2d_operands`` (building
+    ``x_pad``), and the head's ``prepare_sdv_weights`` and
+    ``_im2col_patches``.  Returns ms per forward by step."""
+    import torch
+    from repro_torch.core.datapath import INT32, plan_bseg
+    from repro_torch.kernels import ops
+    from repro_torch.models.ultranet import ultranet_layer_shapes
+
+    def wall(fn):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    plan = plan_bseg(INT32, 4, 4)
+    sdv_plan = ops._im2col_sdv_plan(plan)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    out = dict(kappa=0.0, x_pad=0.0, sdv_words=0.0, im2col=0.0)
+    shapes = ultranet_layer_shapes(ULTRA_SIZE, ULTRA_SIZE)
+    for s, w in zip(shapes, params.convs + [params.head]):
+        x = torch.randint(0, 16, (ULTRA_BATCH, s["h"], s["w"], s["cin"]),
+                          generator=gen, device=dev, dtype=torch.int32)
+        if s["k"] == 3:
+            t_kappa = wall(lambda: ops.prepare_bseg_conv2d(w, plan))
+            out["kappa"] += t_kappa
+            out["x_pad"] += wall(
+                lambda: ops.bseg_conv2d_operands(x, w, plan)) - t_kappa
+        else:
+            w2 = w.to(torch.int32).reshape(s["cout"], s["cin"])
+            out["sdv_words"] += wall(
+                lambda: ops.prepare_sdv_weights(w2, sdv_plan))
+            out["im2col"] += wall(lambda: ops._im2col_patches(x, 1, 1))
+    return out
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -402,15 +681,22 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         phase_build()
-        layer = phase_kernels(dev)
+        flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        flush = flush_buf.zero_                # evicts the 50 MB L2
+        layer = phase_kernels(dev, flush)
         launches = phase_serve(dev)
         phase_reference(dev)
+        conv, per_layer, head_ms = phase_conv_kernels(dev, flush)
+        ultra = phase_ultranet(dev, per_layer, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     sources = {"B1": ("sdv_matvec", "src/repro/kernels/sdv_matvec.py:46"),
                "B2": ("sdv_matmul", "src/repro/kernels/sdv_matmul.py:178")}
+    by_path = {"B1": {"tinyllama decode": launches["B1"]},
+               "B2": {"tinyllama prefill": launches["B2"],
+                      "ultranet int32": ultra["int32"]["B2"]}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -419,7 +705,8 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sdv.cu",
             "replaces": sources[kname][1],
-            "launches": launches[kname],
+            "launches": sum(by_path[kname].values()),
+            "launches_by_path": by_path[kname],
             "max_abs_err": acc["max_abs_err"],
             "ms": acc["ms"], "plain_ms": acc["plain_ms"],
             "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
@@ -428,6 +715,23 @@ def main() -> int:
                     f"{DECODE_ROWS if kname == 'B1' else PREFILL_ROWS} rows, "
                     "int32 W4A8 plan"),
         })
+    kernels[1]["ultranet_head_ms"] = head_ms
+    b3_paths = {f"ultranet {name}": c["B3"] for name, c in ultra.items()}
+    kernels.append({
+        "name": "B3 bseg_conv2d",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bseg.cu",
+        "replaces": "src/repro/kernels/bseg_conv2d.py:110",
+        "launches": sum(b3_paths.values()),
+        "launches_by_path": b3_paths,
+        "max_abs_err": conv["max_abs_err"],
+        "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+        "library_ms": conv["library_ms"],
+        "per": (f"one UltraNet-INT4 forward's 8 3x3 stages at "
+                f"{ULTRA_SIZE}x{ULTRA_SIZE}, batch {ULTRA_BATCH}, int32 "
+                "W4A4 plan"),
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

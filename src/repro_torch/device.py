@@ -7,6 +7,8 @@ running on the CPU.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,3 +19,11 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on "
             "the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a card; the kernel wrappers size
+    their grids from it."""
+    return torch.cuda.get_device_properties(device_index) \
+        .multi_processor_count

@@ -77,12 +77,19 @@ def build(name: str) -> Path:
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-#: C signatures: name -> (argtypes, restype)
+_U64 = ctypes.c_uint64
+#: C signatures: name -> (argtypes, restype); every library also exports
+#: ``<name>_error_string``
 _SIGNATURES = {
     "sdv": {
         "sdv_gemv": ([_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR], _INT),
         "sdv_gemm": ([_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR], _INT),
         "sdv_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "bseg": {
+        "bseg_conv2d": ([_PTR, _PTR, _PTR] + [_INT] * 14 + [_U64, _U64]
+                        + [_INT] * 5 + [_PTR], _INT),
+        "bseg_error_string": ([_INT], ctypes.c_char_p),
     },
 }
 
@@ -94,11 +101,12 @@ def library(name: str) -> ctypes.CDLL:
     for fn, (argtypes, restype) in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
+    lib.error_string = getattr(lib, f"{name}_error_string")
     return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launcher."""
     if err != 0:
-        msg = lib.sdv_error_string(err).decode()
+        msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,4 +1,4 @@
-"""Packed-matmul dispatch — torch port of the matmul half of
+"""Packed-matmul and packed-conv2d dispatch — torch port of
 ``repro.kernels.ops``.
 
 Dispatch table for ``packed_matmul`` (mode -> kernel -> constraints):
@@ -18,12 +18,42 @@ Dispatch table for ``packed_matmul`` (mode -> kernel -> constraints):
                                                                 exact-wrap, or a hand-built
                                                                 plan's layout overruns its word
 
-The route table and its ``explain=True`` reason strings are the JAX
-package's, word for word.  ``packed_matmul`` always routes as the JAX
-package does with ``use_kernel=True``, on every device: on a CPU tensor
-the kernel routes run their kernel's plain version (every route is
-exact, so the integers are the same either way).  The memory-packed
-``quant_matmul`` route (kernels B5-B7) is not ported yet and raises.
+Dispatch table for ``packed_conv2d`` (mode -> kernel -> constraints):
+
+  mode           kernel                      constraints
+  -------------  --------------------------  ------------------------------
+  bseg_conv2d    kernels/bseg_conv2d (B3,    integer x; BSEG ``plan`` on
+                 csrc/bseg.cu: one block     any datapath (kappa int32,
+                 per output row and channel  float32 on FP32M, or [2, ...]
+                 tile, a carry chain per     limb planes on DSP48E2/
+                 thread, shared row          DSP58); stride 1, 'same'
+                 accumulator)                pad: odd kh and kw;
+                                             ``plan.w_i <= 7``
+  bseg_conv1d    kernels/bseg_conv1d (B4)    depthwise shape only; not
+                                             ported yet: raises
+  im2col         kernels/sdv_matmul (B2)     integer x; patches unfolded
+                 via ``packed_matmul`` (SDV  in torch, compute on the SDV
+                 plan derived from the BSEG  datapath (exact-wrap words
+                 widths, or an ``sdv_plan``  only); odd kh and kw
+                 override)
+  ref            plain exact integer conv    always available; selected
+                 (``ref.conv2d_int_ref``)    in auto when ``use_kernel``
+                                             is False, a hand-built
+                                             plan's accumulation overruns
+                                             its word, or ``plan.w_i > 7``
+
+``mode="auto"`` routes ref-conditions -> bseg_conv1d (depthwise shape)
+-> im2col (1x1 kernels on single-limb-word datapaths) -> bseg_conv2d
+(everything else, including 1x1 on fp32m / dsp48e2 / dsp58 words).
+
+The route tables and their ``explain=True`` reason strings are the JAX
+package's, word for word.  ``packed_matmul`` and ``packed_conv2d``
+always route as the JAX package does with ``use_kernel=True``, on every
+device: on a CPU tensor the kernel routes run their kernel's plain
+version (every route is exact, so the integers are the same either
+way).  The memory-packed ``quant_matmul`` route (kernels B5-B7) and the
+depthwise ``bseg_conv1d`` route (kernel B4) are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -31,9 +61,12 @@ from typing import Optional
 
 import torch
 
+from ..core import bseg as core_bseg
 from ..core import limbs
+from ..core.datapath import BSEGPlan, SDVPlan, plan_sdv
 from ..core.signed_split import pack_unsigned, split_signed
 from . import bseg_common, ref
+from . import bseg_conv2d as bseg2d_kernel
 from . import sdv_matmul as sdvmm_kernel
 from . import sdv_matvec as sdvmv_kernel
 
@@ -201,3 +234,267 @@ def packed_matmul(x: torch.Tensor, w: torch.Tensor, *, plan=None,
                                     plan=plan)               # [R, G, n]
     y = lanes.reshape(x2.shape[0], -1)[:, :m]
     return y.reshape(batch_shape + (m,))
+
+
+# ---------------------------------------------------------------------------
+# packed_conv2d  (dispatch layer — see the module docstring table)
+# ---------------------------------------------------------------------------
+
+_CONV_MODES = ("auto", "bseg_conv2d", "bseg_conv1d", "im2col", "ref")
+
+
+def _conv_word_gate(plan: BSEGPlan) -> Optional[str]:
+    """Why the BSEG conv kernels cannot represent this plan's word, or
+    ``None`` when they can: a hand-built plan whose biased accumulation
+    word overruns the accumulator (``plan_bseg`` refuses to dimension
+    these)."""
+    if plan.n_lanes * plan.lane > plan.spec.w_word:
+        return (f"plan overruns the {plan.spec.name} accumulator word: "
+                f"{plan.n_lanes} lanes x L={plan.lane} > "
+                f"w_word={plan.spec.w_word} (the top lane's guard bias "
+                "falls off the word)")
+    return None
+
+
+def _sdv_words_int32(spec) -> bool:
+    """True when the SDV GEMM stores this datapath's words in a single
+    int32 limb — the *auto* route's preference for the im2col GEMM."""
+    return spec.exact_wrap and spec.w_word <= 32
+
+
+def prepare_bseg_conv2d(w_int: torch.Tensor, plan: BSEGPlan):
+    """[C_out, C_in, kh, kw] signed taps -> (packed kernel-row factors
+    in the plan's transport layout, [C_out] int32 tap sums).
+
+    Single-limb plans store [G, kh, C_in, C_out] words (int32, or
+    float32 on FP32M); wide plans store [2, G, kh, C_in, C_out] int32
+    limb planes.  Each kernel row of each (C_out, C_in) pair packs its
+    kw taps into ceil(kw/n_k) groups, reversed through the pre-adder;
+    the tap sums feed the zero-point correction.
+    """
+    c_out, c_in, kh, kw = w_int.shape
+    groups = -(-kw // plan.n_k)
+    wp = torch.nn.functional.pad(w_int.to(torch.int64),
+                                 (0, groups * plan.n_k - kw))
+    kappa = torch.stack(
+        [core_bseg.bseg_pack_kernel(wp[..., gi * plan.n_k:
+                                       (gi + 1) * plan.n_k], plan)
+         for gi in range(groups)])                 # [G, C_out, C_in, kh]
+    kappa = kappa.permute(0, 3, 2, 1).contiguous()  # [G, kh, C_in, C_out]
+    ws = bseg_common.word_spec(plan)
+    if ws.limbs == 2:
+        kappa = limbs.to_planes(kappa)             # [2, G, kh, C_in, C_out]
+    elif ws.dtype == torch.float32:
+        kappa = kappa.to(torch.float32)            # exact below 2^24
+    else:
+        kappa = limbs.lo32(kappa)
+    tap_sum = w_int.to(torch.int32).sum(dim=(1, 2, 3), dtype=torch.int32)
+    return kappa, tap_sum
+
+
+def _is_depthwise(x_shape, w_shape) -> bool:
+    c_out, c_in, kh, _ = w_shape
+    return c_in == 1 and kh == 1 and c_out == x_shape[-1]
+
+
+def select_conv_route(x_shape, w_shape, *, plan: BSEGPlan,
+                      use_kernel: bool = True, mode: str = "auto",
+                      explain: bool = False):
+    """Pick the kernel for a packed conv2d (the module-docstring table).
+
+    A pure function of (activation shape, weight shape, plan, kernel
+    switch).  ``x_shape`` is [B, H, W, C_in]; ``w_shape`` is [C_out,
+    C_in, kh, kw].  With ``explain=True`` returns ``(route, reason)``;
+    the reason strings are the JAX package's (its planner cost model
+    reads them).
+    """
+    def _r(route: str, reason: str):
+        return (route, reason) if explain else route
+
+    if mode not in _CONV_MODES:
+        raise ValueError(f"unknown packed_conv2d mode {mode!r}")
+    c_out, c_in, kh, kw = w_shape
+    if x_shape[-1] != c_in and not _is_depthwise(x_shape, w_shape):
+        raise ValueError(
+            f"activation channels {x_shape[-1]} != weight C_in {c_in}")
+    if mode in ("bseg_conv2d", "bseg_conv1d", "im2col"):
+        if mode == "im2col":
+            if not plan.spec.exact_wrap:
+                raise ValueError(
+                    "mode 'im2col' computes on the SDV datapath, which "
+                    f"needs exact-wrap arithmetic; {plan.spec.name} "
+                    "rounds (fp32) — use the bseg kernels instead")
+        else:
+            gate = _conv_word_gate(plan)
+            if gate is not None:
+                raise ValueError(f"mode {mode!r}: {gate}")
+        if plan.w_i > 7:
+            raise ValueError(
+                f"mode {mode!r} stages activations in int8: plan.w_i "
+                f"must be <= 7, got {plan.w_i}")
+        if kh % 2 == 0 or kw % 2 == 0:
+            raise ValueError(
+                f"mode {mode!r} is stride-1 'same' pad: kh/kw must be "
+                f"odd, got {kh}x{kw}")
+        if mode == "bseg_conv1d" and not _is_depthwise(x_shape, w_shape):
+            raise ValueError(
+                "mode 'bseg_conv1d' needs a depthwise shape: C_in == 1, "
+                f"kh == 1, C_out == activation channels; got w {w_shape} "
+                f"on x {tuple(x_shape)}")
+        return _r(mode, "explicitly requested")
+    if mode == "ref":
+        return _r(mode, "explicitly requested")
+    # --- auto ---
+    if not use_kernel:
+        return _r("ref", "no Pallas backend (use_kernel=False)")
+    gate = _conv_word_gate(plan)
+    if gate is not None:
+        return _r("ref", gate)
+    if plan.w_i > 7:
+        return _r("ref", f"plan.w_i={plan.w_i} > 7: the conv kernels "
+                         "stage activations in int8")
+    if kh % 2 == 0 or kw % 2 == 0:
+        return _r("ref", f"even kernel {kh}x{kw}: no stride-1 'same' "
+                         "pad")
+    if _is_depthwise(x_shape, w_shape):
+        return _r("bseg_conv1d",
+                  f"depthwise shape on the {plan.spec.name} word: "
+                  "channels ride the VPU lanes")
+    if kh == 1 and kw == 1:
+        if _sdv_words_int32(plan.spec):
+            return _r("im2col", "1x1 kernel: no spatial reuse -> GEMM "
+                                "on the SDV datapath")
+        return _r("bseg_conv2d",
+                  f"1x1 kernel on the wide {plan.spec.name} word: the "
+                  "2-limb SDV GEMM pays extra limb ops per MAC, the "
+                  "BSEG kernel runs the wide word natively")
+    return _r("bseg_conv2d",
+              f"dense kxk conv on the {plan.spec.name} word: one "
+              "cross-channel kernel launch")
+
+
+def _im2col_sdv_plan(plan: BSEGPlan) -> SDVPlan:
+    """SDV plan matching the BSEG widths for the im2col route: signed
+    w_k-bit taps against signed (w_i+1)-bit activations — wide enough
+    for the unsigned w_i datapath domain AND the signed pre-shift
+    values, so no zero-point handling is needed on this route."""
+    return plan_sdv(plan.spec, plan.w_k, plan.w_i + 1, signed_a=True,
+                    signed_b=True, park_sign_bits=True)
+
+
+def _im2col_patches(x32: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """[B, H, W, C] ints -> [B, H, W, kh*kw*C] 'same'-pad patches."""
+    if kh == 1 and kw == 1:
+        return x32
+    h, w = x32.shape[1:3]
+    xp = torch.nn.functional.pad(x32, (0, 0, kw // 2, kw // 2,
+                                       kh // 2, kh // 2))
+    cols = [xp[:, r:r + h, q:q + w, :]
+            for r in range(kh) for q in range(kw)]
+    return torch.cat(cols, dim=-1)
+
+
+def packed_conv2d(x: torch.Tensor, w_int: torch.Tensor, *, plan: BSEGPlan,
+                  mode: str = "auto", zero_point: int = 0,
+                  sdv_plan: Optional[SDVPlan] = None) -> torch.Tensor:
+    """Stride-1 'same'-pad conv2d with kernel dispatch.
+
+    Args:
+      x: [B, H, W, C_in] integer activations; ``x + zero_point`` must
+        lie in the unsigned datapath domain [0, 2^w_i) (pass 0 when the
+        activations are already unsigned, e.g. post-requantization).
+      w_int: [C_out, C_in, kh, kw] signed taps within ``plan.w_k`` bits.
+      plan: BSEG plan on any supported datapath.
+      mode: a row of the dispatch table, or ``"auto"``.
+      zero_point: the activations' zero point (bseg_conv2d route).
+      sdv_plan: optional SDV plan for the im2col route; defaults to the
+        plan derived from the BSEG widths.  An unsigned-multiplier
+        override (``signed_b=False``) needs ``zero_point == 0``.
+
+    Returns:
+      [B, H, W, C_out] int32 — the exact signed-domain correlation
+      (identical to ``ref.conv2d_int_ref`` on every route).
+    """
+    if x.dtype.is_floating_point or x.dtype.is_complex:
+        raise ValueError(
+            f"packed_conv2d needs integer activations within "
+            f"plan.w_i={plan.w_i} bits (+zero_point), got {x.dtype}")
+    if sdv_plan is not None and not sdv_plan.signed_b and zero_point:
+        raise ValueError(
+            "an unsigned-multiplier sdv_plan needs zero_point == 0: "
+            "the im2col route feeds the pre-shift signed activations")
+    route = select_conv_route(tuple(x.shape), tuple(w_int.shape),
+                              plan=plan, mode=mode)
+    b, h, w, c_in = x.shape
+    c_out, _, kh, kw = w_int.shape
+
+    if route == "ref":
+        return ref.conv2d_int_ref(x, w_int)
+
+    if route == "bseg_conv1d":
+        raise NotImplementedError(
+            "route 'bseg_conv1d': the depthwise BSEG conv (kernel B4) is "
+            "not ported yet")
+
+    if route == "im2col":
+        if sdv_plan is None:
+            sdv_plan = _im2col_sdv_plan(plan)
+        patches = _im2col_patches(x.to(torch.int32), kh, kw)
+        w2 = w_int.to(torch.int32).permute(0, 2, 3, 1) \
+            .reshape(c_out, kh * kw * c_in)
+        words = prepare_sdv_weights(w2, sdv_plan)
+        return packed_matmul(patches, words, plan=sdv_plan, m=c_out)
+
+    # bseg_conv2d
+    x_pad, kappa, tap_sum = bseg_conv2d_operands(x, w_int, plan,
+                                                 zero_point)
+    y = bseg2d_kernel.bseg_conv2d(x_pad, kappa, plan=plan, h_out=h,
+                                  w_out=w)
+    if zero_point:
+        y = y - zero_point * tap_sum[None, None, None, :]
+    return y
+
+
+def bseg_conv2d_operands(x: torch.Tensor, w_int: torch.Tensor,
+                         plan: BSEGPlan, zero_point: int = 0):
+    """The bseg_conv2d route's kernel operands: (x_pad [B, H + kh - 1,
+    W_pad, C_in] int8, kappa, [C_out] tap sums).
+
+    The activations move into the unsigned domain (``x + zero_point``);
+    the boundary pad is signed zero, i.e. the zero point; the right pad
+    covers the step schedule (it only feeds discarded outputs)."""
+    b, h, w, c_in = x.shape
+    kh, kw = w_int.shape[2:]
+    kappa, tap_sum = prepare_bseg_conv2d(w_int, plan)
+    n_groups = kappa.shape[-4]
+    n_steps = -(-(w + plan.n_k - 1) // plan.n_i)
+    need = (n_steps - 1) * plan.n_i + (n_groups - 1) * plan.n_k + plan.n_i
+    pad_h, pad_w = kh // 2, kw // 2
+    x_pad = torch.full((b, h + 2 * pad_h,
+                        w + pad_w + max(pad_w, need - (w + pad_w)), c_in),
+                       zero_point, dtype=torch.int8, device=x.device)
+    x_pad[:, pad_h:pad_h + h, pad_w:pad_w + w] = \
+        (x.to(torch.int32) + zero_point).to(torch.int8)
+    return x_pad, kappa, tap_sum
+
+
+def _unpack_bseg_taps(kappa: torch.Tensor, plan: BSEGPlan,
+                      n_taps: int) -> torch.Tensor:
+    """Recover [C, n] signed taps from packed factors [G, C] (int32, or
+    float32 on FP32M) or [2, G, C] limb planes: the lanes hold the
+    arithmetic sum, decoded low-to-high with borrow."""
+    if bseg_common.word_spec(plan).limbs == 2:
+        words = limbs.from_planes(kappa)
+    else:
+        words = kappa.to(torch.int64)
+    lane, half = plan.lane, 1 << (plan.lane - 1)
+    segs = []
+    for rem in words:
+        vals = []
+        for i in range(plan.n_k):
+            f = (rem >> (i * lane)) & ((1 << lane) - 1)
+            v = torch.where(f >= half, f - (1 << lane), f)
+            vals.append(v)
+            rem = rem - (v << (i * lane))
+        segs.append(torch.stack(vals[::-1], dim=-1))        # un-reverse
+    return torch.cat(segs, dim=-1)[:, :n_taps].to(torch.int32)

@@ -1,11 +1,11 @@
-"""Plain oracles for the SDV kernels (torch port of the SDV part of
-``repro.kernels.ref``).
+"""Plain oracles for the packed kernels (torch port of the SDV GEMM and
+conv2d parts of ``repro.kernels.ref``).
 
 They use no packing arithmetic at all: the storage words are decoded
 back to integers and multiplied exactly.  The products are taken in
 float64, which is exact while |sum| < 2^53 (every plan with w_a, w_b
 <= 8 at any K below 2^37), and works on the card, where torch has no
-integer matmul.
+integer matmul or integer convolution.
 """
 from __future__ import annotations
 
@@ -53,3 +53,29 @@ def sdv_unpack_words_ref(w_words: torch.Tensor, *, plan) -> torch.Tensor:
         else:
             vals.append((word >> (i * plan.lane)) & ((1 << plan.w_a) - 1))
     return torch.stack(vals, dim=-1).reshape(k, g * plan.n).to(torch.int32)
+
+
+def conv2d_int_ref(x_int: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+    """Exact stride-1 'same'-pad integer conv2d (the conv oracle).
+
+    x [b, h, w, c_in * groups] ints, w [c_out, c_in, kh, kw] ints ->
+    [b, h, w, c_out] int32 (``c_in == 1`` with ``c_out`` equal to the
+    activation channels is the depthwise conv).  One float64 product
+    per kernel tap, summed in float64: exact while |sum| < 2^53, on
+    both devices (no float32 convolution, which the card runs in TF32).
+    """
+    c_out, c_in, kh, kw = w_int.shape
+    b, h, w, c = x_int.shape
+    groups = c // c_in
+    xp = torch.nn.functional.pad(x_int.to(torch.float64),
+                                 (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    xg = xp.reshape(b, h + 2 * (kh // 2), w + 2 * (kw // 2), groups, c_in)
+    wg = w_int.to(torch.float64).reshape(groups, c_out // groups, c_in,
+                                         kh, kw)
+    y = torch.zeros((b, h, w, groups, c_out // groups), dtype=torch.float64,
+                    device=x_int.device)
+    for r in range(kh):
+        for q in range(kw):
+            y += torch.einsum("bhwgi,goi->bhwgo", xg[:, r:r + h, q:q + w],
+                              wg[..., r, q])
+    return limbs.lo32(y.reshape(b, h, w, c_out).to(torch.int64))

@@ -17,11 +17,10 @@ the kernel cannot take raises.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..core import limbs
+from ..device import sm_count
 from . import bseg_common, build
 
 #: the kernels' limits and tile shapes (mirrors csrc/sdv.cu)
@@ -132,16 +131,10 @@ def sdv_matmul_plain(x: torch.Tensor, w_words: torch.Tensor,
 sdv_matmul_plain.calls = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index) \
-        .multi_processor_count
-
-
 def k_chunk(k: int, blocks: int, step: int, device: torch.device) -> int:
     """K steps per block: split K until about four blocks per SM are in
     flight, each chunk a multiple of ``step``."""
-    target = 4 * _sm_count(device.index if device.index is not None
+    target = 4 * sm_count(device.index if device.index is not None
                            else torch.cuda.current_device())
     split = max(1, min(-(-k // step), -(-target // blocks)))
     chunk = -(-k // split)

@@ -1,11 +1,14 @@
-"""Model library of the torch port: the quantized dense decoder."""
-from .convert import params_from_numpy
+"""Model library of the torch port: the quantized dense decoder and
+UltraNet-INT4."""
+from .convert import params_from_numpy, ultranet_params_from_numpy
 from .quantized import (SDVLinear, default_sdv_plan, materialize,
                         pack_linear_sdv, sdv_matmul_apply, serve_params)
 from .transformer import (decode_step, init_cache, init_params,
                           prefill_step)
+from .ultranet import UltraNetParams, init_ultranet, ultranet_forward
 
-__all__ = ["SDVLinear", "decode_step", "default_sdv_plan", "init_cache",
-           "init_params", "materialize", "pack_linear_sdv",
-           "params_from_numpy", "prefill_step", "sdv_matmul_apply",
-           "serve_params"]
+__all__ = ["SDVLinear", "UltraNetParams", "decode_step", "default_sdv_plan",
+           "init_cache", "init_params", "init_ultranet", "materialize",
+           "pack_linear_sdv", "params_from_numpy", "prefill_step",
+           "sdv_matmul_apply", "serve_params", "ultranet_forward",
+           "ultranet_params_from_numpy"]

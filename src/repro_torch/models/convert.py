@@ -5,7 +5,8 @@ arrays (``jax.tree_util.tree_map(np.asarray, values(init_params(...)))``)
 and returns the port's tree: the same keys, torch tensors of the same
 dtypes on ``device``.  bfloat16 arrays (numpy's ``ml_dtypes`` extension
 type) cross as their 16-bit patterns, so every value is carried bit for
-bit.
+bit.  ``ultranet_params_from_numpy`` does the same for UltraNet's conv
+weights (``[np.asarray(w) for w in params.convs]``, ``params.head``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .ultranet import UltraNetParams
 
 
 def _tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -34,3 +36,11 @@ def params_from_numpy(tree, device="cuda"):
         return _tensor(node, dev)
 
     return walk(tree)
+
+
+def ultranet_params_from_numpy(convs, head, device="cuda") -> UltraNetParams:
+    """The reference's UltraNet weights (numpy int8 ``[C_out, C_in, k,
+    k]`` stages and head) -> the port's ``UltraNetParams``."""
+    dev = resolve_device(device)
+    return UltraNetParams(convs=[_tensor(w, dev) for w in convs],
+                          head=_tensor(head, dev))

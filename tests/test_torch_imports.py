@@ -37,24 +37,37 @@ def test_port_imports_without_jax_or_reference():
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 28      # every module imported
 
 
 def _entry_points():
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch import serve
-    from repro_torch.models import init_cache, init_params, params_from_numpy
+    from repro_torch.launch import serve, ultranet
+    from repro_torch.models import (init_cache, init_params, init_ultranet,
+                                    params_from_numpy, ultranet_forward,
+                                    ultranet_params_from_numpy)
     cfg = get_arch("tinyllama-1.1b").reduced()
+    cpu_params = init_ultranet(0, device="cpu")
     return {
         "init_params": lambda: init_params(cfg),
         "init_cache": lambda: init_cache(cfg, 2, 8),
         "params_from_numpy": lambda: params_from_numpy({}),
         "serve_cli": lambda: serve.main(["--batch", "1"]),
+        "init_ultranet": lambda: init_ultranet(0),
+        "ultranet_forward": lambda: ultranet_forward(
+            cpu_params, torch.zeros(1, 16, 16, 3, dtype=torch.int32),
+            mode="bseg"),
+        "ultranet_params_from_numpy": lambda: ultranet_params_from_numpy(
+            [], cpu_params.head.numpy()),
+        "ultranet_cli": lambda: ultranet.main(["--size", "16"]),
     }
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache",
-                                  "params_from_numpy", "serve_cli"])
+                                  "params_from_numpy", "serve_cli",
+                                  "init_ultranet", "ultranet_forward",
+                                  "ultranet_params_from_numpy",
+                                  "ultranet_cli"])
 def test_entry_points_refuse_to_fall_back_to_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")

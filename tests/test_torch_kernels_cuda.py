@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1 GEMV, B2 GEMM) against their plain torch
-version and the exact integer product.
+"""The port's CUDA kernels (B1 GEMV, B2 GEMM, B3 BSEG conv2d) against
+their plain torch version and the exact integer product.
 
 Imports only the port, so it runs on a machine with a card and no JAX:
 
@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.datapath import DATAPATHS, plan_sdv
-from repro_torch.kernels import ops, sdv_matmul, sdv_matvec
+from repro_torch.core.datapath import DATAPATHS, plan_bseg, plan_sdv
+from repro_torch.kernels import (bseg_conv2d, ops, ref, sdv_matmul,
+                                 sdv_matvec)
 
 
 @pytest.fixture
@@ -34,9 +35,12 @@ def _case(spec, wa, wb, signed_a, m, k, rows, seed):
 
 
 @pytest.mark.parametrize("spec,wa,wb", [("int32", 4, 8), ("dsp48e2", 4, 8),
-                                        ("dsp58", 4, 4), ("int32", 2, 2)])
+                                        ("dsp58", 4, 4), ("int32", 2, 2),
+                                        ("int32", 4, 5), ("dsp48e2", 4, 5),
+                                        ("dsp58", 4, 5)])
 @pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 77])
 def test_kernels_match_plain_and_exact(cuda, spec, wa, wb, rows):
+    """(4, 5) is the im2col plan of the W4A4 BSEG plans: the 1x1 head."""
     plan, w, x, words = _case(spec, wa, wb, True, 301, 700, rows, rows)
     xt = torch.tensor(x, dtype=torch.int32)
     want = sdv_matmul.sdv_matmul_plain(xt, words, plan)
@@ -72,3 +76,88 @@ def test_launch_counters_and_dispatch(cuda):
     assert sdv_matmul.sdv_matmul_plain.calls == plain
     assert (y12.cpu().numpy() == x @ w.T).all()
     assert (y8.cpu().numpy() == x[:8] @ w.T).all()
+
+
+def _conv_case(spec, wk, wi, c_in, c_out, k, h, w, b, seed):
+    plan = plan_bseg(DATAPATHS[spec], wk, wi)
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.integers(0, 1 << wi, (b, h, w, c_in)))
+    taps = torch.tensor(rng.integers(-(1 << wk - 1), 1 << wk - 1,
+                                     (c_out, c_in, k, k)))
+    return plan, x, taps
+
+
+#: (spec, w_k, w_i): the four W4A4 plans of UltraNet, and plans with
+#: more lanes and other n_i
+_B3_PLANS = [("int32", 4, 4), ("fp32m", 4, 4), ("dsp48e2", 4, 4),
+             ("dsp58", 4, 4), ("int32", 2, 2), ("dsp48e2", 2, 2),
+             ("fp32m", 3, 3), ("dsp58", 4, 7)]
+
+
+@pytest.mark.parametrize("spec,wk,wi", _B3_PLANS)
+@pytest.mark.parametrize("c_in,c_out,k,h,w", [(3, 16, 3, 13, 40),
+                                              (16, 37, 3, 9, 21),
+                                              (64, 36, 1, 7, 26),
+                                              (5, 8, 5, 6, 11)])
+def test_bseg_conv2d_matches_plain_and_exact(cuda, spec, wk, wi, c_in, c_out,
+                                             k, h, w):
+    """B3 on the card against its plain version on the CPU, bit for bit,
+    and ``packed_conv2d`` against the exact conv (C_out = 37: a ragged
+    channel tile; 1x1 on every word)."""
+    plan, x, taps = _conv_case(spec, wk, wi, c_in, c_out, k, h, w, 2, c_out)
+    exact = ref.conv2d_int_ref(x, taps)
+    x_pad, kappa, _ = ops.bseg_conv2d_operands(x, taps, plan)
+    want = bseg_conv2d.bseg_conv2d_plain(x_pad, kappa, plan, h_out=h,
+                                         w_out=w)
+    assert (want == exact).all()
+    launches = bseg_conv2d.bseg_conv2d.launches
+    got = bseg_conv2d.bseg_conv2d(x_pad.to(cuda), kappa.to(cuda), plan=plan,
+                                  h_out=h, w_out=w)
+    torch.cuda.synchronize()
+    assert bseg_conv2d.bseg_conv2d.launches == launches + 1
+    assert got.dtype == torch.int32 and (got.cpu() == want).all()
+    y = ops.packed_conv2d(x.to(cuda), taps.to(cuda), plan=plan,
+                          mode="bseg_conv2d")
+    torch.cuda.synchronize()
+    assert (y.cpu() == exact).all()
+
+
+def test_bseg_conv2d_zero_point_and_wide_rows(cuda):
+    """A signed activation domain through the zero point, and a 416-wide
+    row (UltraNet's first layer) with pipelines split across blocks."""
+    plan, x, taps = _conv_case("int32", 4, 4, 3, 16, 3, 4, 416, 1, 0)
+    xs = x - 5
+    y = ops.packed_conv2d(xs.to(cuda), taps.to(cuda), plan=plan,
+                          zero_point=5)
+    torch.cuda.synchronize()
+    assert (y.cpu() == ref.conv2d_int_ref(xs, taps)).all()
+    plan, x, taps = _conv_case("dsp48e2", 4, 4, 64, 64, 3, 3, 26, 1, 1)
+    y = ops.packed_conv2d(x.to(cuda), taps.to(cuda), plan=plan)
+    torch.cuda.synchronize()
+    assert (y.cpu() == ref.conv2d_int_ref(x, taps)).all()
+
+
+def test_bseg_conv2d_rejects_operands(cuda):
+    plan, x, taps = _conv_case("int32", 4, 4, 4, 8, 3, 5, 9, 1, 0)
+    kappa, _ = ops.prepare_bseg_conv2d(taps, plan)
+    x_pad = torch.zeros((1, 7, 16, 4), dtype=torch.int8, device=cuda)
+    kd = kappa.to(cuda)
+    with pytest.raises(ValueError, match="int8"):
+        bseg_conv2d.bseg_conv2d(x_pad.to(torch.int32), kd, plan=plan,
+                                h_out=5, w_out=9)
+    with pytest.raises(ValueError, match="columns"):
+        bseg_conv2d.bseg_conv2d(x_pad[:, :, :8].contiguous(), kd, plan=plan,
+                                h_out=5, w_out=9)
+    with pytest.raises(ValueError, match="rows"):
+        bseg_conv2d.bseg_conv2d(x_pad, kd, plan=plan, h_out=6, w_out=9)
+    with pytest.raises(ValueError, match="channels"):
+        bseg_conv2d.bseg_conv2d(x_pad[..., :3].contiguous(), kd, plan=plan,
+                                h_out=5, w_out=9)
+    with pytest.raises(ValueError, match="operands on"):
+        bseg_conv2d.bseg_conv2d(x_pad, kappa, plan=plan, h_out=5, w_out=9)
+    wide = plan_bseg(DATAPATHS["dsp48e2"], 4, 4)
+    with pytest.raises(ValueError, match="5 dims"):
+        bseg_conv2d.bseg_conv2d(x_pad, kd, plan=wide, h_out=5, w_out=9)
+    fp = plan_bseg(DATAPATHS["fp32m"], 4, 4)
+    with pytest.raises(ValueError, match="float32"):
+        bseg_conv2d.bseg_conv2d(x_pad, kd, plan=fp, h_out=5, w_out=9)

@@ -78,7 +78,27 @@ def _outcome(fn):
 @pytest.mark.parametrize("key", _PLAN_KEYS,
                          ids=["-".join(map(str, k)) for k in _PLAN_KEYS])
 def test_plan_words_routes_and_packed_matmul(key):
-    jplan, tplan = _plans(*key)
+    _check_plan_words_routes_and_packed_matmul(*_plans(*key))
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_im2col_plan_words_routes_and_packed_matmul(spec):
+    """The SDV plan of the conv im2col route (``_im2col_sdv_plan`` of the
+    W4A4 BSEG plan: w_a=4, w_b=5, both signed, L=8, n=3) — the plan
+    UltraNet's 1x1 head runs on kernel B2."""
+    jbplan = jdp.plan_bseg(jdp.DATAPATHS[spec], 4, 4)
+    tbplan = tdp.plan_bseg(tdp.DATAPATHS[spec], 4, 4)
+    jplan, tplan = jops._im2col_sdv_plan(jbplan), tops._im2col_sdv_plan(tbplan)
+    assert (tplan.w_a, tplan.w_b, tplan.lane, tplan.n, tplan.signed_a,
+            tplan.signed_b) == (4, 5, 8, 3, True, True)
+    _check_plan_words_routes_and_packed_matmul(jplan, tplan)
+    # the head's row count (B * 26 * 26 > 8 rows) takes the GEMM
+    assert tops.select_packed_route(5408, plan=tplan, explain=True) == \
+        jops.select_packed_route(5408, plan=jplan, explain=True)
+    assert tops.select_packed_route(5408, plan=tplan) == "sdv_matmul"
+
+
+def _check_plan_words_routes_and_packed_matmul(jplan, tplan):
     # plan fields
     assert dataclasses.asdict(jplan) == dataclasses.asdict(tplan)
     assert jplan.packed_width == tplan.packed_width
@@ -114,7 +134,8 @@ def test_plan_words_routes_and_packed_matmul(key):
 
 @pytest.mark.parametrize("spec,wa,wb,signed_a", [
     ("int32", 4, 8, True), ("dsp48e2", 4, 8, True), ("dsp58", 4, 4, False),
-    ("int32", 3, 5, False)])
+    ("int32", 3, 5, False), ("int32", 4, 5, True), ("dsp48e2", 4, 5, True),
+    ("dsp58", 4, 5, True)])
 def test_sdv_matmul_plain_matches_pallas_kernel(spec, wa, wb, signed_a):
     """sdv_matmul_plain == JAX sdv_matmul(interpret=True) == x @ w.T,
     with two K blocks on the JAX side and M not a multiple of n."""
