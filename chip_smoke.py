@@ -5,8 +5,9 @@ Drives the port's main paths on one CUDA card and stops with a nonzero
 exit at the first failure:
 
   1. build — compiles kernels B1 (SDV GEMV) and B2 (SDV GEMM) from
-     ``src/repro_torch/kernels/csrc/sdv.cu`` and B3 (BSEG conv2d) from
-     ``csrc/bseg.cu`` with nvcc for sm_90a, one nvcc per source, all
+     ``src/repro_torch/kernels/csrc/sdv.cu``, B3 (BSEG conv2d) from
+     ``csrc/bseg.cu`` and B4 (BSEG depthwise conv1d) from
+     ``csrc/bseg1d.cu`` with nvcc for sm_90a, one nvcc per source, all
      started together;
   2. kernels — each kernel against its plain torch version bit for bit,
      and against the exact integer product (float64 on the card, exact
@@ -35,7 +36,24 @@ exit at the first failure:
      the counters are reset before and read after each run.  The INT32
      forward's device busy share (torch.profiler, device events only)
      and the wall time of its operand prep are printed.  A 32x32 frame
-     on the card is held against the same frame on the CPU.
+     on the card is held against the same frame on the CPU;
+  6. conv1d kernels — B4 on the int32, fp32m, dsp48e2 and dsp58 W4A4
+     plans at the decode shape (batch 8, 4 samples: 1 new + 3 of
+     history) and at 2048 samples, with the channels of mamba2-130m
+     (1792) and recurrentgemma-2b (2560), and on a 'same'-padded
+     depthwise ``packed_conv2d``: against its plain version and the
+     exact conv, timed beside its bound and
+     ``torch.nn.functional.conv1d(groups=C)`` on float32 operands with
+     TF32 off (the library yardstick, never used by the port);
+  7. recurrent serve — full-width mamba2-130m, then full-width
+     recurrentgemma-2b, from a seeded torch init packed by
+     ``serve_params(compute="sdv", min_size=1024)``: 16-token prompts
+     replayed one token per step and 16 greedy tokens at batch 8 through
+     ``single_batch_loop``, with the per-step launch counts read from the
+     packed tree (B4 24 / 18, B1 120 / 200, no B2, B3 or plain call); ms
+     per step, tok/s, peak memory and the device busy share of a step.
+     The packed short conv (``bseg_conv_apply``) on the card is held
+     against the same call on the CPU at the full-width decode shape.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -67,12 +85,27 @@ BATCH, PROMPT, NEW = 8, 16, 16
 #: UltraNet-INT4 at the frame of the repo's Tab. II accounting
 ULTRA_SIZE, ULTRA_BATCH = 416, 8
 CONV_SPECS = ("int32", "fp32m", "dsp48e2", "dsp58")
+#: the short conv: channels of mamba2-130m (d_inner + 2 d_state) and of
+#: recurrentgemma-2b (d_rnn), 4 taps; a decode call sees 1 new sample and
+#: 3 of history, a long call 2048
+CONV1D_CHANNELS, CONV1D_TAPS = (1792, 2560), 4
+CONV1D_SAMPLES = {"decode": 4, "long": 2048}
+#: the recurrent archs and their per-step launches (batch 8: B1, never B2)
+RECURRENT_STEP = {"mamba2-130m": {"B1": 120, "B4": 24},
+                  "recurrentgemma-2b": {"B1": 200, "B4": 18}}
 #: reduced model, card vs CPU: every packed GEMM is exact on both, but the
 #: bf16 elementwise ops and the bf16 LM-head product round differently on
 #: the card; a one-ulp bf16 change upstream of the per-row int8 activation
 #: quantizer moves an activation by one step and compounds over the
 #: layers (0.051 observed on this check, H100, 700 W)
 LOGIT_ATOL = 0.1
+
+
+#: the kernel functions of csrc/*.cu, as the profiler names them
+PORT_KERNELS = ("sdv_gemv_kernel", "sdv_gemm_kernel", "bseg_conv2d_kernel",
+                "bseg_conv1d_kernel")
+#: clock cycles the card spins before each timed call (~1 ms)
+SPIN_CYCLES = 2_000_000
 
 
 class SmokeFailure(Exception):
@@ -87,12 +120,16 @@ def check(cond, msg):
 def event_ms(fn, reps, flush=None):
     """Mean device time of ``fn`` over ``reps`` calls (CUDA events around
     each call; ``flush`` runs before each, outside the events), after two
-    untimed calls."""
+    untimed calls.  The card first spins ``SPIN_CYCLES``, long enough for
+    the host to queue the flush, the events and the call behind it: the
+    events then time the device's work and not the wrapper's host time,
+    which exceeds a small kernel's."""
     import torch
     fn()
     fn()
     total = 0.0
     for _ in range(reps):
+        torch.cuda._sleep(SPIN_CYCLES)
         if flush is not None:
             flush()
         start = torch.cuda.Event(enable_timing=True)
@@ -114,7 +151,7 @@ def bound_ms(nbytes, ops):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    names = ("sdv", "bseg")
+    names = ("sdv", "bseg", "bseg1d")
     with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
         list(pool.map(build.build, names))
     for name in names:
@@ -207,12 +244,17 @@ def phase_kernels(dev, flush):
 
 def int_mm_ms(x, w, flush):
     """``torch._int_mm`` on the unpacked int8 operands (rows padded to 32,
-    its smallest accepted row count above 16), or None if refused."""
+    its smallest accepted row count above 16; output columns zero-padded
+    to a multiple of 8, which it needs: the same function), or None if
+    refused."""
     import torch
     rows = max(32, x.shape[0])
     a = torch.zeros((rows, x.shape[1]), dtype=torch.int8, device=x.device)
     a[:x.shape[0]] = x.to(torch.int8)
-    b = w.to(torch.int8).T                    # [K, M], column-major
+    m = -(-w.shape[0] // 8) * 8
+    wp = torch.zeros((m, w.shape[1]), dtype=torch.int8, device=w.device)
+    wp[:w.shape[0]] = w.to(torch.int8)
+    b = wp.T                                  # [K, M], column-major
     try:
         torch._int_mm(a, b)
     except RuntimeError as e:
@@ -350,21 +392,27 @@ def conv2d_library_ms(x, taps, exact, flush):
 
 
 def counts():
-    from repro_torch.kernels import bseg_conv2d, sdv_matmul, sdv_matvec
+    from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, sdv_matmul,
+                                     sdv_matvec)
     return {"B1": sdv_matvec.sdv_matvec.launches,
             "B2": sdv_matmul.sdv_matmul.launches,
             "B3": bseg_conv2d.bseg_conv2d.launches,
+            "B4": bseg_conv1d.bseg_conv1d.launches,
             "plain": sdv_matmul.sdv_matmul_plain.calls
-            + bseg_conv2d.bseg_conv2d_plain.calls}
+            + bseg_conv2d.bseg_conv2d_plain.calls
+            + bseg_conv1d.bseg_conv1d_plain.calls}
 
 
 def reset_counts():
-    from repro_torch.kernels import bseg_conv2d, sdv_matmul, sdv_matvec
+    from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, sdv_matmul,
+                                     sdv_matvec)
     sdv_matvec.sdv_matvec.launches = 0
     sdv_matmul.sdv_matmul.launches = 0
     bseg_conv2d.bseg_conv2d.launches = 0
+    bseg_conv1d.bseg_conv1d.launches = 0
     sdv_matmul.sdv_matmul_plain.calls = 0
     bseg_conv2d.bseg_conv2d_plain.calls = 0
+    bseg_conv1d.bseg_conv1d_plain.calls = 0
 
 
 def phase_serve(dev):
@@ -409,7 +457,8 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     c_prefill = counts()
-    check(c_prefill == {"B1": 0, "B2": per_step, "B3": 0, "plain": 0},
+    check(c_prefill == {"B1": 0, "B2": per_step, "B3": 0, "B4": 0,
+                        "plain": 0},
           f"prefill launches {c_prefill}, want B2={per_step}")
     reset_counts()
     tok = prompts[:, -1:]
@@ -422,7 +471,8 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     c_decode = counts()
-    check(c_decode == {"B1": NEW * per_step, "B2": 0, "B3": 0, "plain": 0},
+    check(c_decode == {"B1": NEW * per_step, "B2": 0, "B3": 0, "B4": 0,
+                       "plain": 0},
           f"decode launches {c_decode}, want B1={NEW * per_step}")
     check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
           and logits.dtype == torch.float32, tuple(logits.shape))
@@ -452,7 +502,8 @@ def phase_serve(dev):
     toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
     c_loop = counts()
     steps = PROMPT + NEW - 1
-    check(c_loop == {"B1": steps * per_step, "B2": 0, "B3": 0, "plain": 0},
+    check(c_loop == {"B1": steps * per_step, "B2": 0, "B3": 0, "B4": 0,
+                     "plain": 0},
           f"single_batch_loop launches {c_loop}")
     check(toks.shape == (BATCH, NEW), toks.shape)
     print(f"[serve] single_batch_loop: {BATCH * steps / dt:.1f} tok/s "
@@ -484,9 +535,14 @@ def profile(label, fn, steps, wall_ms):
               "device busy share not measured")
         return
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    ours = {name: sum(v for k, v in dev_us.items() if name in k) / 1e3 / steps
+            for name in PORT_KERNELS}
     print(f"[profile] {label}: unprofiled wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over "
-          f"{len(dev_us)} distinct device events; top device time per call: "
+          f"{len(dev_us)} distinct device events; the port's kernels "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v)
+          + f", the rest {busy_ms - sum(ours.values()):.3f} ms; top device "
+          "time per call: "
           + "; ".join(f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
 
 
@@ -551,9 +607,10 @@ def phase_ultranet(dev, per_layer, card):
     y_ref = ultranet_forward(params, img, mode="ref", device=dev)
     check(tuple(y_ref.shape) == (b, size // 16, size // 16, 36)
           and y_ref.dtype == torch.int32, tuple(y_ref.shape))
-    runs = {"int32": (None, {"B1": 0, "B2": 1, "B3": 8, "plain": 0}),
+    runs = {"int32": (None, {"B1": 0, "B2": 1, "B3": 8, "B4": 0,
+                             "plain": 0}),
             "dsp48e2": ([plan_bseg(DSP48E2, 4, 4)] * 9,
-                        {"B1": 0, "B2": 0, "B3": 9, "plain": 0})}
+                        {"B1": 0, "B2": 0, "B3": 9, "B4": 0, "plain": 0})}
     launches = {}
     for name, (plans, want) in runs.items():
         def forward():
@@ -654,6 +711,225 @@ def time_operand_prep(params, dev, reps=3):
     return out
 
 
+def phase_conv1d_kernels(dev, flush):
+    """B4 on the four W4A4 plans at the short conv's decode and long
+    shapes, and on a 'same'-padded depthwise packed_conv2d: each against
+    its plain version and the exact conv, timed beside its bound and the
+    library conv.  Returns B4's numbers at mamba2-130m's decode shape
+    (int32 plan) and the largest error seen."""
+    import torch
+    from repro_torch.core.datapath import DATAPATHS, plan_bseg
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    t_phase = time.perf_counter()
+    main, max_err = None, 0
+    for spec in CONV_SPECS:
+        plan = plan_bseg(DATAPATHS[spec], 4, 4)
+        for c in CONV1D_CHANNELS:
+            taps = torch.randint(-8, 8, (c, CONV1D_TAPS), generator=gen,
+                                 device=dev, dtype=torch.int32)
+            for label, s in CONV1D_SAMPLES.items():
+                xq = torch.randint(-8, 8, (BATCH, s, c), generator=gen,
+                                   device=dev, dtype=torch.int32)
+                r = conv1d_case(xq, taps, plan, "causal", flush,
+                                f"{spec} {label} B={BATCH} S={s} C={c}")
+                max_err = max(max_err, r["max_abs_err"])
+                if spec == "int32" and label == "decode" \
+                        and c == CONV1D_CHANNELS[0]:
+                    main = r
+        # the depthwise route of packed_conv2d: 'same' pad along W
+        x = torch.randint(-8, 8, (BATCH, 16, 64, 256), generator=gen,
+                          device=dev, dtype=torch.int32)
+        w = torch.randint(-8, 8, (256, 1, 1, 3), generator=gen, device=dev,
+                          dtype=torch.int32)
+        y = ops.packed_conv2d(x, w, plan=plan, zero_point=8)
+        check(torch.equal(y, ref.conv2d_int_ref(x, w)),
+              f"depthwise packed_conv2d != exact conv on {spec}")
+        r = conv1d_case(x.reshape(-1, 64, 256), w[:, 0, 0, :], plan, "same",
+                        flush, f"{spec} depthwise conv2d 'same' 8x16x64x256 "
+                               "k1x3")
+        max_err = max(max_err, r["max_abs_err"])
+    print(f"[conv1d] all cases exact, {time.perf_counter() - t_phase:.1f} s")
+    return dict(main, max_abs_err=max_err)
+
+
+def conv1d_case(xq, taps, plan, padding, flush, where):
+    """One B4 case: x_q [B, S, C] signed W4 activations (zero point 8),
+    taps [C, n].  Checks the kernel against its plain version and the
+    exact conv; returns its times, bound and library time."""
+    import torch
+    from repro_torch.kernels import bseg_conv1d, ops, ref
+
+    n = taps.shape[1]
+    s = xq.shape[1]
+    zp = 8
+    kappa, tap_sum = ops.prepare_bseg_taps(taps, plan)
+    x_pad = ops.bseg_conv1d_x_pad(xq, plan, n_groups=kappa.shape[-2],
+                                  n_taps=n, zero_point=zp, padding=padding)
+
+    def run():
+        return bseg_conv1d.bseg_conv1d(x_pad, kappa, plan=plan, s_out=s)
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = bseg_conv1d.bseg_conv1d_plain(x_pad, kappa, plan, s_out=s)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    left = n - 1 if padding == "causal" else (n - 1) // 2
+    exact = ref.conv1d_ref(xq, taps, left)
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, f"B4 != plain at {where} (max err {err})")
+    y = got - zp * tap_sum[None, None, :]
+    err_exact = int((y.long() - exact.long()).abs().max())
+    check(err_exact == 0, f"B4 != exact conv at {where} ({err_exact})")
+    ms = event_ms(run, reps=10, flush=flush)
+    nbytes = x_pad.numel() + kappa.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * xq.numel() * n)
+    lib_ms, lib_err = conv1d_library_ms(xq, taps, left, exact, flush)
+    print(f"[conv1d] B4 {where} (n_k={plan.n_k}, n_i={plan.n_i}, "
+          f"L={plan.lane}, G={kappa.shape[-2]}): {ms:.4f} ms (bound "
+          f"{b_ms:.5f} ms by {b_by}, {b_ms / ms:.1%} of bound), plain "
+          f"{plain_ms:.1f} ms, F.conv1d fp32 {lib_ms:.4f} ms (max |err| "
+          f"{lib_err:g}), exact")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, max_abs_err=max(err, err_exact))
+
+
+def conv1d_library_ms(xq, taps, left, exact, flush):
+    """``torch.nn.functional.conv1d(groups=C)`` on float32 operands (TF32
+    off), the input padded as the conv needs: (time, max |difference|
+    from the exact conv)."""
+    import torch
+    n = taps.shape[1]
+    xf = torch.nn.functional.pad(xq.permute(0, 2, 1).to(torch.float32),
+                                 (left, n - 1 - left))       # [B, C, S+n-1]
+    wf = taps.to(torch.float32)[:, None, :]                  # [C, 1, n]
+
+    def run():
+        return torch.nn.functional.conv1d(xf, wf, groups=taps.shape[0])
+    err = float((run().permute(0, 2, 1) - exact).abs().max())
+    return event_ms(run, reps=10, flush=flush), err
+
+
+def phase_recurrent(dev, card):
+    """Full-width mamba2-130m and recurrentgemma-2b decoding through
+    single_batch_loop at batch 8, with per-step launch counts read from
+    the packed tree.  Returns each arch's B1 and B4 launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    serve_params)
+    from repro_torch.models.quantized import count_packed
+
+    launches = {}
+    for arch, want_step in RECURRENT_STEP.items():
+        cfg = get_arch(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev)
+        qparams = serve_params(params, bits=4, min_size=1024, compute="sdv")
+        del params
+        torch.cuda.synchronize()
+        # every packed projection runs as B1 (8 rows) and every packed
+        # conv as B4, once per layer and step; a packed LM head would be
+        # materialized instead (tied embeddings here: none)
+        packed = count_packed(qparams)
+        per_step = {"B1": packed["sdv"], "B4": packed["bseg"]}
+        check("lm_head" not in qparams and per_step == want_step,
+              f"{arch}: the packed tree gives {per_step} launches per step, "
+              f"want {want_step}")
+        print(f"[recurrent] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}; seeded init + SDV/BSEG "
+              f"packing in {time.perf_counter() - t0:.1f} s; per step "
+              f"{per_step}")
+        rng = np.random.default_rng(0)
+        prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                               dtype=torch.int32, device=dev)
+        # warm-up: two decode steps on a throwaway cache
+        cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+        for i in range(2):
+            _, cache = decode_step(cfg, qparams, cache, prompts[:, i:i + 1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        reset_counts()
+        cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+        toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
+        c_loop = counts()
+        steps = PROMPT + NEW - 1
+        want = {"B1": steps * per_step["B1"], "B2": 0, "B3": 0,
+                "B4": steps * per_step["B4"], "plain": 0}
+        check(c_loop == want, f"{arch} single_batch_loop launches {c_loop}, "
+                              f"want {want}")
+        check(toks.shape == (BATCH, NEW) and (toks >= 0).all()
+              and (toks < cfg.vocab).all(), f"{arch} tokens {toks.shape}")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        step_ms = dt / steps * 1e3
+        print(f"[recurrent] {cfg.name} single_batch_loop, batch {BATCH}, "
+              f"{PROMPT}-token prompts + {NEW} new: {step_ms:.3f} ms/step, "
+              f"{BATCH * steps / dt:.1f} tok/s ({steps} steps), peak memory "
+              f"{peak:.2f} GiB, launches {c_loop}, sample "
+              f"{toks[0][:8].tolist()} ({card})")
+        launches[arch] = {"B1": c_loop["B1"], "B4": c_loop["B4"]}
+
+        state = {"cache": init_cache(cfg, BATCH, PROMPT + NEW, device=dev)}
+
+        def step():
+            state["logits"], state["cache"] = decode_step(
+                cfg, qparams, state["cache"], prompts[:, :1])
+        profile(f"{cfg.name} decode step at batch {BATCH}", step, steps=2,
+                wall_ms=step_ms)
+        logits = state["logits"]
+        check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"{arch} logits {tuple(logits.shape)}")
+        conv_card_vs_cpu(qparams, cfg, dev)
+        del qparams, cache, state
+        torch.cuda.empty_cache()
+    return launches
+
+
+def conv_card_vs_cpu(qparams, cfg, dev):
+    """The first packed short conv of the tree at the decode shape (a new
+    sample and 3 of history, batch 8): on the card (B4) and on the CPU
+    (its plain version) the same inputs give the same outputs and state,
+    bit for bit — the quantizer, the exact integer conv and the float32
+    dequantization are the same operations on both."""
+    import dataclasses
+    import torch
+    from repro_torch.models import BSEGConv, bseg_conv_apply
+
+    def first(node):
+        if isinstance(node, BSEGConv):
+            return node
+        if isinstance(node, dict):
+            for v in node.values():
+                hit = first(v)
+                if hit is not None:
+                    return hit
+        return None
+
+    qc = first(qparams).layer(0)
+    c = qc.kappa.shape[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = torch.randn((BATCH, 1, c), generator=gen, device=dev).to(cfg.dtype)
+    st = torch.randn((BATCH, 3, c), generator=gen, device=dev).to(cfg.dtype)
+    y, new = bseg_conv_apply(qc, x, state=st)
+    cpu = dataclasses.replace(qc, **{f: getattr(qc, f).cpu() for f in
+                                     ("kappa", "tap_sum", "scale", "bias")})
+    y_cpu, new_cpu = bseg_conv_apply(cpu, x.cpu(), state=st.cpu())
+    check(torch.equal(y.cpu(), y_cpu) and torch.equal(new.cpu(), new_cpu),
+          f"{cfg.name}: packed short conv on the card != on the CPU")
+    print(f"[recurrent] {cfg.name}: packed short conv at [{BATCH}, 1+3, {c}]"
+          " on the card (B4) == on the CPU (plain version), bit for bit")
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -688,13 +964,18 @@ def main() -> int:
         phase_reference(dev)
         conv, per_layer, head_ms = phase_conv_kernels(dev, flush)
         ultra = phase_ultranet(dev, per_layer, card)
+        conv1d = phase_conv1d_kernels(dev, flush)
+        recurrent = phase_recurrent(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     sources = {"B1": ("sdv_matvec", "src/repro/kernels/sdv_matvec.py:46"),
                "B2": ("sdv_matmul", "src/repro/kernels/sdv_matmul.py:178")}
-    by_path = {"B1": {"tinyllama decode": launches["B1"]},
+    by_path = {"B1": {"tinyllama decode": launches["B1"],
+                      "mamba2 decode": recurrent["mamba2-130m"]["B1"],
+                      "recurrentgemma decode":
+                          recurrent["recurrentgemma-2b"]["B1"]},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"]}}
     kernels = []
@@ -731,6 +1012,24 @@ def main() -> int:
         "per": (f"one UltraNet-INT4 forward's 8 3x3 stages at "
                 f"{ULTRA_SIZE}x{ULTRA_SIZE}, batch {ULTRA_BATCH}, int32 "
                 "W4A4 plan"),
+    })
+    b4_paths = {"mamba2 decode": recurrent["mamba2-130m"]["B4"],
+                "recurrentgemma decode": recurrent["recurrentgemma-2b"]["B4"]}
+    kernels.append({
+        "name": "B4 bseg_conv1d",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bseg1d.cu",
+        "replaces": "src/repro/kernels/bseg_conv1d.py:85",
+        "launches": sum(b4_paths.values()),
+        "launches_by_path": b4_paths,
+        "max_abs_err": conv1d["max_abs_err"],
+        "ms": conv1d["ms"], "plain_ms": conv1d["plain_ms"],
+        "bound_ms": conv1d["bound_ms"], "bound_by": conv1d["bound_by"],
+        "library_ms": conv1d["library_ms"],
+        "per": (f"one call at mamba2-130m's decode shape (batch {BATCH}, "
+                f"4 samples, {CONV1D_CHANNELS[0]} channels, "
+                f"{CONV1D_TAPS} taps), int32 W4A4 plan; "
+                f"{RECURRENT_STEP['mamba2-130m']['B4']} calls per step"),
     })
     print(card)
     print(json.dumps({"kernels": kernels}))

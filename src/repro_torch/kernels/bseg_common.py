@@ -32,6 +32,8 @@ from typing import List, Tuple
 
 import torch
 
+from ..core import limbs
+
 
 @dataclasses.dataclass(frozen=True)
 class SDVWordSpec:
@@ -157,3 +159,20 @@ def split_word(word: torch.Tensor,
             lanes.append(f - lo - bias)
             c_next = c_next + ((lo + bias) << ((p - n_i) * lane))
     return lanes, c_next
+
+
+def schedule(plan, s_out: int, n_groups: int) -> Tuple[int, int]:
+    """(n_steps, need): steps of the Fig. 6 schedule for ``s_out``
+    outputs of one row, and the padded input length they read."""
+    n_steps = -(-(s_out + plan.n_k - 1) // plan.n_i)
+    need = (n_steps - 1) * plan.n_i + (n_groups - 1) * plan.n_k + plan.n_i
+    return n_steps, need
+
+
+def kappa_words(kappa: torch.Tensor, plan) -> torch.Tensor:
+    """Packed factors in the plan's transport layout -> their exact
+    signed int64 values (int32 sign-extended, FP32M's exact float
+    integers, or the hi:lo limb planes joined; the plane axis goes)."""
+    if word_spec(plan).limbs == 2:
+        return limbs.from_planes(kappa)
+    return kappa.to(torch.int64)

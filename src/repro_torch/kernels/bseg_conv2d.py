@@ -36,14 +36,6 @@ BLOCK_THREADS = 256
 MAX_CO_TILE = 32
 
 
-def _schedule(plan, w_out: int, n_groups: int):
-    """(n_steps, need): steps of the Fig. 6 schedule and the padded
-    input width they read."""
-    n_steps = -(-(w_out + plan.n_k - 1) // plan.n_i)
-    need = (n_steps - 1) * plan.n_i + (n_groups - 1) * plan.n_k + plan.n_i
-    return n_steps, need
-
-
 def check_operands(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
                    h_out: int, w_out: int):
     """Validate B3's operands; returns (n_groups, kh, c_out)."""
@@ -75,7 +67,7 @@ def check_operands(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
     if h_out < 1 or w_out < 1 or h_pad < h_out + kh - 1:
         raise ValueError(f"x_pad has {h_pad} rows; h_out={h_out} with "
                          f"kh={kh} needs {h_out + kh - 1}")
-    _, need = _schedule(plan, w_out, n_groups)
+    _, need = bseg_common.schedule(plan, w_out, n_groups)
     if w_pad < need:
         raise ValueError(f"x_pad has {w_pad} columns; the step schedule "
                          f"reads {need}")
@@ -84,15 +76,6 @@ def check_operands(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
     if not (x_pad.is_contiguous() and kappa.is_contiguous()):
         raise ValueError("operands must be contiguous")
     return n_groups, kh, c_out
-
-
-def _kappa_words(kappa: torch.Tensor, plan) -> torch.Tensor:
-    """Transport array -> int64 factors [G, kh, C_in, C_out] (the exact
-    signed values: int32 sign-extended, FP32M's exact float integers,
-    or hi:lo limb planes)."""
-    if bseg_common.word_spec(plan).limbs == 2:
-        return limbs.from_planes(kappa)
-    return kappa.to(torch.int64)
 
 
 def bseg_conv2d_plain(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
@@ -106,12 +89,12 @@ def bseg_conv2d_plain(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
     row accumulator."""
     bseg_conv2d_plain.calls += 1
     n_i, n_k, n_lanes = plan.n_i, plan.n_k, plan.n_lanes
-    kap = _kappa_words(kappa, plan)                  # [G, kh, C_in, C_out]
+    kap = bseg_common.kappa_words(kappa, plan)   # [G, kh, C_in, C_out]
     n_groups, kh, c_in, c_out = kap.shape
     khc = kh * c_in
     kap = kap.reshape(n_groups, khc, c_out)
     b = x_pad.shape[0]
-    n_steps, _ = _schedule(plan, w_out, n_groups)
+    n_steps, _ = bseg_common.schedule(plan, w_out, n_groups)
     # xf[b, y, w, r * C_in + ci] = x_pad[b, y + r, w, ci]
     xf = torch.cat([x_pad[:, r:r + h_out] for r in range(kh)], dim=-1)
     buf = torch.zeros((b, h_out, n_steps * n_i + n_lanes, c_out),
@@ -145,7 +128,7 @@ def launch_shape(b: int, h_out: int, w_out: int, khc: int, c_out: int,
     the (r, ci) pipelines.  The pipelines are split across blocks (with
     integer atomics into a zeroed output) until about four blocks per SM
     are in flight: UltraNet's 26x26 layers have few rows."""
-    n_steps, _ = _schedule(plan, w_out, 1)
+    n_steps, _ = bseg_common.schedule(plan, w_out, 1)
     buf = n_steps * plan.n_i
     co_tile = MAX_CO_TILE
     while co_tile > 1 and co_tile // 2 >= c_out:

@@ -91,6 +91,11 @@ _SIGNATURES = {
                         + [_INT] * 5 + [_PTR], _INT),
         "bseg_error_string": ([_INT], ctypes.c_char_p),
     },
+    "bseg1d": {
+        "bseg_conv1d": ([_PTR, _PTR, _PTR] + [_INT] * 10 + [_U64, _U64]
+                        + [_INT] * 3 + [_PTR], _INT),
+        "bseg1d_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
 
 

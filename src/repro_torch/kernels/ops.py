@@ -29,8 +29,10 @@ Dispatch table for ``packed_conv2d`` (mode -> kernel -> constraints):
                  thread, shared row          DSP58); stride 1, 'same'
                  accumulator)                pad: odd kh and kw;
                                              ``plan.w_i <= 7``
-  bseg_conv1d    kernels/bseg_conv1d (B4)    depthwise shape only; not
-                                             ported yet: raises
+  bseg_conv1d    kernels/bseg_conv1d (B4,    depthwise shape (C_in == 1,
+                 csrc/bseg1d.cu: a carry     kh == 1); 'same' pad along
+                 chain per thread, n_i       W through ``bseg_conv1d``;
+                 samples per wide multiply)  same word gates as bseg_conv2d
   im2col         kernels/sdv_matmul (B2)     integer x; patches unfolded
                  via ``packed_matmul`` (SDV  in torch, compute on the SDV
                  plan derived from the BSEG  datapath (exact-wrap words
@@ -51,9 +53,12 @@ package's, word for word.  ``packed_matmul`` and ``packed_conv2d``
 always route as the JAX package does with ``use_kernel=True``, on every
 device: on a CPU tensor the kernel routes run their kernel's plain
 version (every route is exact, so the integers are the same either
-way).  The memory-packed ``quant_matmul`` route (kernels B5-B7) and the
-depthwise ``bseg_conv1d`` route (kernel B4) are not ported yet and
-raise.
+way).  The memory-packed ``quant_matmul`` route (kernels B5-B7) is not
+ported yet and raises.
+
+``bseg_conv1d`` is the causal depthwise short conv of the SSM/Griffin
+blocks (the ``BSEGConv`` serving container) on kernel B4;
+``select_conv1d_route`` is its route, with the JAX package's reasons.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ from ..core import limbs
 from ..core.datapath import BSEGPlan, SDVPlan, plan_sdv
 from ..core.signed_split import pack_unsigned, split_signed
 from . import bseg_common, ref
+from . import bseg_conv1d as bseg1d_kernel
 from . import bseg_conv2d as bseg2d_kernel
 from . import sdv_matmul as sdvmm_kernel
 from . import sdv_matvec as sdvmv_kernel
@@ -281,15 +287,83 @@ def prepare_bseg_conv2d(w_int: torch.Tensor, plan: BSEGPlan):
                                        (gi + 1) * plan.n_k], plan)
          for gi in range(groups)])                 # [G, C_out, C_in, kh]
     kappa = kappa.permute(0, 3, 2, 1).contiguous()  # [G, kh, C_in, C_out]
+    tap_sum = w_int.to(torch.int32).sum(dim=(1, 2, 3), dtype=torch.int32)
+    return _kappa_transport(kappa, plan), tap_sum
+
+
+def _kappa_transport(kappa: torch.Tensor, plan: BSEGPlan) -> torch.Tensor:
+    """Exact int64 factors -> the plan's transport layout: int32 words,
+    float32 on FP32M (exact below 2^24), or [2, ...] int32 limb planes
+    on the wide words."""
     ws = bseg_common.word_spec(plan)
     if ws.limbs == 2:
-        kappa = limbs.to_planes(kappa)             # [2, G, kh, C_in, C_out]
-    elif ws.dtype == torch.float32:
-        kappa = kappa.to(torch.float32)            # exact below 2^24
-    else:
-        kappa = limbs.lo32(kappa)
-    tap_sum = w_int.to(torch.int32).sum(dim=(1, 2, 3), dtype=torch.int32)
-    return kappa, tap_sum
+        return limbs.to_planes(kappa)
+    if ws.dtype == torch.float32:
+        return kappa.to(torch.float32)
+    return limbs.lo32(kappa)
+
+
+def prepare_bseg_taps(taps: torch.Tensor, plan: BSEGPlan):
+    """[C, n] signed taps -> (packed factors in the plan's transport
+    layout, [C] int32 tap sums).
+
+    Single-limb plans store [G, C] words (int32, or float32 on FP32M);
+    wide plans store [2, G, C] int32 limb planes.  Tap groups are packed
+    reversed through the pre-adder; the tap sums feed the zero-point
+    correction.
+    """
+    n = taps.shape[-1]
+    groups = -(-n // plan.n_k)
+    tp = torch.nn.functional.pad(taps.to(torch.int64),
+                                 (0, groups * plan.n_k - n))
+    kappa = torch.stack(
+        [core_bseg.bseg_pack_kernel(tp[:, gi * plan.n_k:
+                                       (gi + 1) * plan.n_k], plan)
+         for gi in range(groups)])                          # [G, C]
+    tap_sum = taps.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+    return _kappa_transport(kappa, plan), tap_sum
+
+
+def bseg_conv1d_x_pad(x_q: torch.Tensor, plan: BSEGPlan, *, n_groups: int,
+                      n_taps: int, zero_point: int = 0,
+                      padding: str = "causal") -> torch.Tensor:
+    """B4's input operand: x_q [B, S, C] signed ints moved into the
+    unsigned datapath domain (``x + zero_point``) as int8, left-padded
+    for ``padding`` and right-padded to what the step schedule reads.
+    The pad is signed zero, i.e. the zero point in the unsigned domain
+    (the uniform ``zp * sum(taps)`` correction then holds at the
+    boundary too); the extra right pad only feeds discarded outputs."""
+    if padding not in ("causal", "same"):
+        raise ValueError(f"unknown padding {padding!r}")
+    b, s, c = x_q.shape
+    left = n_taps - 1 if padding == "causal" else (n_taps - 1) // 2
+    _, need = bseg_common.schedule(plan, s, n_groups)
+    x_pad = torch.full((b, max(s + left, need), c), zero_point,
+                       dtype=torch.int8, device=x_q.device)
+    x_pad[:, left:left + s] = (x_q.to(torch.int32) + zero_point) \
+        .to(torch.int8)
+    return x_pad
+
+
+def bseg_conv1d(x_q: torch.Tensor, kappa: torch.Tensor,
+                tap_sum: torch.Tensor, *, plan: BSEGPlan, n_taps: int,
+                zero_point: int = 0,
+                padding: str = "causal") -> torch.Tensor:
+    """Depthwise conv1d on kernel B4: x_q [B, S, C] int (signed;
+    ``zero_point`` shifts it to the unsigned datapath domain); returns
+    [B, S, C] int32, the exact signed-domain correlation.
+
+    ``padding="causal"`` aligns output s with inputs s-n+1..s (decode
+    convs); ``"same"`` centers the window (the conv2d depthwise route).
+    """
+    n_groups = kappa.shape[-2]
+    x_pad = bseg_conv1d_x_pad(x_q, plan, n_groups=n_groups, n_taps=n_taps,
+                              zero_point=zero_point, padding=padding)
+    y = bseg1d_kernel.bseg_conv1d(x_pad, kappa, plan=plan,
+                                  s_out=x_q.shape[1])
+    if zero_point:
+        y = y - zero_point * tap_sum[None, None, :]
+    return y
 
 
 def _is_depthwise(x_shape, w_shape) -> bool:
@@ -373,6 +447,27 @@ def select_conv_route(x_shape, w_shape, *, plan: BSEGPlan,
               "cross-channel kernel launch")
 
 
+def select_conv1d_route(plan: BSEGPlan, *, use_kernel: bool = True,
+                        explain: bool = False):
+    """Route for the *causal* depthwise short conv (``bseg_conv1d``
+    called directly, e.g. the ``BSEGConv`` serving container): no
+    odd-taps 'same'-pad constraint, only the datapath gates, shared with
+    ``select_conv_route``.  The reason strings are the JAX package's."""
+    def _r(route: str, reason: str):
+        return (route, reason) if explain else route
+
+    if not use_kernel:
+        return _r("ref", "no Pallas backend (use_kernel=False)")
+    gate = _conv_word_gate(plan)
+    if gate is not None:
+        return _r("ref", gate)
+    if plan.w_i > 7:
+        return _r("ref", f"plan.w_i={plan.w_i} > 7: the conv kernels "
+                         "stage activations in int8")
+    return _r("bseg_conv1d",
+              f"causal depthwise short conv on the {plan.spec.name} word")
+
+
 def _im2col_sdv_plan(plan: BSEGPlan) -> SDVPlan:
     """SDV plan matching the BSEG widths for the im2col route: signed
     w_k-bit taps against signed (w_i+1)-bit activations — wide enough
@@ -406,7 +501,8 @@ def packed_conv2d(x: torch.Tensor, w_int: torch.Tensor, *, plan: BSEGPlan,
       w_int: [C_out, C_in, kh, kw] signed taps within ``plan.w_k`` bits.
       plan: BSEG plan on any supported datapath.
       mode: a row of the dispatch table, or ``"auto"``.
-      zero_point: the activations' zero point (bseg_conv2d route).
+      zero_point: the activations' zero point (bseg_conv2d and
+        bseg_conv1d routes).
       sdv_plan: optional SDV plan for the im2col route; defaults to the
         plan derived from the BSEG widths.  An unsigned-multiplier
         override (``signed_b=False``) needs ``zero_point == 0``.
@@ -432,9 +528,11 @@ def packed_conv2d(x: torch.Tensor, w_int: torch.Tensor, *, plan: BSEGPlan,
         return ref.conv2d_int_ref(x, w_int)
 
     if route == "bseg_conv1d":
-        raise NotImplementedError(
-            "route 'bseg_conv1d': the depthwise BSEG conv (kernel B4) is "
-            "not ported yet")
+        kappa, tap_sum = prepare_bseg_taps(w_int[:, 0, 0, :], plan)
+        y = bseg_conv1d(x.reshape(b * h, w, c_in), kappa, tap_sum,
+                        plan=plan, n_taps=kw, zero_point=zero_point,
+                        padding="same")
+        return y.reshape(b, h, w, c_in)
 
     if route == "im2col":
         if sdv_plan is None:

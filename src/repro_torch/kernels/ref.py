@@ -1,11 +1,13 @@
-"""Plain oracles for the packed kernels (torch port of the SDV GEMM and
-conv2d parts of ``repro.kernels.ref``).
+"""Plain oracles for the packed kernels (torch port of the SDV GEMM,
+conv1d and conv2d parts of ``repro.kernels.ref``).
 
 They use no packing arithmetic at all: the storage words are decoded
-back to integers and multiplied exactly.  The products are taken in
-float64, which is exact while |sum| < 2^53 (every plan with w_a, w_b
-<= 8 at any K below 2^37), and works on the card, where torch has no
-integer matmul or integer convolution.
+back to integers and multiplied exactly.  The GEMM and conv2d products
+are taken in float64, which is exact while |sum| < 2^53 (every plan
+with w_a, w_b <= 8 at any K below 2^37), and works on the card, where
+torch has no integer matmul or integer convolution; the depthwise
+conv1d has a few taps and runs in int32 elementwise ops, as the JAX
+package's does.
 """
 from __future__ import annotations
 
@@ -53,6 +55,30 @@ def sdv_unpack_words_ref(w_words: torch.Tensor, *, plan) -> torch.Tensor:
         else:
             vals.append((word >> (i * plan.lane)) & ((1 << plan.w_a) - 1))
     return torch.stack(vals, dim=-1).reshape(k, g * plan.n).to(torch.int32)
+
+
+def conv1d_ref(x_int: torch.Tensor, taps: torch.Tensor,
+               left_pad: int) -> torch.Tensor:
+    """Exact depthwise 1-D correlation with an explicit alignment.
+
+    x [b, s, c] ints, taps [c, n] ints -> y [b, s, c] int32 with
+    y[b, s, c] = sum_q taps[c, q] * x[b, s - left_pad + q, c]
+    (zero padding on both ends as needed).
+    """
+    n = taps.shape[-1]
+    s = x_int.shape[1]
+    x32 = x_int.to(torch.int32)
+    xp = torch.nn.functional.pad(x32, (0, 0, left_pad,
+                                       max(0, n - 1 - left_pad)))
+    y = torch.zeros_like(x32)
+    for q in range(n):
+        y = y + taps[:, q][None, None, :].to(torch.int32) * xp[:, q:q + s, :]
+    return y
+
+
+def conv1d_causal_ref(x_int: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Exact depthwise *causal* 1-D correlation (left zero pad n-1)."""
+    return conv1d_ref(x_int, taps, taps.shape[-1] - 1)
 
 
 def conv2d_int_ref(x_int: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:

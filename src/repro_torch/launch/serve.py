@@ -2,10 +2,15 @@
 
 ``--engine off`` (the default here) teacher-forces one fixed batch of
 prompts through ``decode_step`` and greedy-decodes ``--new-tokens``,
-every projection on the SDV datapath (kernels B1/B2 on the card).
-``--engine on`` — the continuous-batching engine — is not ported yet.
+every projection on the SDV datapath (kernels B1/B2 on the card) and,
+for the ssm (mamba2-130m) and hybrid (recurrentgemma-2b) archs, every
+short conv on the BSEG datapath (kernel B4) unless ``--conv-datapath
+float``.  ``--engine on`` — the continuous-batching engine — is not
+ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
 """
 from __future__ import annotations
@@ -46,15 +51,30 @@ def single_batch_loop(cfg, qparams, cache, prompts, new_tokens):
     return np.stack(gen, 1), dt
 
 
+def cache_note(cache) -> str:
+    """What ``init_cache`` built, for the banner."""
+    if "k_scale" in cache:
+        return "int8 KV cache"
+    if "k" in cache:
+        return (f"{str(cache['k'].dtype).removeprefix('torch.')} KV ring "
+                f"cache of {cache['k'].shape[2]} entries")
+    return "recurrent-state cache (no KV)"
+
+
 def run_single_batch(cfg, args, params, device):
     from repro_torch.models import init_cache, serve_params
+    from repro_torch.models.quantized import count_packed
     qparams = serve_params(params, bits=args.weight_bits, min_size=1024,
-                           compute="sdv", act_bits=args.act_bits)
+                           compute="sdv", act_bits=args.act_bits,
+                           conv_bseg=args.conv_datapath == "bseg")
     smax = args.prompt_len + args.new_tokens
     cache = init_cache(cfg, args.batch, smax, device=device)
+    n_conv = count_packed(qparams)["bseg"]
+    conv_note = (f", {n_conv} BSEG-packed W{min(args.weight_bits, 4)}A4 "
+                 "short convs" if n_conv else "")
     print(f"{cfg.name}: SDV W{args.weight_bits}A{args.act_bits} datapath "
-          f"(default plans), int8 KV cache, batch {args.batch} "
-          f"(single-batch loop, {device})")
+          f"(default plans){conv_note}, {cache_note(cache)}, batch "
+          f"{args.batch} (single-batch loop, {device})")
     rng = np.random.default_rng(args.seed)
     prompts = torch.tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
@@ -84,6 +104,10 @@ def main(argv=None):
     ap.add_argument("--weight-bits", type=int, default=4)
     ap.add_argument("--act-bits", type=int, default=8,
                     help="activation width on the SDV datapath")
+    ap.add_argument("--conv-datapath", choices=("bseg", "float"),
+                    default="bseg",
+                    help="SSM/Griffin short convs on the BSEG packed "
+                         "datapath (kernel B4) or kept in float")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")

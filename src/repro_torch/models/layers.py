@@ -1,6 +1,9 @@
-"""Layer library of the dense decoder — torch port of the dense parts of
+"""Layer library of the decoders — torch port of the dense parts of
 ``repro.models.layers``: RMSNorm, projections, rotary embedding, decode
-and chunked-prefill attention against an int8 KV cache, gated MLP.
+and chunked-prefill attention against an int8 KV cache, gated MLP; and
+the sliding-window decode attention of the hybrid (Griffin) family
+against a bf16 ring buffer (the JAX package's
+``transformer._decode_attn_ring``).
 
 Layouts and dtypes follow the JAX package: activations [B, S, d] in the
 model dtype, int8 KV caches [B, S_max, KV, hd] with per-(position, head)
@@ -11,15 +14,104 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
+from ..quant import quantizer
 from .quantized import is_sdv, materialize, sdv_matmul_apply
+
+
+class Init:
+    """Seeded parameter init, the JAX package's ``param.Init`` and
+    ``StackedInit`` in one: normal draws come from ``gen`` (a
+    ``torch.Generator`` on ``device``) in float32 and are cast to the
+    model ``dtype``; a stacked init prepends its layer axis ``lead`` to
+    every shape.  The numbers are not JAX's (``convert`` carries those
+    over)."""
+
+    def __init__(self, gen: torch.Generator, device: torch.device,
+                 dtype: torch.dtype, lead=()):
+        self.gen, self.device, self.dtype, self.lead = gen, device, dtype, \
+            tuple(lead)
+
+    def stacked(self, n: int) -> "Init":
+        return Init(self.gen, self.device, self.dtype, (n,))
+
+    def normal(self, shape, *, std: float, dtype=None):
+        v = torch.randn(self.lead + tuple(shape), generator=self.gen,
+                        dtype=torch.float32, device=self.device)
+        return (v * std).to(dtype or self.dtype)
+
+    def full(self, shape, value: float, dtype=None):
+        return torch.full(self.lead + tuple(shape), value,
+                          dtype=dtype or self.dtype, device=self.device)
+
+    def zeros(self, shape, dtype=None):
+        return self.full(shape, 0.0, dtype)
+
+    def ones(self, shape, dtype=None):
+        return self.full(shape, 1.0, dtype)
+
+
+def dense_init(ini: Init, d_in: int, d_out: int, *, bias: bool = False,
+               std: Optional[float] = None):
+    std = std if std is not None else 1.0 / math.sqrt(d_in)
+    p = {"kernel": ini.normal((d_in, d_out), std=std)}
+    if bias:
+        p["bias"] = ini.zeros((d_out,))
+    return p
+
+
+def rmsnorm_init(ini: Init, dim: int):
+    return {"scale": ini.ones((dim,), dtype=torch.float32)}
+
+
+def attention_init(ini: Init, cfg: "AttnConfig", d_model: int,
+                   qkv_bias: bool = False):
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    return {
+        "wq": dense_init(ini, d_model, h * hd, bias=qkv_bias),
+        "wk": dense_init(ini, d_model, kv * hd, bias=qkv_bias),
+        "wv": dense_init(ini, d_model, kv * hd, bias=qkv_bias),
+        "wo": dense_init(ini, h * hd, d_model),
+    }
+
+
+def mlp_init(ini: Init, d_model: int, d_ff: int):
+    return {
+        "wi_gate": dense_init(ini, d_model, d_ff),
+        "wi_up": dense_init(ini, d_model, d_ff),
+        "wo": dense_init(ini, d_ff, d_model),
+    }
 
 
 def mat(w, dtype):
     """Materialize a kernel: SDVLinear -> dense, else cast."""
     return materialize(w, dtype) if is_sdv(w) else w.to(dtype)
+
+
+def silu(x):
+    """jax.nn.silu's arithmetic in the activation dtype: x * 1/(1 +
+    exp(-x)), each step rounded to that dtype."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-dim tensor of ``like``'s dtype on its device (filled there):
+    JAX rounds a Python scalar to the array's dtype before the op (weak
+    typing); torch would compute with the unrounded value."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def gelu_tanh(x):
+    """jax.nn.gelu(approximate=True) op by op in the activation dtype,
+    its constants rounded to that dtype:
+    x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))."""
+    c = scalar_like(math.sqrt(2 / math.pi), x)
+    inner = c * (x + scalar_like(0.044715, x) * (x * x * x))
+    half, one = scalar_like(0.5, x), scalar_like(1.0, x)
+    return x * (half * (one + torch.tanh(inner)))
 
 
 def rmsnorm_apply(params, x, *, eps: float = 1e-6):
@@ -71,7 +163,7 @@ def _quantize_kv(t):
     """[B, S, G, hd] -> (int8 values, [B, S, G] f32 scale)."""
     tf = t.to(torch.float32)
     amax = tf.abs().amax(dim=-1)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    scale = quantizer.div(torch.clamp_min(amax, 1e-8), 127.0)
     q = torch.round(tf / scale[..., None])
     return torch.clamp(q, -127, 127).to(torch.int8), scale
 
@@ -126,7 +218,8 @@ def _write_kv(cache, k, v, rows, src, dest):
 
 
 def _attend(q, kc_f, vc_f, valid, scores_eq: str, out_eq: str, hd: int):
-    s = torch.einsum(scores_eq, q.to(torch.float32), kc_f) / math.sqrt(hd)
+    s = quantizer.div(torch.einsum(scores_eq, q.to(torch.float32), kc_f),
+                      math.sqrt(hd))
     s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum(out_eq, p, vc_f)
@@ -183,15 +276,43 @@ def prefill_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     return dense_apply(params["wo"], out.reshape(b, c, h * hd).to(x.dtype))
 
 
+def decode_attention_ring(params, cfg: AttnConfig, x, *, k_cache, v_cache,
+                          cache_index, window: int):
+    """Sliding-window single-token decode against a bf16 ring buffer of
+    ``window`` entries (the hybrid family's local attention).
+
+    x [B, 1, d]; k_cache/v_cache [B, window, KV, hd] of one layer;
+    cache_index [B] int32: each slot's position, which is also its ring
+    write head (``index mod window``) and fixes the entry ages.  Returns
+    y [B, 1, d]; the ring is updated in place.
+    """
+    b = x.shape[0]
+    h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    slot = torch.remainder(cache_index, window)                   # [B]
+    q, k, v = _qkv(params, cfg, x, cache_index[:, None])
+    rows = torch.arange(b, device=x.device)
+    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    # entry ages: slot s holds position index - ((slot - s) mod window)
+    offs = torch.remainder(
+        slot[:, None] - torch.arange(window, device=x.device)[None, :],
+        window)
+    entry_pos = cache_index[:, None] - offs                        # [B, W]
+    valid = (entry_pos >= 0) & (entry_pos >= cache_index[:, None]
+                                - window + 1)
+    out = _attend(q.reshape(b, g, h // g, hd), k_cache.to(torch.float32),
+                  v_cache.to(torch.float32), valid[:, None, None, :],
+                  "bgrd,bkgd->bgrk", "bgrk,bkgd->bgrd", hd)
+    return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+
+
 def mlp_apply(params, x, *, act: str = "swiglu"):
     gate = dense_apply(params["wi_gate"], x)
     up = dense_apply(params["wi_up"], x)
     if act == "swiglu":
-        # jax.nn.silu's bf16 arithmetic: x * 1/(1 + exp(-x)), each step
-        # rounded to the activation dtype
-        a = gate * (1 / (1 + torch.exp(-gate)))
+        a = silu(gate)
     elif act == "geglu":
-        a = torch.nn.functional.gelu(gate, approximate="tanh")
+        a = gelu_tanh(gate)
     else:
         raise ValueError(act)
     return dense_apply(params["wo"], a * up)

@@ -1,26 +1,33 @@
-"""Quantized, lane-packed serving parameters — torch port of the SDV
-half of ``repro.models.quantized``.
+"""Quantized, lane-packed serving parameters — torch port of the
+arithmetic-packing half of ``repro.models.quantized``.
 
-``serve_params(compute="sdv")`` rewrites a parameter tree: projection
-kernels — 2-D leaves and stacked layer tensors of them — become
-``SDVLinear``: w-bit symmetric per-output-channel quantization stored as
-SDV words ([K, G], n output channels lane-packed per word), executed
-through ``kernels/ops.packed_matmul`` so decode/prefill GEMMs run on the
-packed arithmetic datapath (activations are dynamically quantized per
-row to ``plan.w_b`` bits).
+``serve_params(compute="sdv")`` rewrites a parameter tree:
+
+  * projection kernels — 2-D leaves and stacked layer tensors of them —
+    become ``SDVLinear``: w-bit symmetric per-output-channel
+    quantization stored as SDV words ([K, G], n output channels
+    lane-packed per word), executed through ``kernels/ops.packed_matmul``
+    so decode/prefill GEMMs run on the packed arithmetic datapath
+    (activations are dynamically quantized per row to ``plan.w_b``
+    bits);
+  * the short depthwise conv of the SSM/Griffin blocks becomes
+    ``BSEGConv`` — taps BSEG-packed through the pre-adder, executed via
+    ``kernels/ops.bseg_conv1d`` (kernel B4; activations dynamically
+    quantized to the unsigned ``plan.w_i``-bit domain with a zero
+    point, per Eqs. 9/10).
 
 Not ported yet: memory packing (``compute="memory"``, ``PackedLinear``,
-kernels B5-B7), the BSEG short conv (``BSEGConv``, kernels B3/B4) and
-the planner's ``plan_policy="auto"/"cache"``; each raises.
+kernels B5-B7) and the planner's ``plan_policy="auto"/"cache"``; each
+raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..core.datapath import INT32, SDVPlan, plan_sdv
+from ..core.datapath import INT32, BSEGPlan, SDVPlan, plan_bseg, plan_sdv
 from ..kernels import bseg_common, ops, ref
 from ..quant import quantizer
 
@@ -94,6 +101,104 @@ def sdv_matmul_apply(qw: SDVLinear, x: torch.Tensor) -> torch.Tensor:
     return (y.to(torch.float32) * xs * qw.scale).to(x.dtype)
 
 
+@dataclasses.dataclass
+class BSEGConv:
+    """Arithmetic-packed short depthwise conv: ``kappa`` [G, C] packed
+    tap-group factors (pre-adder applied; int32, float32 on FP32M, or
+    [2, G, C] int32 limb planes on the wide plans), ``tap_sum`` [C]
+    int32 for the zero-point correction, per-channel weight ``scale``
+    [C] f32 and float ``bias`` [C]; executed via
+    ``kernels/ops.bseg_conv1d``.  A stacked layer tensor keeps a leading
+    layer axis on every data field; ``layer(i)`` slices one layer off
+    (a contiguous block, as kernel B4 takes it)."""
+    kappa: torch.Tensor
+    tap_sum: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor
+    plan: BSEGPlan
+    taps: int
+
+    @property
+    def stacked(self) -> bool:
+        base = 2 + (bseg_common.word_spec(self.plan).limbs == 2)
+        return self.kappa.ndim == base + 1
+
+    def layer(self, i: int) -> "BSEGConv":
+        return BSEGConv(kappa=self.kappa[i], tap_sum=self.tap_sum[i],
+                        scale=self.scale[i], bias=self.bias[i],
+                        plan=self.plan, taps=self.taps)
+
+
+def default_bseg_plan(bits: int, act_bits: int = 4) -> BSEGPlan:
+    """The serving conv plan: ``bits``-wide signed taps against
+    ``act_bits``-wide unsigned inputs on the INT32 datapath."""
+    return plan_bseg(INT32, bits, act_bits)
+
+
+def pack_conv_bseg(conv_params: dict, plan: BSEGPlan) -> BSEGConv:
+    """{'w': [..., C, taps] float, 'b': [..., C]} -> BSEGConv (w_k-bit
+    symmetric per-channel tap quantization, BSEG-packed through the
+    pre-adder).  A leading layer-stack dim keeps the JAX package's
+    stacked layout ([L, G, C], or [L, 2, G, C] limb planes), so
+    per-layer slicing gives the per-layer container."""
+    w, b = conv_params["w"], conv_params["b"]
+    if w.ndim not in (2, 3):
+        raise ValueError(f"expected [C, taps] or stacked [L, C, taps] "
+                         f"conv weights, got {tuple(w.shape)}")
+    taps = w.shape[-1]
+    wf = w.to(torch.float32)
+    amax = wf.abs().amax(dim=-1, keepdim=True)
+    scale = quantizer.symmetric_scale(amax, plan.w_k)
+    q = quantizer.symmetric_qvalues(wf, scale, plan.w_k).to(torch.int32)
+    kappa, tap_sum = ops.prepare_bseg_taps(q.reshape(-1, taps), plan)
+    if w.ndim == 3:                      # [L, C, taps] stacked layers
+        stack, c = w.shape[0], w.shape[1]
+        if bseg_common.word_spec(plan).limbs == 2:   # [2, G, L*C]
+            kappa = kappa.reshape(2, -1, stack, c).permute(2, 0, 1, 3)
+        else:                                        # [G, L*C]
+            kappa = kappa.reshape(-1, stack, c).transpose(0, 1)
+        kappa = kappa.contiguous()                   # [L, (2,) G, C]
+        tap_sum = tap_sum.reshape(stack, c)
+    return BSEGConv(kappa=kappa, tap_sum=tap_sum,
+                    scale=scale[..., 0].to(torch.float32),
+                    bias=b.to(torch.float32), plan=plan, taps=taps)
+
+
+def bseg_conv_apply(qc: BSEGConv, x: torch.Tensor, *,
+                    state: Optional[torch.Tensor] = None):
+    """x [B, S, C] float through the BSEG-packed causal depthwise conv.
+
+    Activations (history included) are dynamically quantized per call —
+    asymmetric, with one min/max over the whole [B, taps-1+S, C] tensor,
+    to the *unsigned* ``plan.w_i``-bit datapath domain with zero point
+    2^(w_i - 1) — then the exact integer correlation runs through
+    ``kernels/ops.bseg_conv1d`` (kernel B4); the two scales and the tap
+    sums dequantize.  Mirrors ``ssm.short_conv_apply``: returns
+    (y [B, S, C], new_state [B, taps-1, C]).
+    """
+    taps = qc.taps
+    if state is None:
+        state = torch.zeros((x.shape[0], taps - 1, x.shape[2]),
+                            dtype=x.dtype, device=x.device)
+    xfull = torch.cat([state.to(x.dtype), x], dim=1)
+    xf = xfull.to(torch.float32)
+    lo = xf.min()
+    hi = xf.max()
+    xs = quantizer.asymmetric_scale(lo, hi, qc.plan.w_i)
+    zp = quantizer.asymmetric_zero_point(qc.plan.w_i)
+    xq_u = quantizer.asymmetric_qvalues(xf, lo, xs, qc.plan.w_i)
+    xq = (xq_u - zp).to(torch.int8)              # signed datapath input
+    y_int = ops.bseg_conv1d(xq, qc.kappa, qc.tap_sum, plan=qc.plan,
+                            n_taps=taps, zero_point=zp,
+                            padding="causal")[:, taps - 1:, :]
+    # sum_q w x = scale_w * xs * sum_q q*xq_u + lo * scale_w * sum_q q
+    ts = qc.tap_sum.to(torch.float32)
+    y = qc.scale * xs * (y_int.to(torch.float32) + zp * ts) \
+        + lo * qc.scale * ts + qc.bias
+    new_state = xfull[:, xfull.shape[1] - (taps - 1):, :]
+    return y.to(x.dtype), new_state
+
+
 def materialize(pl: SDVLinear, dtype=torch.bfloat16) -> torch.Tensor:
     """Unpack + dequantize -> [..., d_in, d_out] in ``dtype``."""
     if pl.stacked:
@@ -106,6 +211,25 @@ def materialize(pl: SDVLinear, dtype=torch.bfloat16) -> torch.Tensor:
 
 def is_sdv(x) -> bool:
     return isinstance(x, SDVLinear)
+
+
+def count_packed(tree) -> Dict[str, int]:
+    """Per-layer count of the packed containers in a serve tree:
+    ``{"sdv": ..., "bseg": ...}``, a stacked container counting once per
+    layer."""
+    out = {"sdv": 0, "bseg": 0}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (SDVLinear, BSEGConv)):
+            lead = node.words if isinstance(node, SDVLinear) else node.kappa
+            key = "sdv" if isinstance(node, SDVLinear) else "bseg"
+            out[key] += lead.shape[0] if node.stacked else 1
+
+    walk(tree)
+    return out
 
 
 _QUANT_LEAF_NAMES = ("kernel", "wi_gate", "wi_up", "wo")
@@ -123,6 +247,7 @@ def _stacked_leading_axis(path: str) -> bool:
 
 def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
                  compute: str = "memory", act_bits: int = 8,
+                 conv_bseg: Optional[bool] = None,
                  plan_policy: str = "default") -> Any:
     """Rewrite a parameter tree for quantized packed serving.
 
@@ -130,8 +255,11 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
     2-D kernels (a 3-D leaf under ``blocks``, ``groups``, ... packs per
     layer with a shared plan) with at least ``min_size`` elements, and
     the LM head, as ``SDVLinear`` with ``default_sdv_plan(bits,
-    act_bits)``.  The reference's default ``compute="memory"`` and the
-    planner policies are not ported yet and raise.
+    act_bits)``; and — unless ``conv_bseg=False``, which keeps the float
+    conv dict — the SSM/Griffin short-conv containers as ``BSEGConv``
+    with ``default_bseg_plan(min(bits, 4))``.  The reference's default
+    ``compute="memory"`` and the planner policies are not ported yet and
+    raise.
     """
     if compute not in ("memory", "sdv"):
         raise ValueError(f"unknown packed compute mode {compute!r}")
@@ -146,6 +274,9 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
             f"plan_policy={plan_policy!r} needs the planner, which is "
             "not ported yet")
     plan = default_sdv_plan(bits, act_bits)
+    # conv_bseg=None follows compute="sdv", the only mode ported: on
+    conv_plan = None if conv_bseg is False \
+        else default_bseg_plan(min(bits, 4))
 
     def quantize(v, name):
         if v.ndim == 2 or (v.ndim == 3 and _stacked_leading_axis(name)):
@@ -158,11 +289,11 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
         out = {}
         for k, v in tree.items():
             path = f"{name}/{k}" if name else k
-            if k == "conv":
-                raise NotImplementedError(
-                    f"{path}: BSEG short convs (kernels B3/B4) are not "
-                    "ported yet")
-            if k in _SKIP_CONTAINERS:
+            if k == "conv" and conv_plan is not None \
+                    and isinstance(v, dict) and "w" in v \
+                    and v["w"].ndim in (2, 3):
+                out[k] = pack_conv_bseg(v, conv_plan)
+            elif k in _SKIP_CONTAINERS:
                 out[k] = v
             elif isinstance(v, dict):
                 out[k] = walk(v, path)

@@ -12,11 +12,22 @@ Torch port of the rule in ``repro.quant.quantizer``:
 
 ``torch.round`` rounds half to even like ``jnp.round``, and the float32
 division comes before the clip in both, so the two packages produce
-the same integers from the same float32 inputs.
+the same integers from the same float32 inputs — on the card too: a
+division by a Python number goes through ``div``, which divides by a
+tensor (torch's CUDA kernel multiplies by the divisor's reciprocal
+instead, which can be one ulp off the quotient, and move a scale and
+the integers quantized with it).
 """
 from __future__ import annotations
 
 import torch
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` correctly rounded on every device, as the JAX package
+    computes it: the divisor becomes a 0-dim tensor of ``x``'s dtype on
+    ``x``'s device (filled there, so no host-to-device copy)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def symmetric_qmax(bits: int) -> int:
@@ -26,7 +37,7 @@ def symmetric_qmax(bits: int) -> int:
 
 def symmetric_scale(amax: torch.Tensor, bits: int) -> torch.Tensor:
     """Per-channel dequantization scale from the abs-max statistic."""
-    return torch.clamp_min(amax, 1e-8) / symmetric_qmax(bits)
+    return div(torch.clamp_min(amax, 1e-8), symmetric_qmax(bits))
 
 
 def symmetric_qvalues(x: torch.Tensor, scale: torch.Tensor,
@@ -52,7 +63,7 @@ def asymmetric_zero_point(bits: int) -> int:
 def asymmetric_scale(lo: torch.Tensor, hi: torch.Tensor,
                      bits: int) -> torch.Tensor:
     """Step size of the unsigned asymmetric (min/max) rule."""
-    return torch.clamp_min(hi - lo, 1e-6) / asymmetric_levels(bits)
+    return div(torch.clamp_min(hi - lo, 1e-6), asymmetric_levels(bits))
 
 
 def asymmetric_qvalues(x: torch.Tensor, lo: torch.Tensor,

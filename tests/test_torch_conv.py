@@ -272,11 +272,24 @@ def test_conv_oracle_and_refusals():
         w = rng.integers(-8, 8, ws)
         assert _same(jref.conv2d_int_ref(jnp.asarray(x), jnp.asarray(w)),
                      tref.conv2d_int_ref(torch.tensor(x), torch.tensor(w)))
-    _, tplan = _plans("int32")
-    with pytest.raises(NotImplementedError, match="B4"):
-        tops.packed_conv2d(torch.zeros(1, 1, 8, 4, dtype=torch.int32),
-                           torch.ones(4, 1, 1, 3, dtype=torch.int32),
-                           plan=tplan)
+    jplan, tplan = _plans("int32")
+    # the depthwise route (kernel B4), bit-exact against the JAX package
+    c = 8
+    x = rng.integers(0, 16, (2, 3, 17, c))
+    w = np.zeros((c, 1, 1, 3), np.int64)
+    w[:, 0, 0, :] = rng.integers(-8, 8, (c, 3))
+    for mode in ("auto", "bseg_conv1d", "ref"):
+        jy = jops.packed_conv2d(jnp.asarray(x), jnp.asarray(w), plan=jplan,
+                                mode=mode)
+        ty = tops.packed_conv2d(torch.tensor(x), torch.tensor(w),
+                                plan=tplan, mode=mode)
+        assert _same(jy, ty), mode
+    x2 = rng.integers(-8, 8, (1, 2, 9, c))        # through the zero point
+    jy = jops.packed_conv2d(jnp.asarray(x2), jnp.asarray(w), plan=jplan,
+                            mode="bseg_conv1d", zero_point=8)
+    ty = tops.packed_conv2d(torch.tensor(x2), torch.tensor(w), plan=tplan,
+                            mode="bseg_conv1d", zero_point=8)
+    assert _same(jy, ty)
     with pytest.raises(ValueError, match="integer activations"):
         tops.packed_conv2d(torch.zeros(1, 4, 4, 3), torch.ones(2, 3, 3, 3),
                            plan=tplan)

@@ -37,7 +37,7 @@ def test_port_imports_without_jax_or_reference():
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 28      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 34      # every module imported
 
 
 def _entry_points():
@@ -47,10 +47,18 @@ def _entry_points():
                                     params_from_numpy, ultranet_forward,
                                     ultranet_params_from_numpy)
     cfg = get_arch("tinyllama-1.1b").reduced()
+    ssm = get_arch("mamba2-130m").reduced()
+    hybrid = get_arch("recurrentgemma-2b").reduced()
     cpu_params = init_ultranet(0, device="cpu")
     return {
         "init_params": lambda: init_params(cfg),
         "init_cache": lambda: init_cache(cfg, 2, 8),
+        "init_params_ssm": lambda: init_params(ssm),
+        "init_params_hybrid": lambda: init_params(hybrid),
+        "init_cache_ssm": lambda: init_cache(ssm, 2, 8),
+        "init_cache_hybrid": lambda: init_cache(hybrid, 2, 8),
+        "serve_cli_mamba2": lambda: serve.main(["--arch", "mamba2-130m",
+                                                "--batch", "1"]),
         "params_from_numpy": lambda: params_from_numpy({}),
         "serve_cli": lambda: serve.main(["--batch", "1"]),
         "init_ultranet": lambda: init_ultranet(0),
@@ -64,6 +72,9 @@ def _entry_points():
 
 
 @pytest.mark.parametrize("name", ["init_params", "init_cache",
+                                  "init_params_ssm", "init_params_hybrid",
+                                  "init_cache_ssm", "init_cache_hybrid",
+                                  "serve_cli_mamba2",
                                   "params_from_numpy", "serve_cli",
                                   "init_ultranet", "ultranet_forward",
                                   "ultranet_params_from_numpy",

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (B1 GEMV, B2 GEMM, B3 BSEG conv2d) against
-their plain torch version and the exact integer product.
+"""The port's CUDA kernels (B1 GEMV, B2 GEMM, B3 BSEG conv2d, B4 BSEG
+depthwise conv1d) against their plain torch version and the exact
+integer result.
 
 Imports only the port, so it runs on a machine with a card and no JAX:
 
@@ -12,8 +13,8 @@ import pytest
 import torch
 
 from repro_torch.core.datapath import DATAPATHS, plan_bseg, plan_sdv
-from repro_torch.kernels import (bseg_conv2d, ops, ref, sdv_matmul,
-                                 sdv_matvec)
+from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, ops, ref,
+                                 sdv_matmul, sdv_matvec)
 
 
 @pytest.fixture
@@ -161,3 +162,80 @@ def test_bseg_conv2d_rejects_operands(cuda):
     fp = plan_bseg(DATAPATHS["fp32m"], 4, 4)
     with pytest.raises(ValueError, match="float32"):
         bseg_conv2d.bseg_conv2d(x_pad, kd, plan=fp, h_out=5, w_out=9)
+
+
+def _conv1d_case(spec, c, s, n_taps, seed):
+    plan = plan_bseg(DATAPATHS[spec], 4, 4)
+    rng = np.random.default_rng(seed)
+    taps = torch.tensor(rng.integers(-8, 8, (c, n_taps)))
+    xq = torch.tensor(rng.integers(-8, 8, (3, s, c)))
+    kappa, tap_sum = ops.prepare_bseg_taps(taps, plan)
+    return plan, taps, xq, kappa, tap_sum
+
+
+@pytest.mark.parametrize("spec", ["int32", "fp32m", "dsp48e2", "dsp58"])
+@pytest.mark.parametrize("c,s,n_taps", [(1792, 4, 4), (37, 4, 4),
+                                        (300, 37, 3), (37, 301, 4),
+                                        (65, 1000, 5)])
+def test_bseg_conv1d_matches_plain_and_exact(cuda, spec, c, s, n_taps):
+    """B4 on the card against its plain version on the CPU, bit for bit,
+    and ``ops.bseg_conv1d`` against the exact causal conv.  Ragged C;
+    at S = 301 and 1000 the few chains split into chunks whose
+    boundaries do not align with n_i."""
+    plan, taps, xq, kappa, tap_sum = _conv1d_case(spec, c, s, n_taps, c + s)
+    x_pad = ops.bseg_conv1d_x_pad(xq, plan, n_groups=kappa.shape[-2],
+                                  n_taps=n_taps, zero_point=8)
+    want = bseg_conv1d.bseg_conv1d_plain(x_pad, kappa, plan, s_out=s)
+    launches = bseg_conv1d.bseg_conv1d.launches
+    got = bseg_conv1d.bseg_conv1d(x_pad.to(cuda), kappa.to(cuda), plan=plan,
+                                  s_out=s)
+    torch.cuda.synchronize()
+    assert bseg_conv1d.bseg_conv1d.launches == launches + 1
+    assert got.dtype == torch.int32 and (got.cpu() == want).all()
+    y = ops.bseg_conv1d(xq.to(cuda), kappa.to(cuda), tap_sum.to(cuda),
+                        plan=plan, n_taps=n_taps, zero_point=8)
+    torch.cuda.synchronize()
+    assert (y.cpu() == ref.conv1d_causal_ref(xq, taps)).all()
+
+
+@pytest.mark.parametrize("spec", ["int32", "dsp58"])
+def test_bseg_conv1d_same_padding_and_depthwise_conv2d(cuda, spec):
+    plan, taps, xq, kappa, tap_sum = _conv1d_case(spec, 96, 50, 5, 3)
+    y = ops.bseg_conv1d(xq.to(cuda), kappa.to(cuda), tap_sum.to(cuda),
+                        plan=plan, n_taps=5, zero_point=8, padding="same")
+    torch.cuda.synchronize()
+    assert (y.cpu() == ref.conv1d_ref(xq, taps, 2)).all()
+    x = xq.reshape(1, 3, 50, 96)
+    w = taps[:, None, None, :3].contiguous()
+    y = ops.packed_conv2d(x.to(cuda), w.to(cuda), plan=plan, zero_point=8)
+    torch.cuda.synchronize()
+    assert (y.cpu() == ref.conv2d_int_ref(x, w)).all()
+
+
+def test_bseg_conv1d_rejects_operands(cuda):
+    plan, taps, xq, kappa, _ = _conv1d_case("int32", 8, 6, 4, 0)
+    kd = kappa.to(cuda)
+    x_pad = torch.zeros((2, 10, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int8"):
+        bseg_conv1d.bseg_conv1d(x_pad.to(torch.int32), kd, plan=plan,
+                                s_out=6)
+    with pytest.raises(ValueError, match="samples"):
+        bseg_conv1d.bseg_conv1d(x_pad[:, :5].contiguous(), kd, plan=plan,
+                                s_out=6)
+    with pytest.raises(ValueError, match="channels"):
+        bseg_conv1d.bseg_conv1d(x_pad[..., :7].contiguous(), kd, plan=plan,
+                                s_out=6)
+    with pytest.raises(ValueError, match="operands on"):
+        bseg_conv1d.bseg_conv1d(x_pad, kappa, plan=plan, s_out=6)
+    with pytest.raises(ValueError, match="contiguous"):
+        bseg_conv1d.bseg_conv1d(x_pad.transpose(0, 1).contiguous()
+                                .transpose(0, 1), kd, plan=plan, s_out=6)
+    wide = plan_bseg(DATAPATHS["dsp48e2"], 4, 4)
+    with pytest.raises(ValueError, match="3 dims"):
+        bseg_conv1d.bseg_conv1d(x_pad, kd, plan=wide, s_out=6)
+    fp = plan_bseg(DATAPATHS["fp32m"], 4, 4)
+    with pytest.raises(ValueError, match="float32"):
+        bseg_conv1d.bseg_conv1d(x_pad, kd, plan=fp, s_out=6)
+    w8 = plan_bseg(DATAPATHS["dsp58"], 4, 8)
+    with pytest.raises(ValueError, match="w_i"):
+        bseg_conv1d.bseg_conv1d(x_pad, kd, plan=w8, s_out=6)
