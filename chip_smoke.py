@@ -20,8 +20,10 @@ exit at the first failure:
      prefill of 8 prompts (128 GEMM rows -> B2), 16 greedy decode steps
      at batch 8 (-> B1), then ``single_batch_loop`` as the serve CLI runs
      it; the launch counters are reset before and read after each run.
-     The reduced model on the card is held against the same model on
-     the CPU (plain kernel versions);
+     Reduced tinyllama-1.1b, mamba2-130m and recurrentgemma-2b on the
+     card are held against the same models on the CPU (plain kernel
+     versions), the recurrent ones over 24 decode steps, which wrap the
+     reduced attention window;
   4. conv kernels — B3 at every UltraNet-INT4 conv shape at 416x416,
      batch 8, on the int32, fp32m, dsp48e2 and dsp58 W4A4 plans, against
      its plain version bit for bit and the float64 conv oracle; B2 on
@@ -52,8 +54,10 @@ exit at the first failure:
      ``single_batch_loop``, with the per-step launch counts read from the
      packed tree (B4 24 / 18, B1 120 / 200, no B2, B3 or plain call); ms
      per step, tok/s, peak memory and the device busy share of a step.
-     The packed short conv (``bseg_conv_apply``) on the card is held
-     against the same call on the CPU at the full-width decode shape.
+     B1 is held against its plain version and the exact product at each
+     projection shape of the packed tree.  The packed short conv
+     (``bseg_conv_apply``) on the card is held against the same call on
+     the CPU at the full-width decode shape.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -93,12 +97,16 @@ CONV1D_SAMPLES = {"decode": 4, "long": 2048}
 #: the recurrent archs and their per-step launches (batch 8: B1, never B2)
 RECURRENT_STEP = {"mamba2-130m": {"B1": 120, "B4": 24},
                   "recurrentgemma-2b": {"B1": 200, "B4": 18}}
-#: reduced model, card vs CPU: every packed GEMM is exact on both, but the
-#: bf16 elementwise ops and the bf16 LM-head product round differently on
-#: the card; a one-ulp bf16 change upstream of the per-row int8 activation
-#: quantizer moves an activation by one step and compounds over the
-#: layers (0.051 observed on this check, H100, 700 W)
+#: reduced models, card vs CPU: every packed GEMM and conv is exact on
+#: both, but the bf16 elementwise ops and the bf16 LM-head product round
+#: differently on the card; a one-ulp bf16 change upstream of an
+#: activation quantizer moves an activation by one step and compounds
+#: over the layers (tinyllama: 0.051 observed while the quantizer scales
+#: were divided by Python numbers, 0.00024 since; H100, 700 W)
 LOGIT_ATOL = 0.1
+REFERENCE_ARCHS = ("tinyllama-1.1b", "mamba2-130m", "recurrentgemma-2b")
+#: decode steps of the reduced recurrent models: past their window of 16
+REFERENCE_STEPS = 24
 
 
 #: the kernel functions of csrc/*.cu, as the profiler names them
@@ -170,7 +178,6 @@ def phase_kernels(dev, flush):
     Returns per-kernel sums over one layer's projections (INT32 plan)."""
     import torch
     from repro_torch.core.datapath import DSP48E2, plan_sdv
-    from repro_torch.kernels import ops, ref, sdv_matmul, sdv_matvec
     from repro_torch.models.quantized import default_sdv_plan
 
     plans = {"int32 W4A8 n=2": default_sdv_plan(4, 8),
@@ -186,60 +193,69 @@ def phase_kernels(dev, flush):
     t_phase = time.perf_counter()
     for pname, plan in plans.items():
         for (k, m), mult in LAYER_SHAPES.items():
-            w = torch.randint(-8, 8, (m, k), generator=gen, device=dev)
-            words = ops.prepare_sdv_weights(w, plan)
             for kname, rows_list in (("B1", B1_ROWS), ("B2", B2_ROWS)):
                 for rows in rows_list:
-                    x = torch.randint(-127, 128, (rows, k), generator=gen,
-                                      device=dev, dtype=torch.int32)
-                    if kname == "B1":
-                        xt = x.T.contiguous()
-                        def run():
-                            return sdv_matvec.sdv_matvec(xt, words, plan=plan)
-                    else:
-                        def run():
-                            return sdv_matmul.sdv_matmul(x, words, plan=plan)
-                    got = run()
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    want = sdv_matmul.sdv_matmul_plain(x, words, plan)
-                    torch.cuda.synchronize()
-                    plain_ms = (time.perf_counter() - t0) * 1e3
-                    exact = ref.sdv_matmul_ref(x, w)          # float64, exact
-                    err = int((got.long() - want.long()).abs().max())
-                    max_err[kname] = max(max_err[kname], err)
-                    check(err == 0, f"{kname} != plain at {pname} K={k} "
-                                    f"M={m} rows={rows} (max err {err})")
-                    check(torch.equal(got.reshape(rows, -1)[:, :m], exact),
-                          f"{kname} != exact product at {pname} K={k} "
-                          f"M={m} rows={rows}")
-                    ms = event_ms(run, reps=10, flush=flush)
-                    nbytes = (x.numel() * 4 + words.numel() * 4
-                              + got.numel() * 4)
-                    ops_n = 2 * rows * m * k
-                    b_ms, b_by = bound_ms(nbytes, ops_n)
-                    lib_ms = int_mm_ms(x, w, flush)
-                    print(f"[kernels] {kname} {pname} K={k} M={m} rows={rows}: "
-                          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-                          f"{b_ms / ms:.1%} of bound), plain {plain_ms:.1f} ms, "
-                          f"_int_mm {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
-                          f" ms, exact")
+                    r = sdv_case(kname, plan, pname, k, m, rows, gen, flush)
+                    max_err[kname] = max(max_err[kname], r["max_abs_err"])
                     main_rows = DECODE_ROWS if kname == "B1" else PREFILL_ROWS
                     if pname.startswith("int32") and rows == main_rows:
                         acc = layer[kname]
-                        acc["ms"] += mult * ms
-                        acc["plain_ms"] += mult * plain_ms
-                        acc["bytes"] += mult * nbytes
-                        acc["ops"] += mult * ops_n
-                        if lib_ms is None or acc["library_ms"] is None:
+                        for key in ("ms", "plain_ms", "bytes", "ops"):
+                            acc[key] += mult * r[key]
+                        if r["library_ms"] is None \
+                                or acc["library_ms"] is None:
                             acc["library_ms"] = None
                         else:
-                            acc["library_ms"] += mult * lib_ms
+                            acc["library_ms"] += mult * r["library_ms"]
     for kname, acc in layer.items():
         acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
         acc["max_abs_err"] = max_err[kname]
     print(f"[kernels] all shapes exact, {time.perf_counter() - t_phase:.1f} s")
     return layer
+
+
+def sdv_case(kname, plan, pname, k, m, rows, gen, flush):
+    """One B1 or B2 case: random W4 weights [M, K] in ``plan``'s words and
+    ``rows`` random int8 activation rows.  Checks the kernel against its
+    plain version and the exact product; returns its times, bytes,
+    operations and library time."""
+    import torch
+    from repro_torch.kernels import ops, ref, sdv_matmul, sdv_matvec
+
+    w = torch.randint(-8, 8, (m, k), generator=gen, device=gen.device)
+    words = ops.prepare_sdv_weights(w, plan)
+    x = torch.randint(-127, 128, (rows, k), generator=gen, device=gen.device,
+                      dtype=torch.int32)
+    if kname == "B1":
+        xt = x.T.contiguous()
+
+        def run():
+            return sdv_matvec.sdv_matvec(xt, words, plan=plan)
+    else:
+        def run():
+            return sdv_matmul.sdv_matmul(x, words, plan=plan)
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sdv_matmul.sdv_matmul_plain(x, words, plan)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    exact = ref.sdv_matmul_ref(x, w)                  # float64, exact
+    err = int((got.long() - want.long()).abs().max())
+    where = f"{pname} K={k} M={m} rows={rows}"
+    check(err == 0, f"{kname} != plain at {where} (max err {err})")
+    check(torch.equal(got.reshape(rows, -1)[:, :m], exact),
+          f"{kname} != exact product at {where}")
+    ms = event_ms(run, reps=10, flush=flush)
+    nbytes = x.numel() * 4 + words.numel() * 4 + got.numel() * 4
+    ops_n = 2 * rows * m * k
+    b_ms, b_by = bound_ms(nbytes, ops_n)
+    lib_ms = int_mm_ms(x, w, flush)
+    print(f"[kernels] {kname} {where}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+          f"{b_by}, {b_ms / ms:.1%} of bound), plain {plain_ms:.1f} ms, "
+          f"_int_mm {lib_ms if lib_ms is None else f'{lib_ms:.4f}'} ms, exact")
+    return dict(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops_n,
+                library_ms=lib_ms, max_abs_err=err)
 
 
 def int_mm_ms(x, w, flush):
@@ -547,47 +563,72 @@ def profile(label, fn, steps, wall_ms):
 
 
 def phase_reference(dev):
-    """The reduced model on the card vs on the CPU (plain kernel
-    versions): same seeded weights, same tokens."""
+    """The reduced models on the card vs on the CPU (plain kernel
+    versions): same seeded weights, same teacher-forced tokens.
+    tinyllama prefills 5 tokens and decodes 3; the recurrent models
+    replay ``REFERENCE_STEPS`` tokens one per decode step, past the
+    reduced attention window, so recurrentgemma's KV ring wraps."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill_step, serve_params)
 
-    cfg = get_arch("tinyllama-1.1b").reduced()
     cpu = torch.device("cpu")
-    params = init_params(cfg, seed=1, device=cpu)
-    rng = np.random.default_rng(1)
-    prompt = rng.integers(0, cfg.vocab, (3, 5))
-    tokens = rng.integers(0, cfg.vocab, (3, 3, 1))
-    outs = {}
-    for d in (cpu, dev):
-        q = serve_params({k: _to(v, d) for k, v in params.items()}, bits=4,
-                         min_size=1024, compute="sdv")
-        cache = init_cache(cfg, 3, 12, device=d)
-        cache = prefill_step(cfg, q, cache,
-                             torch.tensor(prompt, dtype=torch.int32, device=d),
-                             torch.tensor([5, 3, 0], dtype=torch.int32,
-                                          device=d))
-        logits = []
-        for t in tokens:
-            out, cache = decode_step(cfg, q, cache, torch.tensor(
-                t, dtype=torch.int32, device=d))
-            logits.append(out.cpu())
-        outs[d.type] = torch.stack(logits)
-    card, host = outs["cuda"], outs["cpu"]
-    err = float((card - host).abs().max())
-    check(err <= LOGIT_ATOL, f"reduced model card vs CPU logits differ by "
-                             f"{err} > {LOGIT_ATOL}")
-    top2 = host[..., :cfg.vocab].topk(2, dim=-1).values
-    sure = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_ATOL
-    same = card[..., :cfg.vocab].argmax(-1) == host[..., :cfg.vocab].argmax(-1)
-    check(bool(same[sure].all()), "greedy tokens differ where the CPU's "
-                                  "top-2 margin exceeds twice the tolerance")
-    print(f"[reference] reduced {cfg.name}: card vs CPU max |dlogit| "
-          f"{err:.4g} (tolerance {LOGIT_ATOL}: bf16 rounding and sum order "
-          f"differ between the card and the CPU)")
+    for arch in REFERENCE_ARCHS:
+        cfg = get_arch(arch).reduced()
+        params = init_params(cfg, seed=1, device=cpu)
+        rng = np.random.default_rng(1)
+        if cfg.family == "dense":
+            prompt = rng.integers(0, cfg.vocab, (3, 5))
+            tokens = rng.integers(0, cfg.vocab, (3, 3, 1))
+            s_max = 12
+        else:
+            prompt = None
+            tokens = rng.integers(0, cfg.vocab, (REFERENCE_STEPS, 3, 1))
+            s_max = REFERENCE_STEPS
+            check(cfg.window is None or cfg.window < REFERENCE_STEPS,
+                  f"{cfg.name}: {REFERENCE_STEPS} steps do not wrap the "
+                  f"window {cfg.window}")
+        outs, caches = {}, {}
+        for d in (cpu, dev):
+            q = serve_params(_to(params, d), bits=4, min_size=1024,
+                             compute="sdv")
+            cache = init_cache(cfg, 3, s_max, device=d)
+            if prompt is not None:
+                cache = prefill_step(
+                    cfg, q, cache,
+                    torch.tensor(prompt, dtype=torch.int32, device=d),
+                    torch.tensor([5, 3, 0], dtype=torch.int32, device=d))
+            logits = []
+            for t in tokens:
+                out, cache = decode_step(cfg, q, cache, torch.tensor(
+                    t, dtype=torch.int32, device=d))
+                logits.append(out.cpu())
+            outs[d.type] = torch.stack(logits)
+            caches[d.type] = {k: v.cpu() for k, v in cache.items()}
+        card, host = outs["cuda"], outs["cpu"]
+        err = float((card - host).abs().max())
+        check(err <= LOGIT_ATOL, f"reduced {cfg.name} card vs CPU logits "
+                                 f"differ by {err} > {LOGIT_ATOL}")
+        top2 = host[..., :cfg.vocab].topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_ATOL
+        same = (card[..., :cfg.vocab].argmax(-1)
+                == host[..., :cfg.vocab].argmax(-1))
+        check(bool(same[sure].all()),
+              f"reduced {cfg.name}: greedy tokens differ where the CPU's "
+              "top-2 margin exceeds twice the tolerance")
+        state_err = {k: float((caches["cuda"][k].float()
+                               - v.float()).abs().max())
+                     for k, v in caches["cpu"].items()
+                     if v.is_floating_point()}
+        print(f"[reference] reduced {cfg.name}, {len(tokens)} decode steps: "
+              f"card vs CPU max |dlogit| {err:.4g} (tolerance {LOGIT_ATOL}: "
+              f"bf16 rounding and sum order differ between the card and the "
+              f"CPU; max |logit| {float(host.abs().max()):.4g}; "
+              f"{int(sure.sum())} of {sure.numel()} greedy tokens checked); "
+              "cache max |d|: "
+              + ", ".join(f"{k} {v:.4g}" for k, v in state_err.items()))
 
 
 def phase_ultranet(dev, per_layer, card):
@@ -814,10 +855,12 @@ def conv1d_library_ms(xq, taps, left, exact, flush):
     return event_ms(run, reps=10, flush=flush), err
 
 
-def phase_recurrent(dev, card):
+def phase_recurrent(dev, card, flush):
     """Full-width mamba2-130m and recurrentgemma-2b decoding through
     single_batch_loop at batch 8, with per-step launch counts read from
-    the packed tree.  Returns each arch's B1 and B4 launch counts."""
+    the packed tree, and B1 held against its plain version and the exact
+    product at each projection shape of the tree.  Returns each arch's
+    B1 and B4 launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_arch
@@ -846,6 +889,19 @@ def phase_recurrent(dev, card):
               f"{cfg.d_model}, vocab {cfg.vocab}; seeded init + SDV/BSEG "
               f"packing in {time.perf_counter() - t0:.1f} s; per step "
               f"{per_step}")
+        # B1 at every projection shape the step gives it, on the tree's plan
+        plan, shapes = sdv_shapes(qparams)
+        check(sum(shapes.values()) == per_step["B1"], shapes)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(6)
+        b1_ms = 0.0
+        for (k, m), n in sorted(shapes.items()):
+            r = sdv_case("B1", plan, f"{arch} ({n} per step)", k, m,
+                         DECODE_ROWS, gen, flush)
+            b1_ms += n * r["ms"]
+        print(f"[recurrent] {cfg.name}: B1 exact at all {len(shapes)} "
+              f"projection shapes; {b1_ms:.3f} ms per step from these "
+              f"kernel times ({card})")
         rng = np.random.default_rng(0)
         prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
                                dtype=torch.int32, device=dev)
@@ -892,6 +948,27 @@ def phase_recurrent(dev, card):
         del qparams, cache, state
         torch.cuda.empty_cache()
     return launches
+
+
+def sdv_shapes(tree):
+    """The SDV plan of a serve tree and its per-step B1 launches by
+    projection shape: (plan, {(K, M): launches})."""
+    from repro_torch.models.quantized import SDVLinear
+    plans, shapes = set(), {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, SDVLinear):
+            plans.add(node.plan)
+            key = (node.words.shape[-2], node.d_out)
+            shapes[key] = shapes.get(key, 0) + (
+                node.words.shape[0] if node.stacked else 1)
+
+    walk(tree)
+    check(len(plans) == 1, f"one SDV plan per tree, got {plans}")
+    return plans.pop(), shapes
 
 
 def conv_card_vs_cpu(qparams, cfg, dev):
@@ -965,7 +1042,7 @@ def main() -> int:
         conv, per_layer, head_ms = phase_conv_kernels(dev, flush)
         ultra = phase_ultranet(dev, per_layer, card)
         conv1d = phase_conv1d_kernels(dev, flush)
-        recurrent = phase_recurrent(dev, card)
+        recurrent = phase_recurrent(dev, card, flush)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

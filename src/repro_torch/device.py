@@ -27,3 +27,13 @@ def sm_count(device_index: int) -> int:
     their grids from it."""
     return torch.cuda.get_device_properties(device_index) \
         .multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def constant(value: float, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A 0-dim tensor of ``value`` rounded to ``dtype`` on ``device``,
+    filled there once per (value, dtype, device) and then reused: the
+    model code's divisors and scalars are a handful of constants, and a
+    fresh fill per use would add a device launch to every one."""
+    return torch.full((), value, dtype=dtype, device=device)

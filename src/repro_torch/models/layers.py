@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..device import constant
 from ..quant import quantizer
 from .quantized import is_sdv, materialize, sdv_matmul_apply
 
@@ -98,10 +99,11 @@ def silu(x):
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-dim tensor of ``like``'s dtype on its device (filled there):
-    JAX rounds a Python scalar to the array's dtype before the op (weak
-    typing); torch would compute with the unrounded value."""
-    return torch.full((), value, dtype=like.dtype, device=like.device)
+    """A 0-dim tensor of ``like``'s dtype on its device
+    (``device.constant``, made once and reused): JAX rounds a Python
+    scalar to the array's dtype before the op (weak typing); torch would
+    compute with the unrounded value."""
+    return constant(value, like.dtype, like.device)
 
 
 def gelu_tanh(x):

@@ -56,11 +56,11 @@ def _rg_cfg(cfg: ArchConfig) -> R.RGLRUConfig:
 _DECODE_FAMILIES = ("dense", "ssm", "hybrid")
 
 
-def _require_family(cfg: ArchConfig, what: str, families=_DECODE_FAMILIES):
-    if cfg.family not in families:
+def _require_family(cfg: ArchConfig, what: str):
+    if cfg.family not in _DECODE_FAMILIES:
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(families)})")
+            f"{', '.join(_DECODE_FAMILIES)})")
     if cfg.family == "dense" and cfg.serve_kv_bits != 8:
         raise NotImplementedError("only the int8 KV cache is ported")
 
@@ -318,11 +318,11 @@ def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                      n_valid: torch.Tensor):
     """Chunked teacher-forcing core: returns (final hidden states
     [B, C, d], cache)."""
-    if cfg.family in ("ssm", "hybrid"):
-        # the JAX package replays these families' prompts one token per
-        # decode_step
+    if cfg.family not in ("dense", "moe", "vlm"):
+        # as in the JAX package: the recurrent families replay prompts
+        # one token per decode_step
         raise ValueError(f"prefill_step: unsupported family {cfg.family}")
-    _require_family(cfg, "prefill_step", ("dense",))
+    _require_family(cfg, "prefill_step")       # moe and vlm: not ported
     index = cache["index"]
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=index.device)

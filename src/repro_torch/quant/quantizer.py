@@ -22,12 +22,14 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 
 def div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` correctly rounded on every device, as the JAX package
-    computes it: the divisor becomes a 0-dim tensor of ``x``'s dtype on
-    ``x``'s device (filled there, so no host-to-device copy)."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+    computes it: the divisor is a 0-dim tensor of ``x``'s dtype on
+    ``x``'s device (``device.constant``, made once and reused)."""
+    return x / constant(d, x.dtype, x.device)
 
 
 def symmetric_qmax(bits: int) -> int:

@@ -10,6 +10,7 @@ kernels themselves are held against them in ``test_torch_kernels_cuda``.
 """
 import dataclasses
 import itertools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -232,6 +233,22 @@ def test_quantizer_rule_on_ties():
     amax[0] = 0.0
     assert (np.asarray(jquant.symmetric_scale(jnp.asarray(amax), 4))
             == tquant.symmetric_scale(torch.tensor(amax), 4).numpy()).all()
+
+
+def test_quantizer_divisors_are_made_once():
+    """``div`` gives JAX's correctly rounded float32 quotient, and its
+    divisor tensors are made once per (value, dtype, device) and then
+    reused, so a model step adds no device fill per division."""
+    from repro_torch.device import constant
+    x = np.random.default_rng(3).standard_normal(256).astype(np.float32)
+    for d in (7, 15, 127.0, math.sqrt(64)):
+        jq = np.asarray(jnp.asarray(x) / d)
+        assert (jq == tquant.div(torch.tensor(x), d).numpy()).all()
+        assert constant(d, torch.float32, torch.device("cpu")) \
+            is constant(d, torch.float32, torch.device("cpu"))
+    bf = constant(0.044715, torch.bfloat16, torch.device("cpu"))
+    assert bf.dtype == torch.bfloat16 and bf.ndim == 0
+    assert float(bf) == float(jnp.asarray(0.044715, jnp.bfloat16))
 
 
 @pytest.mark.parametrize("spec,signed", [("int32", True), ("dsp48e2", True),
