@@ -6,9 +6,11 @@ exit at the first failure:
 
   1. build — compiles kernels B1 (SDV GEMV) and B2 (SDV GEMM) from
      ``src/repro_torch/kernels/csrc/sdv.cu``, B3 (BSEG conv2d) from
-     ``csrc/bseg.cu`` and B4 (BSEG depthwise conv1d) from
-     ``csrc/bseg1d.cu`` with nvcc for sm_90a, one nvcc per source, all
-     started together;
+     ``csrc/bseg.cu``, B4 (BSEG depthwise conv1d) from
+     ``csrc/bseg1d.cu``, B6/B7 (lane pack/unpack) from
+     ``csrc/packbits.cu`` and B5 (quantized matmul) from
+     ``csrc/quant_matmul.cu`` with nvcc for sm_90a, one nvcc per source,
+     all started together;
   2. kernels — each kernel against its plain torch version bit for bit,
      and against the exact integer product (float64 on the card, exact
      while |sum| < 2^53), at the main path's (K, M) shapes, for the
@@ -57,7 +59,33 @@ exit at the first failure:
      B1 is held against its plain version and the exact product at each
      projection shape of the packed tree.  The packed short conv
      (``bseg_conv_apply``) on the card is held against the same call on
-     the CPU at the full-width decode shape.
+     the CPU at the full-width decode shape;
+  8. memory kernels — B6 (lane pack) and B7 (unpack) from
+     ``csrc/packbits.cu`` at every tinyllama projection shape, the LM
+     head and a ragged shape, W2/W4/W8, and B6 at the stacked shapes
+     serve_params gives it, each against its plain version bit for bit;
+     B5 (``csrc/quant_matmul.cu``) at those shapes x 8 and 128 rows x
+     W4/W8 x bf16/f32 activations, against its plain version and the
+     float64 product within the float32 summation bound
+     (``quant_matmul.error_bound``, which grows with K) and within
+     ``ROUNDING_LIMIT`` typical float32 roundings
+     (``quant_matmul.rounding_scale``), a check that TF32-rounded and
+     bf16-rounded x, run beside it on the float32 cases, must fail; each
+     timed beside its bound (B5's operations at the bf16 tensor rate for
+     bf16 x, the float32 CUDA-core rate for float32 x), B5 also beside
+     ``torch.mm`` on float32 operands
+     (TF32 off; no single PyTorch call packs bit fields, so B6/B7 have
+     no library time);
+  9. memory serve — full-width tinyllama-1.1b packed by
+     ``serve_params(compute="memory", min_size=1024)`` (one B6 launch per
+     container; words == the plain pack, B7 of them == the plain
+     unpack), a 16-token prefill of 8 prompts (154 B7), 16 decode steps
+     and ``single_batch_loop`` (155 B7 per step: 22 x 7 projections + the
+     LM head; no other kernel or plain call), with ms/step, tok/s, peak
+     memory and the device busy share; then every container's words
+     through ``packed_matmul(plan=None)`` (B5) at 8 and 8 x 16 rows;
+     reduced tinyllama, mamba2-130m and recurrentgemma-2b in memory mode
+     on the card against the CPU.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -75,9 +103,16 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 tensor ops/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense int8 tensor
+#: ops/s, dense bf16 tensor FLOP/s, float32 CUDA-core FLOP/s.  Kernel B5's
+#: bound takes its activations' type: a bf16 value times a field of at
+#: most 8 bits is exact in float32, so bf16 tensor cores with float32
+#: accumulation compute its function on bf16 x; float32 x needs float32
+#: FMAs (TF32 would round x)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 #: the main path's projection shapes (K, M) and how often one tinyllama
 #: layer runs each: q/o 2048->2048, k/v 2048->256, gate/up 2048->5632,
 #: down 5632->2048
@@ -107,11 +142,22 @@ LOGIT_ATOL = 0.1
 REFERENCE_ARCHS = ("tinyllama-1.1b", "mamba2-130m", "recurrentgemma-2b")
 #: decode steps of the reduced recurrent models: past their window of 16
 REFERENCE_STEPS = 24
+#: the memory-packed kernels: tinyllama's LM head (d_model x vocab) beside
+#: LAYER_SHAPES, the lane widths B6/B7 are checked at (the path packs W4),
+#: the widths B5 is checked at, and one ragged (rows, words) shape
+LM_HEAD_SHAPE = (2048, 32000)
+PACK_WIDTHS = (2, 4, 8)
+QMM_WIDTHS = (4, 8)
+RAGGED_PACK = (37, 301)
+MEMORY_BITS = 4
 
 
 #: the kernel functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("sdv_gemv_kernel", "sdv_gemm_kernel", "bseg_conv2d_kernel",
-                "bseg_conv1d_kernel")
+                "bseg_conv1d_kernel", "quant_matmul_kernel",
+                "pack_words_kernel", "unpack_words_kernel")
+#: the launch counters that counts() reads
+KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7")
 #: clock cycles the card spins before each timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
 
@@ -150,16 +196,16 @@ def event_ms(fn, reps, flush=None):
     return total / reps
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    names = ("sdv", "bseg", "bseg1d")
+    names = ("sdv", "bseg", "bseg1d", "packbits", "quant_matmul")
     with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
         list(pool.map(build.build, names))
     for name in names:
@@ -407,28 +453,42 @@ def conv2d_library_ms(x, taps, exact, flush):
     return event_ms(run, reps=5, flush=flush), err
 
 
+def _counters():
+    """(kernel launch counters by name, plain-version call counters): the
+    functions whose ``launches`` / ``calls`` attributes count."""
+    from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, packbits,
+                                     quant_matmul, sdv_matmul, sdv_matvec)
+    return ({"B1": sdv_matvec.sdv_matvec, "B2": sdv_matmul.sdv_matmul,
+             "B3": bseg_conv2d.bseg_conv2d, "B4": bseg_conv1d.bseg_conv1d,
+             "B5": quant_matmul.quant_matmul, "B6": packbits.pack_words,
+             "B7": packbits.unpack_words},
+            (sdv_matmul.sdv_matmul_plain, bseg_conv2d.bseg_conv2d_plain,
+             bseg_conv1d.bseg_conv1d_plain, quant_matmul.quant_matmul_plain,
+             packbits.pack_words_plain, packbits.unpack_words_plain))
+
+
 def counts():
-    from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, sdv_matmul,
-                                     sdv_matvec)
-    return {"B1": sdv_matvec.sdv_matvec.launches,
-            "B2": sdv_matmul.sdv_matmul.launches,
-            "B3": bseg_conv2d.bseg_conv2d.launches,
-            "B4": bseg_conv1d.bseg_conv1d.launches,
-            "plain": sdv_matmul.sdv_matmul_plain.calls
-            + bseg_conv2d.bseg_conv2d_plain.calls
-            + bseg_conv1d.bseg_conv1d_plain.calls}
+    kernels, plains = _counters()
+    out = {name: fn.launches for name, fn in kernels.items()}
+    out["plain"] = sum(fn.calls for fn in plains)
+    return out
 
 
 def reset_counts():
-    from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, sdv_matmul,
-                                     sdv_matvec)
-    sdv_matvec.sdv_matvec.launches = 0
-    sdv_matmul.sdv_matmul.launches = 0
-    bseg_conv2d.bseg_conv2d.launches = 0
-    bseg_conv1d.bseg_conv1d.launches = 0
-    sdv_matmul.sdv_matmul_plain.calls = 0
-    bseg_conv2d.bseg_conv2d_plain.calls = 0
-    bseg_conv1d.bseg_conv1d_plain.calls = 0
+    kernels, plains = _counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plains:
+        fn.calls = 0
+
+
+def expect(**launches):
+    """The counts() of a run that launched only ``launches`` (by kernel
+    name) and called no plain version."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    out.update(launches)
+    out["plain"] = 0
+    return out
 
 
 def phase_serve(dev):
@@ -473,8 +533,7 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     c_prefill = counts()
-    check(c_prefill == {"B1": 0, "B2": per_step, "B3": 0, "B4": 0,
-                        "plain": 0},
+    check(c_prefill == expect(B2=per_step),
           f"prefill launches {c_prefill}, want B2={per_step}")
     reset_counts()
     tok = prompts[:, -1:]
@@ -487,8 +546,7 @@ def phase_serve(dev):
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     c_decode = counts()
-    check(c_decode == {"B1": NEW * per_step, "B2": 0, "B3": 0, "B4": 0,
-                       "plain": 0},
+    check(c_decode == expect(B1=NEW * per_step),
           f"decode launches {c_decode}, want B1={NEW * per_step}")
     check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
           and logits.dtype == torch.float32, tuple(logits.shape))
@@ -518,8 +576,7 @@ def phase_serve(dev):
     toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
     c_loop = counts()
     steps = PROMPT + NEW - 1
-    check(c_loop == {"B1": steps * per_step, "B2": 0, "B3": 0, "B4": 0,
-                     "plain": 0},
+    check(c_loop == expect(B1=steps * per_step),
           f"single_batch_loop launches {c_loop}")
     check(toks.shape == (BATCH, NEW), toks.shape)
     print(f"[serve] single_batch_loop: {BATCH * steps / dt:.1f} tok/s "
@@ -551,8 +608,13 @@ def profile(label, fn, steps, wall_ms):
               "device busy share not measured")
         return
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    ours = {name: sum(v for k, v in dev_us.items() if name in k) / 1e3 / steps
-            for name in PORT_KERNELS}
+    # each event goes to the longest port kernel name in it
+    # (pack_words_kernel is a substring of unpack_words_kernel)
+    ours = dict.fromkeys(PORT_KERNELS, 0.0)
+    for k, v in dev_us.items():
+        hits = [name for name in PORT_KERNELS if name in k]
+        if hits:
+            ours[max(hits, key=len)] += v / 1e3 / steps
     print(f"[profile] {label}: unprofiled wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over "
           f"{len(dev_us)} distinct device events; the port's kernels "
@@ -562,9 +624,10 @@ def profile(label, fn, steps, wall_ms):
           + "; ".join(f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
 
 
-def phase_reference(dev):
+def phase_reference(dev, compute="sdv"):
     """The reduced models on the card vs on the CPU (plain kernel
-    versions): same seeded weights, same teacher-forced tokens.
+    versions), packed by ``serve_params(compute=compute)``: same seeded
+    weights, same teacher-forced tokens.
     tinyllama prefills 5 tokens and decodes 3; the recurrent models
     replay ``REFERENCE_STEPS`` tokens one per decode step, past the
     reduced attention window, so recurrentgemma's KV ring wraps."""
@@ -593,7 +656,7 @@ def phase_reference(dev):
         outs, caches = {}, {}
         for d in (cpu, dev):
             q = serve_params(_to(params, d), bits=4, min_size=1024,
-                             compute="sdv")
+                             compute=compute)
             cache = init_cache(cfg, 3, s_max, device=d)
             if prompt is not None:
                 cache = prefill_step(
@@ -622,7 +685,8 @@ def phase_reference(dev):
                                - v.float()).abs().max())
                      for k, v in caches["cpu"].items()
                      if v.is_floating_point()}
-        print(f"[reference] reduced {cfg.name}, {len(tokens)} decode steps: "
+        print(f"[reference] reduced {cfg.name} ({compute}), {len(tokens)} "
+              "decode steps: "
               f"card vs CPU max |dlogit| {err:.4g} (tolerance {LOGIT_ATOL}: "
               f"bf16 rounding and sum order differ between the card and the "
               f"CPU; max |logit| {float(host.abs().max()):.4g}; "
@@ -648,10 +712,8 @@ def phase_ultranet(dev, per_layer, card):
     y_ref = ultranet_forward(params, img, mode="ref", device=dev)
     check(tuple(y_ref.shape) == (b, size // 16, size // 16, 36)
           and y_ref.dtype == torch.int32, tuple(y_ref.shape))
-    runs = {"int32": (None, {"B1": 0, "B2": 1, "B3": 8, "B4": 0,
-                             "plain": 0}),
-            "dsp48e2": ([plan_bseg(DSP48E2, 4, 4)] * 9,
-                        {"B1": 0, "B2": 0, "B3": 9, "B4": 0, "plain": 0})}
+    runs = {"int32": (None, expect(B2=1, B3=8)),
+            "dsp48e2": ([plan_bseg(DSP48E2, 4, 4)] * 9, expect(B3=9))}
     launches = {}
     for name, (plans, want) in runs.items():
         def forward():
@@ -917,8 +979,8 @@ def phase_recurrent(dev, card, flush):
         toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
         c_loop = counts()
         steps = PROMPT + NEW - 1
-        want = {"B1": steps * per_step["B1"], "B2": 0, "B3": 0,
-                "B4": steps * per_step["B4"], "plain": 0}
+        want = expect(B1=steps * per_step["B1"],
+                      B4=steps * per_step["B4"])
         check(c_loop == want, f"{arch} single_batch_loop launches {c_loop}, "
                               f"want {want}")
         check(toks.shape == (BATCH, NEW) and (toks >= 0).all()
@@ -1007,6 +1069,409 @@ def conv_card_vs_cpu(qparams, cfg, dev):
           " on the card (B4) == on the CPU (plain version), bit for bit")
 
 
+def memory_shapes():
+    """The (K, N) shapes of the memory-packed path with their multiplicity
+    in one tinyllama layer (0 for the LM head, once per step)."""
+    return {**LAYER_SHAPES, LM_HEAD_SHAPE: 0}
+
+
+def packbits_case(m, n, w, gen, flush, where):
+    """B6 on random w-bit values [m, n] and B7 on the words, each against
+    its plain version bit for bit (and the round trip); returns both
+    kernels' times, plain times and bounds."""
+    import torch
+    from repro_torch.kernels import packbits
+
+    half = 1 << (w - 1)
+    vals = torch.randint(-half, half, (m, n), generator=gen,
+                         device=gen.device, dtype=torch.int8)
+    words = packbits.pack_words(vals, w=w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = packbits.pack_words_plain(vals, w=w)
+    torch.cuda.synchronize()
+    plain6 = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(words, want), f"B6 != plain at {where}")
+    back = packbits.unpack_words(words, w=w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_u = packbits.unpack_words_plain(words, w=w)
+    torch.cuda.synchronize()
+    plain7 = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(back, want_u), f"B7 != plain at {where}")
+    check(torch.equal(back, vals), f"B7(B6(x)) != x at {where}")
+    nbytes = vals.numel() + words.numel() * 4          # both directions
+    b_ms, b_by = bound_ms(nbytes, 0)
+    ms6 = event_ms(lambda: packbits.pack_words(vals, w=w), 10, flush)
+    ms7 = event_ms(lambda: packbits.unpack_words(words, w=w), 10, flush)
+    print(f"[memory] W{w} {where} [{m}, {n}] <-> [{m}, {words.shape[1]}] "
+          f"words: B6 {ms6:.4f} ms, B7 {ms7:.4f} ms (bound {b_ms:.4f} ms by "
+          f"{b_by}: {b_ms / ms6:.1%} / {b_ms / ms7:.1%}), plain {plain6:.2f} / "
+          f"{plain7:.2f} ms, exact")
+    return {"B6": dict(ms=ms6, plain_ms=plain6, bound_ms=b_ms),
+            "B7": dict(ms=ms7, plain_ms=plain7, bound_ms=b_ms)}
+
+
+def quant_matmul_case(rows, k, n, w, dtype, gen, flush, where):
+    """B5 on random activations [rows, k] and W-bit lane words [k, n]:
+    against its plain version (within twice ``error_bound``) and the
+    float64 product (within ``error_bound``: the float32 summation
+    bound, which grows with K); returns its times, bound and library
+    time (``torch.mm`` on float32 x and the dequantized float32 weights,
+    TF32 off)."""
+    import torch
+    from repro_torch.kernels import packbits, quant_matmul
+
+    half = 1 << (w - 1)
+    x = torch.randn((rows, k), generator=gen, device=gen.device).to(dtype)
+    w_int = torch.randint(-half, half, (k, n), generator=gen,
+                          device=gen.device, dtype=torch.int8)
+    scale = torch.rand(n, generator=gen, device=gen.device) * 0.05 + 0.001
+    words = packbits.pack_words_plain(w_int, w=w)
+
+    def run():
+        return quant_matmul.quant_matmul(x, words, scale, w=w)
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = quant_matmul.quant_matmul_plain(x, words, scale, w=w)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    exact = (x.double() @ w_int.double()) * scale.double()
+    bound = quant_matmul.error_bound(x, w_int, scale)
+    err = float((got.double() - want.double()).abs().max())
+    err_exact = (got.double() - exact).abs()
+    check(bool(((got.double() - want.double()).abs() <= 2 * bound).all()),
+          f"B5 != plain at {where} (max err {err:.3g})")
+    check(bool((err_exact <= bound).all()),
+          f"B5 off the float64 product at {where} by more than the "
+          f"float32 summation bound ({float(err_exact.max()):.3g})")
+    reading, plain_reading = (qmm_reading(y, exact, x, w_int, scale)
+                              for y in (got, want))
+    check(reading <= quant_matmul.ROUNDING_LIMIT
+          and plain_reading <= quant_matmul.ROUNDING_LIMIT,
+          f"B5 (or its plain version) off the float64 product at {where} "
+          f"by {reading:.3g} ({plain_reading:.3g}) float32 rounding scales")
+    controls = {}
+    if dtype == torch.float32:
+        # lower precisions the reading check must refuse: x rounded to
+        # TF32's 10 mantissa bits (exact product after), and B5 on
+        # bf16-rounded x; torch.mm with TF32 allowed is read beside them
+        # (cuBLAS chooses whether to use TF32, so it is not checked)
+        x_tf32 = (((x.view(torch.int32) + 0xFFF
+                    + ((x.view(torch.int32) >> 13) & 1)) & ~0x1FFF)
+                  .view(torch.float32))
+        controls = {
+            "tf32-rounded x": qmm_reading(
+                (x_tf32.double() @ w_int.double()) * scale.double(), exact,
+                x, w_int, scale),
+            "bf16 x": qmm_reading(
+                quant_matmul.quant_matmul(x.bfloat16(), words, scale, w=w),
+                exact, x, w_int, scale)}
+        check(min(controls.values()) > quant_matmul.ROUNDING_LIMIT,
+              f"the rounding check at {where} does not refuse "
+              f"lower-precision products: {controls}")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        controls["torch.mm tf32 (read, not checked)"] = qmm_reading(
+            torch.mm(x, w_int.float()) * scale, exact, x, w_int, scale)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ms = event_ms(run, 10, flush)
+    nbytes = x.numel() * x.element_size() + words.numel() * 4 \
+        + scale.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * rows * k * n, qmm_ops_per_s(dtype))
+    xf = x.float()
+    wf = w_int.float() * scale
+    lib_ms = event_ms(lambda: torch.mm(xf, wf), 10, flush)
+    print(f"[memory] B5 W{w} {where} {str(dtype)[6:]} x [{rows}, {k}] @ "
+          f"[{k}, {n}]: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+          f"{b_ms / ms:.1%} of bound), plain {plain_ms:.2f} ms, torch.mm "
+          f"fp32 {lib_ms:.4f} ms; max |B5 - plain| {err:.3g}, max |B5 - "
+          f"exact| {float(err_exact.max()):.3g} (bound at that entry "
+          f"{float(bound.flatten()[err_exact.argmax()]):.3g}); reading "
+          f"{reading:.3f} (plain {plain_reading:.3f}) rounding scales"
+          + "".join(f", {c} control {v:.1f}" for c, v in controls.items()))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, max_abs_err=err, bytes=nbytes,
+                ops=2 * rows * k * n, reading=max(reading, plain_reading),
+                controls=controls)
+
+
+def qmm_reading(y, exact, x, w_int, scale):
+    """max |y - exact| in units of ``quant_matmul.rounding_scale``."""
+    from repro_torch.kernels import quant_matmul
+    rs = quant_matmul.rounding_scale(x, w_int, scale)
+    return float(((y.double() - exact).abs() / rs.clamp_min(1e-300)).max())
+
+
+def qmm_ops_per_s(dtype):
+    """The peak rate B5's bound takes for activations of ``dtype``."""
+    import torch
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+
+
+def phase_memory_kernels(dev, flush):
+    """B6/B7 at every tinyllama projection shape, the LM head and a ragged
+    shape (W2, W4, W8), and B6 at the stacked shapes serve_params gives it;
+    B5 at those shapes x 8 and 128 rows x W4/W8 x bf16/f32 activations.
+    Returns each kernel's sums on the main path (W4): B6 over one
+    serve_params, B7 over one decode step (22 layers + the LM head), B5
+    over one layer's 7 projections at 8 rows (bf16 x) and at 128 rows."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import quant_matmul
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n_layers = get_arch("tinyllama-1.1b").n_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    t_phase = time.perf_counter()
+    out = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
+                      max_abs_err=0)
+           for name in ("B6", "B7")}
+    for w in PACK_WIDTHS:
+        per = 32 // w
+        for (k, n), mult in memory_shapes().items():
+            r = packbits_case(k, n, w, gen, flush, f"K={k} N={n}")
+            if w == MEMORY_BITS:           # one step: 22 layers + the head
+                times = mult * n_layers if mult else 1
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    out["B7"][key] += times * r["B7"][key]
+        rows, nw = RAGGED_PACK
+        packbits_case(rows, nw * per, w, gen, flush, "ragged")
+    # B6 as serve_params calls it: one [L * K, N] call per stacked leaf
+    for (k, n), mult in memory_shapes().items():
+        m = k * n_layers if mult else k
+        r = packbits_case(m, n, MEMORY_BITS, gen, flush,
+                          f"stacked K={k} N={n}" if mult else "LM head")
+        for key in ("ms", "plain_ms", "bound_ms"):
+            out["B6"][key] += max(mult, 1) * r["B6"][key]
+    for name in ("B6", "B7"):
+        out[name]["bound_by"] = "bytes"
+    b5 = {rows: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+          for rows in (DECODE_ROWS, PREFILL_ROWS)}
+    max_err, readings, controls = 0.0, [], {}
+    for w in QMM_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            for (k, n), mult in memory_shapes().items():
+                for rows in (DECODE_ROWS, PREFILL_ROWS):
+                    r = quant_matmul_case(rows, k, n, w, dtype, gen, flush,
+                                          "LM head" if not mult else
+                                          f"x{mult} per layer")
+                    max_err = max(max_err, r["max_abs_err"])
+                    readings.append(r["reading"])
+                    for c, v in r["controls"].items():
+                        controls[c] = min(controls.get(c, v), v)
+                    if w == MEMORY_BITS and dtype == torch.bfloat16 and mult:
+                        acc = b5[rows]
+                        for key in ("ms", "plain_ms", "library_ms", "bytes",
+                                    "ops"):
+                            acc[key] += mult * r[key]
+    for rows, acc in b5.items():
+        acc["bound_ms"], acc["bound_by"] = bound_ms(
+            acc["bytes"], acc["ops"], qmm_ops_per_s(torch.bfloat16))
+        print(f"[memory] B5 per tinyllama layer (7 W4 projections, bf16 x, "
+              f"{rows} rows): {acc['ms']:.4f} ms (bound {acc['bound_ms']:.4f}"
+              f" ms by {acc['bound_by']}), plain {acc['plain_ms']:.2f} ms, "
+              f"torch.mm fp32 {acc['library_ms']:.4f} ms")
+    out["B5"] = dict(b5[DECODE_ROWS], max_abs_err=max_err,
+                     prefill_ms=b5[PREFILL_ROWS]["ms"],
+                     prefill_bound_ms=b5[PREFILL_ROWS]["bound_ms"],
+                     prefill_library_ms=b5[PREFILL_ROWS]["library_ms"])
+    print(f"[memory] B6 per serve_params (7 stacked W4 leaves + the LM "
+          f"head): {out['B6']['ms']:.3f} ms (bound {out['B6']['bound_ms']:.3f}"
+          f" ms), plain {out['B6']['plain_ms']:.1f} ms; B7 per decode step "
+          f"(154 W4 projections + the LM head): {out['B7']['ms']:.3f} ms "
+          f"(bound {out['B7']['bound_ms']:.3f} ms), plain "
+          f"{out['B7']['plain_ms']:.1f} ms; no single PyTorch call packs or "
+          f"unpacks bit fields, so B6/B7 have no library time")
+    print(f"[memory] B5 rounding readings (|y - exact| over "
+          f"quant_matmul.rounding_scale, limit "
+          f"{quant_matmul.ROUNDING_LIMIT}): largest {max(readings):.3f} over "
+          f"{len(readings)} cases; the smallest of the float32 cases' "
+          f"controls: " + ", ".join(f"{c} {v:.1f}"
+                                    for c, v in controls.items()))
+    print(f"[memory] all cases within their checks, "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def packed_leaves(tree, path=()):
+    """[(path, PackedLinear)] of a serve tree, in tree order."""
+    from repro_torch.models import PackedLinear
+    if isinstance(tree, PackedLinear):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [hit for k, v in tree.items()
+                for hit in packed_leaves(v, path + (k,))]
+    return []
+
+
+def phase_memory_serve(dev, card):
+    """Full-width tinyllama-1.1b in memory mode: serve_params(compute=
+    "memory") packs every projection and the LM head with B6 (checked
+    against the plain pack of the same quantized fields, and B7 of the
+    words against the plain unpack); a 16-token prefill of 8 prompts,
+    16 greedy decode steps and the serve CLI's single_batch_loop, each
+    with exactly one B7 launch per projection and the LM head and no
+    other kernel or plain call; then the tree's words through
+    ``packed_matmul(plan=None)`` (B5) at 8 and 8 x 16 rows, each output
+    within the float32 summation bound of the float64 product.  Returns
+    the launch counts of those runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops, packbits, quant_matmul
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, serve_params)
+    from repro_torch.models.quantized import count_packed, quantize_linear
+
+    cfg = get_arch("tinyllama-1.1b")
+    per_step = 7 * cfg.n_layers + 1
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    qparams = serve_params(params, bits=MEMORY_BITS, min_size=1024,
+                           compute="memory")
+    torch.cuda.synchronize()
+    t_pack = time.perf_counter() - t0
+    c_pack = counts()
+    leaves = packed_leaves(qparams)
+    check(c_pack == expect(B6=len(leaves)) and len(leaves) == 8,
+          f"serve_params launches {c_pack} for {len(leaves)} leaves")
+    check(count_packed(qparams) == {"memory": per_step, "sdv": 0, "bseg": 0},
+          count_packed(qparams))
+    for path, pl in leaves:
+        kernel = params
+        for key in path:
+            kernel = kernel[key]
+        q, scale = quantize_linear(kernel, MEMORY_BITS)
+        q = q.reshape(-1, q.shape[-1]).to(torch.int8)
+        words = pl.words.reshape(-1, pl.words.shape[-1])
+        check(torch.equal(words, packbits.pack_words_plain(q, w=pl.bits))
+              and torch.equal(pl.scale, scale),
+              f"{'/'.join(path)}: B6 words != the plain pack")
+        back = packbits.unpack_words(words, w=pl.bits)
+        check(torch.equal(back, packbits.unpack_words_plain(words, w=pl.bits))
+              and torch.equal(back, q),
+              f"{'/'.join(path)}: B7 != the plain unpack")
+    del params
+    print(f"[memory serve] {cfg.name}: serve_params(compute=\"memory\") in "
+          f"{t_pack * 1e3:.1f} ms, launches {c_pack}; {len(leaves)} "
+          "containers: B6 words == the plain pack, B7 of them == the plain "
+          "unpack")
+
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                           dtype=torch.int32, device=dev)
+    n_prompt = torch.full((BATCH,), PROMPT - 1, dtype=torch.int32,
+                          device=dev)
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    decode_step(cfg, qparams, cache, prompts[:, -1:])      # warm-up
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    c_prefill = counts()
+    check(c_prefill == expect(B7=7 * cfg.n_layers),
+          f"memory prefill launches {c_prefill}")
+    reset_counts()
+    tok = prompts[:, -1:]
+    t0 = time.perf_counter()
+    for _ in range(NEW):
+        logits, cache = decode_step(cfg, qparams, cache, tok)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    c_decode = counts()
+    check(c_decode == expect(B7=NEW * per_step),
+          f"memory decode launches {c_decode}, want B7={NEW * per_step}")
+    check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), "memory decode logits")
+    check(cache["index"].tolist() == [PROMPT - 1 + NEW] * BATCH,
+          cache["index"].tolist())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = t_decode / NEW * 1e3
+    print(f"[memory serve] prefill {BATCH}x{PROMPT}: {t_prefill * 1e3:.1f} ms "
+          f"({BATCH * PROMPT / t_prefill:.1f} tok/s), launches {c_prefill}")
+    print(f"[memory serve] decode {NEW} steps at batch {BATCH}: "
+          f"{step_ms:.1f} ms/step, {BATCH * NEW / t_decode:.1f} tok/s, "
+          f"launches {c_decode}, peak memory {peak:.2f} GiB ({card})")
+    state = {"cache": {k: v.clone() for k, v in cache.items()}}
+
+    def step():
+        _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
+    profile(f"memory decode step at batch {BATCH}", step, steps=2,
+            wall_ms=step_ms)
+    del state
+
+    reset_counts()
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
+    c_loop = counts()
+    steps = PROMPT + NEW - 1
+    check(c_loop == expect(B7=steps * per_step),
+          f"memory single_batch_loop launches {c_loop}")
+    check(toks.shape == (BATCH, NEW) and (toks >= 0).all()
+          and (toks < cfg.vocab).all(), toks.shape)
+    print(f"[memory serve] single_batch_loop: {dt / steps * 1e3:.1f} ms/step, "
+          f"{BATCH * steps / dt:.1f} tok/s ({steps} steps), launches "
+          f"{c_loop}, sample {toks[0][:8].tolist()} ({card})")
+    del cache
+
+    # B5 on the tree's own words through the dispatch's memory-packed route
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    calls = []
+    reset_counts()
+    t0 = time.perf_counter()
+    for lead in ((BATCH, 1), (BATCH, PROMPT)):
+        for _, pl in leaves:
+            for lp in ([pl.layer(i) for i in range(pl.words.shape[0])]
+                       if pl.stacked else [pl]):
+                x = torch.randn(lead + (lp.words.shape[-2],), generator=gen,
+                                device=dev).to(cfg.dtype)
+                y = ops.packed_matmul(x, lp.words, scale=lp.scale[0],
+                                      w_bits=lp.bits, m=lp.d_out)
+                calls.append((x, lp, y))
+    torch.cuda.synchronize()
+    t_b5 = time.perf_counter() - t0
+    c_b5 = counts()
+    check(c_b5 == expect(B5=2 * per_step),
+          f"packed_matmul(plan=None) launches {c_b5}")
+    worst = worst_reading = 0.0
+    for x, lp, y in calls:
+        x2 = x.reshape(-1, x.shape[-1])
+        w_int = packbits.unpack_words_plain(lp.words, w=lp.bits)
+        w_int = w_int[:, :lp.d_out]
+        s = lp.scale[0, :lp.d_out]
+        exact = (x2.double() @ w_int.double()) * s.double()
+        bound = quant_matmul.error_bound(x2, w_int, s)
+        err = (y.reshape(exact.shape).double() - exact).abs()
+        reading = qmm_reading(y.reshape(exact.shape), exact, x2, w_int, s)
+        check(tuple(y.shape) == x.shape[:-1] + (lp.d_out,)
+              and bool((err <= bound).all())
+              and reading <= quant_matmul.ROUNDING_LIMIT,
+              f"B5 off the float64 product on the tree's words "
+              f"{tuple(lp.words.shape)} (reading {reading:.3g})")
+        worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+        worst_reading = max(worst_reading, reading)
+    print(f"[memory serve] packed_matmul(plan=None) on every projection and "
+          f"the LM head of the tree at [{BATCH}, 1] and [{BATCH}, {PROMPT}] "
+          f"rows: {t_b5 * 1e3:.1f} ms, launches {c_b5}; every output within "
+          f"the float32 summation bound of the float64 product (worst "
+          f"{worst:.3f} of it) and within {quant_matmul.ROUNDING_LIMIT} "
+          f"rounding scales (worst {worst_reading:.3f})")
+    return {"B5": c_b5["B5"], "B6": c_pack["B6"],
+            "B7 prefill": c_prefill["B7"], "B7 decode": c_decode["B7"]}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -1043,6 +1508,9 @@ def main() -> int:
         ultra = phase_ultranet(dev, per_layer, card)
         conv1d = phase_conv1d_kernels(dev, flush)
         recurrent = phase_recurrent(dev, card, flush)
+        memory = phase_memory_kernels(dev, flush)
+        mem_launches = phase_memory_serve(dev, card)
+        phase_reference(dev, "memory")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1108,6 +1576,48 @@ def main() -> int:
                 f"{CONV1D_TAPS} taps), int32 W4A4 plan; "
                 f"{RECURRENT_STEP['mamba2-130m']['B4']} calls per step"),
     })
+    mem_kernels = {
+        "B5": ("quant_matmul", "quant_matmul.cu",
+               "src/repro/kernels/quant_matmul.py:54",
+               {"tinyllama packed_matmul(plan=None)": mem_launches["B5"]},
+               (f"one tinyllama layer's 7 W4 projections at {DECODE_ROWS} "
+                "rows, bf16 x (prefill_ms: at 128 rows); library: torch.mm "
+                "on float32 x and the dequantized float32 weights, TF32 "
+                "off")),
+        "B6": ("pack_words", "packbits.cu",
+               "src/repro/kernels/packbits.py:60",
+               {"tinyllama serve_params": mem_launches["B6"]},
+               ("one tinyllama serve_params(compute=\"memory\"): 7 stacked "
+                "W4 leaves of 22 layers + the LM head; no single PyTorch "
+                "call packs bit fields: no library time")),
+        "B7": ("unpack_words", "packbits.cu",
+               "src/repro/kernels/packbits.py:41",
+               {"tinyllama memory prefill": mem_launches["B7 prefill"],
+                "tinyllama memory decode": mem_launches["B7 decode"]},
+               ("one tinyllama memory decode step: 154 W4 projections + the "
+                "LM head; no single PyTorch call unpacks bit fields: no "
+                "library time")),
+    }
+    for kname, (fn, src, replaces, paths, per) in mem_kernels.items():
+        acc = memory[kname]
+        entry = {
+            "name": f"{kname} {fn}",
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces,
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
+            "max_abs_err": acc["max_abs_err"],
+            "ms": acc["ms"], "plain_ms": acc["plain_ms"],
+            "bound_ms": acc["bound_ms"], "bound_by": acc["bound_by"],
+            "library_ms": acc["library_ms"],
+            "per": per,
+        }
+        if kname == "B5":
+            entry.update(prefill_ms=acc["prefill_ms"],
+                         prefill_bound_ms=acc["prefill_bound_ms"],
+                         prefill_library_ms=acc["prefill_library_ms"])
+        kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -78,6 +78,7 @@ def build(name: str) -> Path:
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_longlong
 #: C signatures: name -> (argtypes, restype); every library also exports
 #: ``<name>_error_string``
 _SIGNATURES = {
@@ -95,6 +96,15 @@ _SIGNATURES = {
         "bseg_conv1d": ([_PTR, _PTR, _PTR] + [_INT] * 10 + [_U64, _U64]
                         + [_INT] * 3 + [_PTR], _INT),
         "bseg1d_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "packbits": {
+        "pack_words": ([_PTR, _PTR, _I64] + [_INT] * 3 + [_PTR], _INT),
+        "unpack_words": ([_PTR, _PTR, _I64] + [_INT] * 3 + [_PTR], _INT),
+        "packbits_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "quant_matmul": {
+        "quant_matmul": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+        "quant_matmul_error_string": ([_INT], ctypes.c_char_p),
     },
 }
 

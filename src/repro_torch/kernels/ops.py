@@ -1,5 +1,9 @@
-"""Packed-matmul and packed-conv2d dispatch — torch port of
-``repro.kernels.ops``.
+"""Lane packing, packed-matmul and packed-conv2d dispatch — torch port
+of ``repro.kernels.ops``.
+
+``pack_weights`` / ``unpack_weights`` are the memory-packed storage
+layout (kernels B6 / B7, ``kernels/packbits``): 32/w w-bit fields per
+int32 lane word; ``quant_matmul`` is kernel B5 on those words.
 
 Dispatch table for ``packed_matmul`` (mode -> kernel -> constraints):
 
@@ -12,10 +16,13 @@ Dispatch table for ``packed_matmul`` (mode -> kernel -> constraints):
   sdv_matvec     kernels/sdv_matvec (B1,     same               same word gates as sdv_matmul;
                  csrc/sdv.cu GEMV)                              signed-element storage only;
                                                                 rows <= GEMV_MAX_ROWS in auto
-  ref            plain exact product of      either             always available; selected in
-                 the decoded words                              auto when ``use_kernel`` is
-                                                                False, the datapath is not
-                                                                exact-wrap, or a hand-built
+  quant_matmul   kernels/quant_matmul (B5,   lane words         float x; no ``plan`` (memory
+                 csrc/quant_matmul.cu:       [K, N/(32/w)]      packing only); ``scale`` and
+                 dequant in-kernel, f32 sum) int32 + scale      ``w_bits`` given
+  ref            plain product of the        either             always available; selected in
+                 decoded words (exact on                        auto when ``use_kernel`` is
+                 the SDV words, float32 on                      False, the datapath is not
+                 the lane words)                                exact-wrap, or a hand-built
                                                                 plan's layout overruns its word
 
 Dispatch table for ``packed_conv2d`` (mode -> kernel -> constraints):
@@ -52,9 +59,9 @@ The route tables and their ``explain=True`` reason strings are the JAX
 package's, word for word.  ``packed_matmul`` and ``packed_conv2d``
 always route as the JAX package does with ``use_kernel=True``, on every
 device: on a CPU tensor the kernel routes run their kernel's plain
-version (every route is exact, so the integers are the same either
-way).  The memory-packed ``quant_matmul`` route (kernels B5-B7) is not
-ported yet and raises.
+version (every integer route is exact, so the integers are the same
+either way; the memory-packed route sums float32 products, in another
+order on the card than on the CPU).
 
 ``bseg_conv1d`` is the causal depthwise short conv of the SSM/Griffin
 blocks (the ``BSEGConv`` serving container) on kernel B4;
@@ -70,11 +77,44 @@ from ..core import bseg as core_bseg
 from ..core import limbs
 from ..core.datapath import BSEGPlan, SDVPlan, plan_sdv
 from ..core.signed_split import pack_unsigned, split_signed
-from . import bseg_common, ref
+from . import bseg_common, packbits, ref
 from . import bseg_conv1d as bseg1d_kernel
 from . import bseg_conv2d as bseg2d_kernel
+from . import quant_matmul as qmm_kernel
 from . import sdv_matmul as sdvmm_kernel
 from . import sdv_matvec as sdvmv_kernel
+
+
+# ---------------------------------------------------------------------------
+# packbits
+# ---------------------------------------------------------------------------
+
+def pack_weights(w_int: torch.Tensor, *, w: int) -> torch.Tensor:
+    """Dense [m, n] ints -> [m, n/(32/w)] int32 lane words (kernel B6;
+    the values cross as int8, as in the reference's kernel route)."""
+    return packbits.pack_words(w_int.to(torch.int8).contiguous(), w=w)
+
+
+def unpack_weights(packed: torch.Tensor, *, w: int) -> torch.Tensor:
+    """[m, nw] int32 lane words -> [m, nw*(32/w)] int8, sign-extended
+    (kernel B7)."""
+    return packbits.unpack_words(packed.contiguous(), w=w)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul  (packed_memory execution mode)
+# ---------------------------------------------------------------------------
+
+def quant_matmul(x: torch.Tensor, w_packed: torch.Tensor,
+                 scale: torch.Tensor, *, w: int) -> torch.Tensor:
+    """x [m, k] @ dequant(w_packed [k, n/(32/w)]) -> [m, n] f32 (kernel
+    B5).  Activations other than bf16/f32 are widened to float32 first,
+    as the reference's kernel does inside."""
+    if x.dtype not in qmm_kernel.X_DTYPES:
+        x = x.to(torch.float32)
+    return qmm_kernel.quant_matmul(
+        x.contiguous(), w_packed.contiguous(),
+        scale.reshape(-1).to(torch.float32).contiguous(), w=w)
 
 
 def prepare_sdv_weights(w_int: torch.Tensor, plan) -> torch.Tensor:
@@ -201,28 +241,41 @@ def select_packed_route(rows: int, *, plan=None, use_kernel: bool = True,
 
 def packed_matmul(x: torch.Tensor, w: torch.Tensor, *, plan=None,
                   m: Optional[int] = None,
+                  scale: Optional[torch.Tensor] = None,
+                  w_bits: Optional[int] = None,
                   mode: str = "auto") -> torch.Tensor:
     """Batched packed matmul with kernel dispatch.
 
     Args:
-      x: integer activations ``[..., K]`` within ``plan.w_b`` bits.
-      w: SDV storage words ``[K, G]`` / ``[2, K, G]``.
-      plan: SDV lane plan (``None`` would select the memory-packed
-        route, which is not ported yet).
-      m: real output-channel count (trims the ``G*n`` lane padding);
-        defaults to all lanes.
+      x: activations ``[..., K]`` — integer (within ``plan.w_b`` bits)
+        for the SDV routes, float for the memory-packed route.
+      w: SDV storage words ``[K, G]`` / ``[2, K, G]`` when ``plan`` is
+        given, else memory-packed lane words ``[K, N/(32/w_bits)]``.
+      plan: SDV lane plan; ``None`` selects the memory-packed side of
+        the table.
+      m: real output-channel count (trims the ``G*n`` lane padding, or
+        the lane words' column padding); defaults to all lanes.
+      scale / w_bits: dequantization scale ``[N]`` and element width —
+        required by the memory-packed route only.
       mode: a row of the dispatch table, or ``"auto"``.
 
     Returns:
-      ``[..., M]`` int32 (exact).
+      ``[..., M]`` — int32 (exact) on the SDV/ref integer routes, f32
+      on the memory-packed route.
     """
     batch_shape, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
     route = select_packed_route(x2.shape[0], plan=plan, mode=mode)
-    if plan is None:
-        raise NotImplementedError(
-            f"route {route!r}: memory-packed lane words (quant_matmul, "
-            "kernels B5-B7) are not ported yet")
+    if plan is None:  # memory-packed lane words (kernel B5 or plain)
+        if scale is None or w_bits is None:
+            raise ValueError(f"route {route!r} needs scale and w_bits")
+        if route == "quant_matmul":
+            y = quant_matmul(x2, w, scale, w=w_bits)
+        else:
+            y = ref.quant_matmul_ref(
+                x2, ref.unpack_words_ref(w, w=w_bits), scale)
+        y = y if m is None else y[:, :m]
+        return y.reshape(batch_shape + y.shape[-1:])
     if x.dtype.is_floating_point or x.dtype.is_complex:
         raise ValueError(
             f"route {route!r} needs integer activations within "

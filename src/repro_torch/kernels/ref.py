@@ -1,5 +1,6 @@
-"""Plain oracles for the packed kernels (torch port of the SDV GEMM,
-conv1d and conv2d parts of ``repro.kernels.ref``).
+"""Plain oracles for the packed kernels (torch port of
+``repro.kernels.ref``: the lane pack/unpack and quantized matmul of the
+memory-packed path, the SDV GEMM, conv1d and conv2d).
 
 They use no packing arithmetic at all: the storage words are decoded
 back to integers and multiplied exactly.  The GEMM and conv2d products
@@ -14,6 +15,42 @@ from __future__ import annotations
 import torch
 
 from ..core import limbs
+
+
+def unpack_words_ref(packed: torch.Tensor, *, w: int) -> torch.Tensor:
+    """int32 lane words [m, nw] -> int8 [m, nw * (32 // w)]: word j's
+    field i (bits i*w .. i*w+w-1, two's complement) is column
+    j * (32 // w) + i, sign-extended."""
+    per = 32 // w
+    word = limbs.from_u32(packed)
+    parts = []
+    for i in range(per):
+        f = (word >> (i * w)) & ((1 << w) - 1)
+        parts.append(torch.where(f >= (1 << (w - 1)), f - (1 << w), f))
+    return torch.stack(parts, dim=-1).reshape(packed.shape[0], -1) \
+        .to(torch.int8)
+
+
+def pack_words_ref(vals: torch.Tensor, *, w: int) -> torch.Tensor:
+    """Ints [m, n] (w-bit two's complement; n a multiple of 32 // w) ->
+    int32 lane words [m, n // (32 // w)], the inverse of
+    ``unpack_words_ref``.  Fields are masked to w bits and assembled in
+    int64, so the top field lands in the sign bit by an explicit wrap."""
+    per = 32 // w
+    m, n = vals.shape
+    v = vals.to(torch.int64).reshape(m, n // per, per)
+    word = torch.zeros((m, n // per), dtype=torch.int64, device=vals.device)
+    for i in range(per):
+        word = word | ((v[..., i] & ((1 << w) - 1)) << (i * w))
+    return limbs.lo32(word)
+
+
+def quant_matmul_ref(x: torch.Tensor, w_int: torch.Tensor,
+                     scale: torch.Tensor) -> torch.Tensor:
+    """x [m, k] float @ (w_int [k, n] ints * scale [n]) -> [m, n] f32:
+    the product in float32, then the per-channel scale."""
+    return (x.to(torch.float32) @ w_int.to(torch.float32)) \
+        * scale.reshape(1, -1).to(torch.float32)
 
 
 def _exact_int_matmul(x_int: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:

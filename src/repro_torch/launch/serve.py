@@ -1,15 +1,20 @@
 """Serving launcher of the torch port: the single-batch loop.
 
 ``--engine off`` (the default here) teacher-forces one fixed batch of
-prompts through ``decode_step`` and greedy-decodes ``--new-tokens``,
-every projection on the SDV datapath (kernels B1/B2 on the card) and,
-for the ssm (mamba2-130m) and hybrid (recurrentgemma-2b) archs, every
-short conv on the BSEG datapath (kernel B4) unless ``--conv-datapath
-float``.  ``--engine on`` — the continuous-batching engine — is not
-ported yet.
+prompts through ``decode_step`` and greedy-decodes ``--new-tokens``.
+Under ``--packed-compute sdv`` (the default) every projection runs on
+the SDV datapath (kernels B1/B2 on the card) and, for the ssm
+(mamba2-130m) and hybrid (recurrentgemma-2b) archs, every short conv on
+the BSEG datapath (kernel B4) unless ``--conv-datapath float``.  Under
+``--packed-compute memory`` every projection is stored as W-bit lane
+words (packed by kernel B6), unpacked by kernel B7 and dequantized at
+every step, and multiplied in bf16; the short convs stay in float.
+``--engine on`` — the continuous-batching engine — is not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --no-smoke --packed-compute memory
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
 """
@@ -65,23 +70,28 @@ def run_single_batch(cfg, args, params, device):
     from repro_torch.models import init_cache, serve_params
     from repro_torch.models.quantized import count_packed
     qparams = serve_params(params, bits=args.weight_bits, min_size=1024,
-                           compute="sdv", act_bits=args.act_bits,
-                           conv_bseg=args.conv_datapath == "bseg")
+                           compute=args.packed_compute,
+                           act_bits=args.act_bits,
+                           conv_bseg=(args.packed_compute == "sdv"
+                                      and args.conv_datapath == "bseg"))
     smax = args.prompt_len + args.new_tokens
     cache = init_cache(cfg, args.batch, smax, device=device)
+    compute_note = (f"SDV W{args.weight_bits}A{args.act_bits} datapath "
+                    "(default plans)" if args.packed_compute == "sdv"
+                    else f"packed W{args.weight_bits} memory")
     n_conv = count_packed(qparams)["bseg"]
     conv_note = (f", {n_conv} BSEG-packed W{min(args.weight_bits, 4)}A4 "
                  "short convs" if n_conv else "")
-    print(f"{cfg.name}: SDV W{args.weight_bits}A{args.act_bits} datapath "
-          f"(default plans){conv_note}, {cache_note(cache)}, batch "
-          f"{args.batch} (single-batch loop, {device})")
+    print(f"{cfg.name}: {compute_note}{conv_note}, {cache_note(cache)}, "
+          f"batch {args.batch} (single-batch loop, {device})")
     rng = np.random.default_rng(args.seed)
     prompts = torch.tensor(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)),
         dtype=torch.int32, device=device)
     gen, dt = single_batch_loop(cfg, qparams, cache, prompts,
                                 args.new_tokens)
-    print(f"{args.batch * (smax - 1) / dt:.1f} tok/s ({device})")
+    print(f"{args.batch * (smax - 1) / dt:.1f} tok/s, "
+          f"{dt / (smax - 1) * 1e3:.1f} ms/step ({device})")
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         print(f"peak memory {peak:.2f} GiB")
@@ -102,12 +112,18 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--new-tokens", type=int, default=24)
     ap.add_argument("--weight-bits", type=int, default=4)
+    ap.add_argument("--packed-compute", choices=("memory", "sdv"),
+                    default="sdv",
+                    help="sdv: projections on the SDV datapath; memory: "
+                         "lane-packed weights (kernels B6/B7), "
+                         "dequantized and multiplied in bf16")
     ap.add_argument("--act-bits", type=int, default=8,
                     help="activation width on the SDV datapath")
     ap.add_argument("--conv-datapath", choices=("bseg", "float"),
                     default="bseg",
-                    help="SSM/Griffin short convs on the BSEG packed "
-                         "datapath (kernel B4) or kept in float")
+                    help="short-conv execution under --packed-compute "
+                         "sdv: the BSEG packed datapath (kernel B4) or "
+                         "float math")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                          "kernels' plain versions)")

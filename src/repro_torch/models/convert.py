@@ -5,8 +5,12 @@ arrays (``jax.tree_util.tree_map(np.asarray, values(init_params(...)))``)
 and returns the port's tree: the same keys, torch tensors of the same
 dtypes on ``device``.  bfloat16 arrays (numpy's ``ml_dtypes`` extension
 type) cross as their 16-bit patterns, so every value is carried bit for
-bit.  ``ultranet_params_from_numpy`` does the same for UltraNet's conv
-weights (``[np.asarray(w) for w in params.convs]``, ``params.head``).
+bit.  ``packed_from_numpy`` does the same for a memory-packed serve
+tree (``jax.tree_util.tree_map(np.asarray, serve_params(...,
+compute="memory"))``), whose ``PackedLinear`` leaves cross with their
+words and scales as they are, so both packages run the same words.
+``ultranet_params_from_numpy`` does the same for UltraNet's conv weights
+(``[np.asarray(w) for w in params.convs]``, ``params.head``).
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .quantized import PackedLinear
 from .ultranet import UltraNetParams
 
 
@@ -33,6 +38,26 @@ def params_from_numpy(tree, device="cuda"):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+def packed_from_numpy(tree, device="cuda"):
+    """A memory-packed serve tree as numpy -> the port's: nested dicts of
+    arrays, whose lane-packed leaves (any object with ``words``,
+    ``scale``, ``bits`` and ``d_out``, as the JAX package's
+    ``PackedLinear`` has) become the port's ``PackedLinear``."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if all(hasattr(node, f) for f in ("words", "scale", "bits",
+                                           "d_out")):
+            return PackedLinear(words=_tensor(node.words, dev),
+                                scale=_tensor(node.scale, dev),
+                                bits=int(node.bits), d_out=int(node.d_out))
         return _tensor(node, dev)
 
     return walk(tree)

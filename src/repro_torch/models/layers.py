@@ -20,7 +20,7 @@ import torch
 
 from ..device import constant
 from ..quant import quantizer
-from .quantized import is_sdv, materialize, sdv_matmul_apply
+from .quantized import is_packed, is_sdv, materialize, sdv_matmul_apply
 
 
 class Init:
@@ -88,8 +88,9 @@ def mlp_init(ini: Init, d_model: int, d_ff: int):
 
 
 def mat(w, dtype):
-    """Materialize a kernel: SDVLinear -> dense, else cast."""
-    return materialize(w, dtype) if is_sdv(w) else w.to(dtype)
+    """Materialize a kernel: PackedLinear / SDVLinear -> dense, else
+    cast."""
+    return materialize(w, dtype) if is_packed(w) else w.to(dtype)
 
 
 def silu(x):

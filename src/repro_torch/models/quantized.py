@@ -1,23 +1,30 @@
-"""Quantized, lane-packed serving parameters — torch port of the
-arithmetic-packing half of ``repro.models.quantized``.
+"""Quantized, lane-packed serving parameters — torch port of
+``repro.models.quantized``.
 
-``serve_params(compute="sdv")`` rewrites a parameter tree:
+``serve_params`` rewrites a parameter tree; the layer library dispatches
+on the container type, so ``decode_step``/``prefill_step`` run
+unchanged.  Two packing modes:
 
-  * projection kernels — 2-D leaves and stacked layer tensors of them —
-    become ``SDVLinear``: w-bit symmetric per-output-channel
-    quantization stored as SDV words ([K, G], n output channels
+  * ``compute="memory"`` (``packed_memory``, the default): every large
+    projection kernel becomes a ``PackedLinear`` — w-bit symmetric
+    per-output-channel quantization, 32/w values per int32 lane word
+    (packed by kernel B6, ``ops.pack_weights``); the layers materialize
+    it (kernel B7, ``ops.unpack_weights``, then the scale) and multiply
+    in the activation dtype, as the reference does;
+  * ``compute="sdv"`` (``packed_compute_sdv``): projection kernels — 2-D
+    leaves and stacked layer tensors of them — become ``SDVLinear``:
+    the same quantization stored as SDV words ([K, G], n output channels
     lane-packed per word), executed through ``kernels/ops.packed_matmul``
     so decode/prefill GEMMs run on the packed arithmetic datapath
     (activations are dynamically quantized per row to ``plan.w_b``
-    bits);
-  * the short depthwise conv of the SSM/Griffin blocks becomes
+    bits).  Unstacked >2-D kernels (MoE expert banks) keep the memory
+    packing.  The short depthwise conv of the SSM/Griffin blocks becomes
     ``BSEGConv`` — taps BSEG-packed through the pre-adder, executed via
     ``kernels/ops.bseg_conv1d`` (kernel B4; activations dynamically
     quantized to the unsigned ``plan.w_i``-bit domain with a zero
     point, per Eqs. 9/10).
 
-Not ported yet: memory packing (``compute="memory"``, ``PackedLinear``,
-kernels B5-B7) and the planner's ``plan_policy="auto"/"cache"``; each
+Not ported yet: the planner's ``plan_policy="auto"/"cache"``, which
 raises.
 """
 from __future__ import annotations
@@ -30,6 +37,56 @@ import torch
 from ..core.datapath import INT32, BSEGPlan, SDVPlan, plan_bseg, plan_sdv
 from ..kernels import bseg_common, ops, ref
 from ..quant import quantizer
+
+
+@dataclasses.dataclass
+class PackedLinear:
+    """Lane-packed quantized kernel: words [..., d_in, d_out_pad/per]
+    int32 (per = 32 // bits fields each), scale [..., 1, d_out_pad] f32
+    (the padded columns have scale 1.0 and value 0); ``d_out`` unpads on
+    materialize.  A stacked layer tensor keeps a leading layer axis on
+    ``words`` and ``scale``; ``layer(i)`` slices one layer off."""
+    words: torch.Tensor
+    scale: torch.Tensor
+    bits: int
+    d_out: int
+
+    @property
+    def stacked(self) -> bool:
+        return self.words.ndim == 3
+
+    def layer(self, i: int) -> "PackedLinear":
+        return PackedLinear(words=self.words[i], scale=self.scale[i],
+                            bits=self.bits, d_out=self.d_out)
+
+
+def quantize_linear(kernel: torch.Tensor, bits: int):
+    """kernel [..., d_in, d_out] float -> (q [..., d_in, d_out_pad]
+    int32, scale [..., 1, d_out_pad] f32): the reference's symmetric
+    per-output-channel quantizer, ``d_out`` padded to a multiple of
+    32 // bits with value 0 and scale 1.0 — the fields and scales of
+    ``pack_linear``."""
+    per = 32 // bits
+    kf = kernel.to(torch.float32)
+    amax = kf.abs().amax(dim=-2, keepdim=True)
+    scale = quantizer.symmetric_scale(amax, bits)
+    q = quantizer.symmetric_qvalues(kf, scale, bits).to(torch.int32)
+    pad = (-kernel.shape[-1]) % per
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+        scale = torch.nn.functional.pad(scale, (0, pad), value=1.0)
+    return q, scale.to(torch.float32)
+
+
+def pack_linear(kernel: torch.Tensor, bits: int) -> PackedLinear:
+    """kernel [..., d_in, d_out] float -> PackedLinear: ``quantize_linear``,
+    then every row of the [-1, d_out_pad] view packed by
+    ``ops.pack_weights`` (kernel B6, one call for a whole stack)."""
+    q, scale = quantize_linear(kernel, bits)
+    words = ops.pack_weights(q.reshape(-1, q.shape[-1]), w=bits)
+    return PackedLinear(
+        words=words.reshape(q.shape[:-1] + (words.shape[-1],)),
+        scale=scale, bits=bits, d_out=kernel.shape[-1])
 
 
 @dataclasses.dataclass
@@ -199,8 +256,18 @@ def bseg_conv_apply(qc: BSEGConv, x: torch.Tensor, *,
     return y.to(x.dtype), new_state
 
 
-def materialize(pl: SDVLinear, dtype=torch.bfloat16) -> torch.Tensor:
-    """Unpack + dequantize -> [..., d_in, d_out] in ``dtype``."""
+def materialize(pl, dtype=torch.bfloat16) -> torch.Tensor:
+    """Unpack + dequantize -> [..., d_in, d_out] in ``dtype``.
+
+    A ``PackedLinear`` is unpacked by ``ops.unpack_weights`` (kernel B7,
+    one call on the [-1, nw] view of its words), then scaled in float32,
+    trimmed to ``d_out`` and cast, as the reference does."""
+    if isinstance(pl, PackedLinear):
+        q = ops.unpack_weights(pl.words.reshape(-1, pl.words.shape[-1]),
+                               w=pl.bits)
+        q = q.reshape(pl.words.shape[:-1] + (q.shape[-1],))
+        deq = q.to(torch.float32) * pl.scale
+        return deq[..., :pl.d_out].to(dtype)
     if pl.stacked:
         return torch.stack([materialize(pl.layer(i), dtype)
                             for i in range(pl.words.shape[0])])
@@ -209,24 +276,28 @@ def materialize(pl: SDVLinear, dtype=torch.bfloat16) -> torch.Tensor:
             * pl.scale[None, :]).to(dtype)
 
 
+def is_packed(x) -> bool:
+    return isinstance(x, (PackedLinear, SDVLinear, BSEGConv))
+
+
 def is_sdv(x) -> bool:
     return isinstance(x, SDVLinear)
 
 
 def count_packed(tree) -> Dict[str, int]:
     """Per-layer count of the packed containers in a serve tree:
-    ``{"sdv": ..., "bseg": ...}``, a stacked container counting once per
-    layer."""
-    out = {"sdv": 0, "bseg": 0}
+    ``{"memory": ..., "sdv": ..., "bseg": ...}``, a stacked container
+    counting once per layer."""
+    out = {"memory": 0, "sdv": 0, "bseg": 0}
+    keys = {PackedLinear: "memory", SDVLinear: "sdv", BSEGConv: "bseg"}
 
     def walk(node):
         if isinstance(node, dict):
             for v in node.values():
                 walk(v)
-        elif isinstance(node, (SDVLinear, BSEGConv)):
-            lead = node.words if isinstance(node, SDVLinear) else node.kappa
-            key = "sdv" if isinstance(node, SDVLinear) else "bseg"
-            out[key] += lead.shape[0] if node.stacked else 1
+        elif type(node) in keys:
+            lead = node.kappa if isinstance(node, BSEGConv) else node.words
+            out[keys[type(node)]] += lead.shape[0] if node.stacked else 1
 
     walk(tree)
     return out
@@ -251,39 +322,43 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
                  plan_policy: str = "default") -> Any:
     """Rewrite a parameter tree for quantized packed serving.
 
-    ``compute="sdv"`` packs 2-D kernels and stacked layer tensors of
-    2-D kernels (a 3-D leaf under ``blocks``, ``groups``, ... packs per
-    layer with a shared plan) with at least ``min_size`` elements, and
-    the LM head, as ``SDVLinear`` with ``default_sdv_plan(bits,
-    act_bits)``; and — unless ``conv_bseg=False``, which keeps the float
-    conv dict — the SSM/Griffin short-conv containers as ``BSEGConv``
-    with ``default_bseg_plan(min(bits, 4))``.  The reference's default
-    ``compute="memory"`` and the planner policies are not ported yet and
-    raise.
+    Kernels named ``kernel``/``wi_gate``/``wi_up``/``wo`` with at least
+    ``min_size`` elements, and the LM head, are packed.
+    ``compute="memory"`` packs each as ``PackedLinear`` (lane words,
+    kernel B6); ``compute="sdv"`` packs 2-D kernels and stacked layer
+    tensors of 2-D kernels (a 3-D leaf under ``blocks``, ``groups``, ...
+    packs per layer with a shared plan) as ``SDVLinear`` with
+    ``default_sdv_plan(bits, act_bits)``, keeping memory packing for
+    unstacked >2-D kernels (MoE expert banks).  ``conv_bseg`` (default:
+    on under ``compute="sdv"``, off under memory, as in the reference)
+    packs the SSM/Griffin short-conv containers as ``BSEGConv`` with
+    ``default_bseg_plan(min(bits, 4))``; off keeps the float conv dict.
+    The planner policies are not ported yet and raise.
     """
     if compute not in ("memory", "sdv"):
         raise ValueError(f"unknown packed compute mode {compute!r}")
     if plan_policy not in ("default", "auto", "cache"):
         raise ValueError(f"unknown plan policy {plan_policy!r}")
-    if compute == "memory":
-        raise NotImplementedError(
-            "compute='memory' (PackedLinear, kernels B5-B7) is not "
-            "ported yet; use compute='sdv'")
+    sdv_mode = compute == "sdv"
+    if plan_policy != "default" and not sdv_mode:
+        raise ValueError(
+            f"plan_policy={plan_policy!r} plans arithmetic-packing "
+            f"lane plans, which only exist under compute='sdv' — "
+            f"memory packing has no plan to choose")
     if plan_policy != "default":
         raise NotImplementedError(
             f"plan_policy={plan_policy!r} needs the planner, which is "
             "not ported yet")
-    plan = default_sdv_plan(bits, act_bits)
-    # conv_bseg=None follows compute="sdv", the only mode ported: on
-    conv_plan = None if conv_bseg is False \
-        else default_bseg_plan(min(bits, 4))
+    plan = default_sdv_plan(bits, act_bits) if sdv_mode else None
+    if conv_bseg is None:
+        conv_bseg = sdv_mode
+    conv_plan = default_bseg_plan(min(bits, 4)) if conv_bseg else None
 
     def quantize(v, name):
-        if v.ndim == 2 or (v.ndim == 3 and _stacked_leading_axis(name)):
+        if sdv_mode and (v.ndim == 2 or
+                         (v.ndim == 3 and _stacked_leading_axis(name))):
             return pack_linear_sdv(v, plan)
-        raise NotImplementedError(
-            f"{name}: unstacked {v.ndim}-D kernels keep memory packing "
-            "in the reference, which is not ported yet")
+        return pack_linear(v, bits)
 
     def walk(tree, name):
         out = {}
@@ -306,6 +381,6 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
 
     out = walk(params, "")
     # the LM head is a plain tensor leaf at top level
-    if "lm_head" in out and not is_sdv(out["lm_head"]):
+    if "lm_head" in out and not is_packed(out["lm_head"]):
         out["lm_head"] = quantize(out["lm_head"], "lm_head")
     return out

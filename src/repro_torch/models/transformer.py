@@ -34,7 +34,7 @@ from ..device import resolve_device
 from . import layers as L
 from . import rglru as R
 from . import ssm as S
-from .quantized import BSEGConv, SDVLinear
+from .quantized import BSEGConv, PackedLinear, SDVLinear
 
 
 def _attn_cfg(cfg: ArchConfig) -> L.AttnConfig:
@@ -129,7 +129,7 @@ def layer_params(stacked, i: int):
     """Slice layer ``i`` off a stacked parameter tree."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
-    if isinstance(stacked, (SDVLinear, BSEGConv)):
+    if isinstance(stacked, (PackedLinear, SDVLinear, BSEGConv)):
         return stacked.layer(i)
     return stacked[i]
 

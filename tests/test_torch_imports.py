@@ -37,14 +37,15 @@ def test_port_imports_without_jax_or_reference():
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 34      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 36      # every module imported
 
 
 def _entry_points():
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve, ultranet
     from repro_torch.models import (init_cache, init_params, init_ultranet,
-                                    params_from_numpy, ultranet_forward,
+                                    packed_from_numpy, params_from_numpy,
+                                    ultranet_forward,
                                     ultranet_params_from_numpy)
     cfg = get_arch("tinyllama-1.1b").reduced()
     ssm = get_arch("mamba2-130m").reduced()
@@ -60,7 +61,11 @@ def _entry_points():
         "serve_cli_mamba2": lambda: serve.main(["--arch", "mamba2-130m",
                                                 "--batch", "1"]),
         "params_from_numpy": lambda: params_from_numpy({}),
+        "packed_from_numpy": lambda: packed_from_numpy({}),
         "serve_cli": lambda: serve.main(["--batch", "1"]),
+        "serve_cli_memory": lambda: serve.main(["--batch", "1",
+                                                "--packed-compute",
+                                                "memory"]),
         "init_ultranet": lambda: init_ultranet(0),
         "ultranet_forward": lambda: ultranet_forward(
             cpu_params, torch.zeros(1, 16, 16, 3, dtype=torch.int32),
@@ -75,7 +80,9 @@ def _entry_points():
                                   "init_params_ssm", "init_params_hybrid",
                                   "init_cache_ssm", "init_cache_hybrid",
                                   "serve_cli_mamba2",
-                                  "params_from_numpy", "serve_cli",
+                                  "params_from_numpy",
+                                  "packed_from_numpy", "serve_cli",
+                                  "serve_cli_memory",
                                   "init_ultranet", "ultranet_forward",
                                   "ultranet_params_from_numpy",
                                   "ultranet_cli"])

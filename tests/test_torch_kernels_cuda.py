@@ -1,6 +1,8 @@
 """The port's CUDA kernels (B1 GEMV, B2 GEMM, B3 BSEG conv2d, B4 BSEG
-depthwise conv1d) against their plain torch version and the exact
-integer result.
+depthwise conv1d, B5 quantized matmul, B6/B7 lane pack/unpack) against
+their plain torch version and the exact result (integer, or the float64
+product within the float32 summation bound and within
+``ROUNDING_LIMIT`` typical float32 roundings for B5).
 
 Imports only the port, so it runs on a machine with a card and no JAX:
 
@@ -13,8 +15,8 @@ import pytest
 import torch
 
 from repro_torch.core.datapath import DATAPATHS, plan_bseg, plan_sdv
-from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, ops, ref,
-                                 sdv_matmul, sdv_matvec)
+from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, ops, packbits,
+                                 quant_matmul, ref, sdv_matmul, sdv_matvec)
 
 
 @pytest.fixture
@@ -239,3 +241,118 @@ def test_bseg_conv1d_rejects_operands(cuda):
     w8 = plan_bseg(DATAPATHS["dsp58"], 4, 8)
     with pytest.raises(ValueError, match="w_i"):
         bseg_conv1d.bseg_conv1d(x_pad, kd, plan=w8, s_out=6)
+
+
+# ---------------------------------------------------------------------------
+# B6 / B7 (lane pack / unpack) and B5 (quantized matmul)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("m,nw", [(1, 1), (3, 37), (37, 301), (256, 1000)])
+def test_pack_unpack_words_match_plain(cuda, w, m, nw):
+    """B6 and B7 against their plain versions, bit for bit, at ragged
+    row and word counts; values over the whole int8 range (masked to w
+    bits by the pack, as in the reference)."""
+    per = 32 // w
+    rng = np.random.default_rng(w * 100 + m)
+    vals = torch.tensor(rng.integers(-128, 128, (m, nw * per)),
+                        dtype=torch.int8)
+    want = packbits.pack_words_plain(vals, w=w)
+    got = packbits.pack_words(vals.to(cuda), w=w)
+    torch.cuda.synchronize()
+    assert (got.cpu() == want).all()
+    want_u = packbits.unpack_words_plain(want, w=w)
+    got_u = packbits.unpack_words(want.to(cuda), w=w)
+    torch.cuda.synchronize()
+    assert (got_u.cpu() == want_u).all()
+    # the round trip keeps each value's w low bits, sign-extended
+    low = ((vals.to(torch.int32) + (1 << w - 1)) & ((1 << w) - 1)) \
+        - (1 << w - 1)
+    assert (got_u.cpu() == low.to(torch.int8)).all()
+
+
+def test_packbits_counters_and_refusals(cuda):
+    vals = torch.zeros((4, 64), dtype=torch.int8, device=cuda)
+    b6, b7 = packbits.pack_words.launches, packbits.unpack_words.launches
+    plain = packbits.pack_words_plain.calls + packbits.unpack_words_plain.calls
+    words = ops.pack_weights(vals, w=4)
+    ops.unpack_weights(words, w=4)
+    torch.cuda.synchronize()
+    assert packbits.pack_words.launches == b6 + 1
+    assert packbits.unpack_words.launches == b7 + 1
+    assert packbits.pack_words_plain.calls \
+        + packbits.unpack_words_plain.calls == plain
+    with pytest.raises(ValueError, match="aligned"):
+        packbits.pack_words(vals.reshape(-1)[8:8 + 3 * 64].reshape(3, 64),
+                            w=4)
+    with pytest.raises(ValueError, match="int8"):
+        packbits.pack_words(vals.to(torch.int32), w=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        packbits.unpack_words(words.t(), w=4)
+
+
+def _qmm_case(m, k, n, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((m, k)), dtype=torch.float32) \
+        .to(dtype)
+    w_int = torch.tensor(rng.integers(-(1 << w - 1), 1 << w - 1, (k, n)))
+    scale = torch.tensor(rng.uniform(0.001, 0.1, n), dtype=torch.float32)
+    words = packbits.pack_words_plain(w_int.to(torch.int8), w=w)
+    return x, w_int, words, scale
+
+
+@pytest.mark.parametrize("w", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 2048, 256),
+                                   (8, 5632, 2048), (128, 2048, 5632),
+                                   (3, 77, 40), (37, 300, 136)])
+def test_quant_matmul_matches_plain(cuda, w, dtype, m, k, n):
+    """B5 against its plain version and the float64 product, at the
+    tinyllama projection shapes (8 decode rows, 128 prefill rows) and
+    ragged ones, within the float32 summation bound
+    (``quant_matmul.error_bound``) and within ``ROUNDING_LIMIT`` typical
+    float32 roundings (``quant_matmul.rounding_scale``), which float32 x
+    rounded to TF32's 10 mantissa bits exceeds."""
+    x, w_int, words, scale = _qmm_case(m, k, n, w, dtype, m + k + n)
+    bound = quant_matmul.error_bound(x, w_int, scale)
+    limit = quant_matmul.ROUNDING_LIMIT \
+        * quant_matmul.rounding_scale(x, w_int, scale)
+    exact = (x.to(torch.float64) @ w_int.to(torch.float64)) \
+        * scale.to(torch.float64)
+    want = quant_matmul.quant_matmul_plain(x, words, scale, w=w)
+    got = quant_matmul.quant_matmul(x.to(cuda), words.to(cuda),
+                                    scale.to(cuda), w=w)
+    torch.cuda.synchronize()
+    got = got.cpu().to(torch.float64)
+    assert ((got - exact).abs() <= bound).all()
+    assert ((got - want.to(torch.float64)).abs() <= 2 * bound).all()
+    assert ((got - exact).abs() <= limit).all()
+    if dtype == torch.float32:
+        bits = x.view(torch.int32)
+        x_tf32 = ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF) \
+            .view(torch.float32)
+        low = (x_tf32.double() @ w_int.double()) * scale.double()
+        assert not ((low - exact).abs() <= limit).all()
+
+
+def test_quant_matmul_dispatch_and_refusals(cuda):
+    x, w_int, words, scale = _qmm_case(6, 64, 48, 4, torch.float32, 1)
+    xd, wd, sd = x.to(cuda), words.to(cuda), scale.to(cuda)
+    b5, plain = quant_matmul.quant_matmul.launches, \
+        quant_matmul.quant_matmul_plain.calls
+    y = ops.packed_matmul(xd.reshape(2, 3, 64), wd, scale=sd, w_bits=4,
+                          m=45)
+    torch.cuda.synchronize()
+    assert quant_matmul.quant_matmul.launches == b5 + 1
+    assert quant_matmul.quant_matmul_plain.calls == plain
+    assert y.shape == (2, 3, 45)
+    exact = (x.double() @ w_int.double()) * scale.double()
+    bound = quant_matmul.error_bound(x, w_int, scale)
+    assert ((y.cpu().reshape(6, 45).double() - exact[:, :45]).abs()
+            <= bound[:, :45]).all()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quant_matmul.quant_matmul(xd.half(), wd, sd, w=4)
+    with pytest.raises(ValueError, match="scale"):
+        quant_matmul.quant_matmul(xd, wd, sd[:5], w=4)
+    with pytest.raises(ValueError, match="operands on"):
+        quant_matmul.quant_matmul(xd, words, sd, w=4)

@@ -273,9 +273,16 @@ def test_pre_adder_packing_and_limb_planes(spec, signed):
 
 
 def test_num_multiplies_and_unsupported_routes():
+    """``sdv_num_multiplies`` as in the reference; the memory-packed
+    route (no plan) without ``scale``/``w_bits`` raises the reference's
+    ValueError, on both sides."""
     jplan, tplan = _plans("dsp48e2", 4, 8, True, True)
     assert j_num_mults(7, 37, 64, jplan) == tmm.sdv_num_multiplies(
         7, 37, 64, tplan)
-    with pytest.raises(NotImplementedError, match="B5-B7"):
-        tops.packed_matmul(torch.ones(2, 8), torch.ones(8, 1,
-                                                        dtype=torch.int32))
+    words = np.zeros((8, 1), np.int32)
+    want = _outcome(lambda: jops.packed_matmul(jnp.ones((2, 8)),
+                                               jnp.asarray(words)))
+    assert want == ("ValueError",
+                    "route 'quant_matmul' needs scale and w_bits")
+    assert _outcome(lambda: tops.packed_matmul(
+        torch.ones(2, 8), torch.tensor(words))) == want
