@@ -10,7 +10,8 @@ exit at the first failure:
      ``csrc/bseg1d.cu``, B6/B7 (lane pack/unpack) from
      ``csrc/packbits.cu`` and B5 (quantized matmul) from
      ``csrc/quant_matmul.cu`` with nvcc for sm_90a, one nvcc per source,
-     all started together;
+     all started together; prints ptxas's registers and spills of each
+     B1/B2 instantiation and their dynamic shared memory;
   2. kernels — each kernel against its plain torch version bit for bit,
      and against the exact integer product (float64 on the card, exact
      while |sum| < 2^53), at the main path's (K, M) shapes, for the
@@ -96,6 +97,7 @@ before them.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -216,7 +218,36 @@ def phase_build():
         print(f"[build] {name}.cu -> {build.library_path(name).name} (nvcc "
               f"{build.build_seconds[name]:.1f} s); {len(regs)} kernels, "
               f"e.g. {regs[:2]}")
+        if name == "sdv":
+            for line in ptxas_report(log):
+                print(f"[build]   {line}")
+            lib = build.library(name)
+            print("[build]   dynamic shared memory per block: " + ", ".join(
+                f"{k} {w} words {lib.sdv_smem_bytes(gemm, limb)} B"
+                for k, gemm in (("B1", 0), ("B2", 1))
+                for w, limb in (("INT32", 0), ("two-limb", 1))))
     print(f"[build] all sources in {time.perf_counter() - t0:.1f} s")
+
+
+def ptxas_report(log):
+    """One line per kernel of an ``-Xptxas -v`` log: its name with its
+    template flags (sdv.cu: <two-limb words, .u8 lanes, .u8
+    activations>), registers, spills and static shared memory (sdv.cu's
+    tiles are dynamic shared memory, sized by its launcher)."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(sdv_gem[mv]_kernel)I(\w*)E", m.group(1))
+            flags = [] if k is None else re.findall(r"Lb([01])E", k.group(2))
+            name = m.group(1) if k is None else \
+                f"{k.group(1)}<{','.join(flags)}>"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and name is not None:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+            name, spill = None, ""
+    return out
 
 
 def phase_kernels(dev, flush):

@@ -83,8 +83,9 @@ _I64 = ctypes.c_longlong
 #: ``<name>_error_string``
 _SIGNATURES = {
     "sdv": {
-        "sdv_gemv": ([_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR], _INT),
-        "sdv_gemm": ([_PTR, _PTR, _PTR] + [_INT] * 9 + [_PTR], _INT),
+        "sdv_gemv": ([_PTR, _PTR, _PTR] + [_INT] * 10 + [_PTR], _INT),
+        "sdv_gemm": ([_PTR, _PTR, _PTR] + [_INT] * 10 + [_PTR], _INT),
+        "sdv_smem_bytes": ([_INT, _INT], _INT),
         "sdv_error_string": ([_INT], ctypes.c_char_p),
     },
     "bseg": {

@@ -1,324 +1,510 @@
-// Packed SDV GEMV (B1) and GEMM (B2) for Hopper (sm_90a).
+// Packed SDV GEMV (B1) and GEMM (B2) for Hopper (sm_90a), on the int8
+// tensor cores.
 //
 // Replaces the two TPU kernels of the JAX package's decode/prefill path:
 //   B1  repro/kernels/sdv_matvec.py::sdv_matvec  (decode, <= 8 rows)
 //   B2  repro/kernels/sdv_matmul.py::sdv_matmul  (prefill, > 8 rows)
 // both built on the shared body repro/kernels/sdv_matmul.py::_body.
 //
-// What is computed (per row r, lane group g, over k = 0..K-1), paper
-// Sec. III-C:
-//   u      = stored word (int32 zero-extended, or hi:lo limb planes)
-//   d      = u mod 2^sign_shift               (sign-sliced remainders D)
-//   sbits  = (u >> sign_shift) & (2^n - 1)     (parked sign bits)
-//   packed = d - sum_i bit_i << (i L + w_a - 1)   (the pre-adder D - A;
-//            unsigned elements: packed = d)
-//   acc   += packed * x[r, k]                  (one wide MAC for n lanes)
-//   spill tracking: for each lane boundary i = 1..n the low two bits of
-//   the accumulator at i L, before and after the MAC, are compared with
-//   the expected (a_i * x) mod 4 (the fractured-LUT reference product;
-//   the virtual observer lane n expects 0); the mismatch is the carry
-//   out of lane i-1: in [-1, 1] for signed operands, [0, 2] when both
-//   are unsigned (Fig. 4).
-// Eq. 3 then gives out[r, g, i] = (int32)((S_i << L) + field_i - S_{i-1}).
+// What is computed: the exact int32 per-lane dot products
+//   out[r, g, i] = sum_k x[r, k] * a_i(word[k, g])
+// of integer activations (w_b <= 8 bits) against SDV storage words
+// ([K, G] int32, or [2, K, G] int32 lo/hi limb planes for the wide
+// DSP48E2/DSP58 words).  Lane i of a word (paper Sec. III-C, the storage
+// layout of ops.prepare_sdv_weights) is
+//   signed:   r_i - s_i 2^(w_a-1), r_i the (w_a-1)-bit field at i L and
+//             s_i the parked sign bit at packed_width + i;
+//   unsigned: the w_a-bit field at i L.
+// The DSP computes these sums with one wide multiply per (row, group, k)
+// and tracks the carries between lanes (sdv_matmul_plain repeats that
+// step by step); both give the exact integer sums, which is what lets
+// this kernel take another road to the same bits.
 //
-// All word arithmetic is uint64: signed overflow is undefined in C++, and
-// a mod-2^64 wrap agrees with the TPU's mod-2^32 wrap and the DSP's
-// 48-bit wrap on every bit the extractor reads, so one body serves the
-// INT32 word and the wide DSP48E2/DSP58 words.
+// Bound: bytes.  At w_a, w_b <= 8 every lane value and activation fits
+// an int8 (.s8, or .u8 for unsigned storage / unsigned activations), so
+// the products are int8 tensor-core work: 2 R M K operations at 1,979
+// TOP/s is below the words' bytes (4 M K / n at 3.35 TB/s) up to R ~ 590
+// rows at n = 2.  The packing still pays where the bytes are: a layer
+// streams the words, never int8 weights.
 //
-// Bound: both kernels are bound by memory at the work they must do (the
-// int8 tensor-core rate is far above what n-lane packing needs).  On the
-// INT32 W4 plan a word carries 2 weights in 4 bytes, the bytes of bf16
-// weights; the wide [2, K, G] transport carries 3 weights in 8 bytes.
-// What the design does about it: every stored word is read from device
-// memory exactly once per call.  B1 keeps all (<= 8) rows' accumulators
-// and spill counters of one lane group in one thread's registers, so a
-// word fetched once serves every decode row (what the TPU's 8-row block
-// bought); B2 stages a [BK, BG] tile of words and a [BR, BK] tile of
-// activations in shared memory and gives each thread 8 rows of one
-// group.  The K loop is split across blocks to fill the 132 SMs: the
-// lane values of each K chunk are exact integers, so chunks are
-// extracted separately and summed with integer atomics (exact in any
-// order, hence deterministic).  The per-lane spill tracking costs
-// integer instructions per (row, group, k); that, not the memory, is
-// what these first kernels spend their time on.
+// What the design does about it.  Each block owns up to 64 word columns
+// (bg groups, n * bg <= 128 output channels) and 8 (B1) or 128 (B2)
+// activation rows, and walks its K chunk in stages of 64:
+//   1. a 3-stage ring of word tiles [64 k][bg] (both limb planes) and
+//      activation tiles in shared memory, filled with cp.async (16 bytes
+//      a thread where the rows are 16-byte aligned, else 4), zero-filled
+//      past the K, G and row edges;
+//   2. each word is decoded once into its n lanes as int8, into an A tile
+//      [128 slots][64 k] (K contiguous; slot i * bg + gl holds lane i of
+//      group g0 + gl): one thread decodes 16 consecutive k of one group
+//      and writes each lane's 16 bytes with one 16-byte store, ~6 integer
+//      instructions per weight;
+//   3. the int32 activations are narrowed to an int8 B tile [rows][64 k];
+//   4. mma.sync m16n8k32 (int8 in, int32 accumulate) multiplies the
+//      tiles: channels on M, rows on N, fragments by ldmatrix from tiles
+//      swizzled against bank conflicts.
+// Where the grid is small the K loop is split across blocks to fill the
+// 132 SMs; the partial sums are added with integer atomics into the
+// zeroed output, exact in any order, hence deterministic.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxLanes = 15;   // plan_sdv's largest n for w_a, w_b <= 8
-constexpr int kRowsPerThread = 8;
+constexpr int kMaxLanes = 15;    // plan_sdv's largest n for w_a, w_b <= 8
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kTileM = 128;      // lane slots (output channels) per block
+constexpr int kMaxGroups = 64;   // word columns per block
+constexpr int kBK = 64;          // k per stage: two mma k-steps of 32
+constexpr int kStages = 3;
+constexpr int kGemvRows = 8;
+constexpr int kGemmRows = 128;
+constexpr int kXPitch = kBK + 4;  // int32 per staged B2 activation row
 
-// GEMV launch shape
-constexpr int kGemvThreads = 64;  // one lane group per thread
-constexpr int kGemvKTile = 256;   // k steps of activations staged at once
-constexpr int kGemvMaxRows = kRowsPerThread;
+enum Flags : int { kSignedA = 1, kSignedB = 2, kTwoLimb = 4 };
 
-// GEMM launch shape: (BG groups) x (BR/8 row threads) per block
-constexpr int kGemmBG = 64;
-constexpr int kGemmRowThreads = 4;
-constexpr int kGemmBR = kGemmRowThreads * kRowsPerThread;  // 32 rows
-constexpr int kGemmBK = 32;
-
-enum Flags : int { kSignedA = 1, kSignedSpill = 2, kTwoLimb = 4 };
-
-struct Plan {
-  int lane;        // L
-  int w_a;         // element width
-  int sign_shift;  // plan.packed_width
-  int flags;
+struct Params {
+  const int32_t* x;   // B1: x_t [K, rows]; B2: x [rows, K]
+  const int32_t* w;   // [K, G] or [2, K, G]
+  int32_t* out;       // [rows, G, n]
+  int rows, K, G, n, lane, w_a, sign_shift, bg, kchunk;
+  bool signed_a, vec_w, vec_x, accumulate;
 };
 
-__device__ __forceinline__ uint64_t load_word(const int32_t* __restrict__ w,
-                                              int64_t plane, int64_t idx,
-                                              bool two_limb) {
-  uint64_t lo = static_cast<uint32_t>(w[idx]);
-  if (!two_limb) return lo;
-  uint64_t hi = static_cast<uint32_t>(w[plane + idx]);
-  return (hi << 32) | lo;
-}
-
-// The pre-adder and the 2-LSB reference factors of one stored word.
-template <int N>
-struct Operand {
-  uint64_t packed;
-  uint32_t lsb2[N + 1];  // a_i mod 4 at boundary i (index 1..N; N: 0)
+// B1 and B2 differ in their row tile, warp layout and activation layout
+template <bool kGemm>
+struct Shape;
+template <>
+struct Shape<false> {          // B1: 8 rows, K-major activations
+  static constexpr int kBN = kGemvRows, kWarpsM = 8, kWarpsN = 1;
+  static constexpr int kXStage = kBK * kGemvRows;
+};
+template <>
+struct Shape<true> {           // B2: 128 rows, row-major activations
+  static constexpr int kBN = kGemmRows, kWarpsM = 2, kWarpsN = 4;
+  static constexpr int kXStage = kGemmRows * kXPitch;
 };
 
-template <int N>
-__device__ __forceinline__ void decode(uint64_t u, const Plan& p,
-                                       Operand<N>& op) {
-  const bool signed_a = p.flags & kSignedA;
-  const uint64_t d = u & ((uint64_t(1) << p.sign_shift) - 1);
-  uint32_t sbits = 0;
-  uint64_t a_word = 0;
-  if (signed_a) {
-    sbits = static_cast<uint32_t>(u >> p.sign_shift) & ((1u << N) - 1);
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      a_word += static_cast<uint64_t>((sbits >> i) & 1u)
-                << (i * p.lane + p.w_a - 1);
-  }
-  op.packed = d - a_word;
-#pragma unroll
-  for (int i = 1; i < N; ++i) {
-    uint32_t r2 = static_cast<uint32_t>(d >> (i * p.lane)) & 3u;
-    if (signed_a && p.w_a < 3) r2 = (r2 + 2u * ((sbits >> i) & 1u)) & 3u;
-    op.lsb2[i] = r2;
-  }
-  op.lsb2[N] = 0;  // virtual observer lane
+template <bool kGemm, bool kTwoLimb>
+constexpr int smem_bytes() {
+  return kStages * ((kTwoLimb ? 2 : 1) * kBK * kMaxGroups +
+                    Shape<kGemm>::kXStage) * 4 +
+         kTileM * kBK + Shape<kGemm>::kBN * kBK;
 }
 
-// One wide MAC of one row plus the spill update at every lane boundary.
-template <int N>
-__device__ __forceinline__ void mac(uint64_t& acc, int (&spill)[N],
-                                    const Operand<N>& op, int32_t x,
-                                    const Plan& p) {
-  const uint64_t acc2 = acc + op.packed * static_cast<uint64_t>(
-                                              static_cast<int64_t>(x));
-  const uint32_t x4 = static_cast<uint32_t>(x) & 3u;
-  const bool signed_spill = p.flags & kSignedSpill;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async with zero fill: an invalid copy reads nothing (src-size 0) and
+// writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2],
+                                            const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// D += A (16 x 32, row) * B (32 x 8, col), int8 in, int32 accumulate
+template <bool kAU8, bool kBU8>
+struct Mma;
+#define SDV_MMA(AU8, BU8, TYPES)                                          \
+  template <>                                                             \
+  struct Mma<AU8, BU8> {                                                  \
+    __device__ __forceinline__ static void run(int (&d)[4],               \
+                                               const uint32_t (&a)[4],    \
+                                               const uint32_t (&b)[2]) {  \
+      asm volatile("mma.sync.aligned.m16n8k32.row.col.s32." TYPES         \
+                   ".s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "         \
+                   "{%0,%1,%2,%3};\n"                                     \
+                   : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])       \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),          \
+                     "r"(b[0]), "r"(b[1]));                               \
+    }                                                                     \
+  };
+SDV_MMA(false, false, "s8.s8")
+SDV_MMA(false, true, "s8.u8")
+SDV_MMA(true, false, "u8.s8")
+SDV_MMA(true, true, "u8.u8")
+#undef SDV_MMA
+
+// Byte offset of 16-byte chunk c (0..3) of row r in a [rows][64] int8
+// tile: the chunk index is XORed with bits 1..2 of the row, so the 8 rows
+// an ldmatrix (or a 16-byte store per row) touches hit 8 distinct bank
+// groups
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return r * kBK + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// The low bytes of four int32 values, as one little-endian word
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+// Bits s.. of the stored word (hi:lo for the two-limb words)
+template <bool kTwoLimb>
+__device__ __forceinline__ uint32_t shr(uint32_t lo, uint32_t hi, int s) {
+  if constexpr (kTwoLimb)
+    return s < 32 ? __funnelshift_r(lo, hi, s) : hi >> (s - 32);
+  else
+    return lo >> s;
+}
+
+template <bool kGemm, bool kTwoLimb>
+struct Smem {
+  int32_t* words;   // [kStages][planes][kBK][kMaxGroups]
+  int32_t* xs;      // [kStages][kXStage]
+  uint8_t* a;       // [kTileM][kBK], swizzled
+  uint8_t* b;       // [kBN][kBK], swizzled
+  static constexpr int kPlanes = kTwoLimb ? 2 : 1;
+  static constexpr int kWordStage = kPlanes * kBK * kMaxGroups;
+  __device__ explicit Smem(uint8_t* base) {
+    words = reinterpret_cast<int32_t*>(base);
+    xs = words + kStages * kWordStage;
+    a = reinterpret_cast<uint8_t*>(xs + kStages * Shape<kGemm>::kXStage);
+    b = a + kTileM * kBK;
+  }
+};
+
+// Start the cp.async copies of stage k0 (word tile + activation tile)
+template <bool kGemm, bool kTwoLimb>
+__device__ __forceinline__ void load_stage(const Params& p,
+                                           const Smem<kGemm, kTwoLimb>& sm,
+                                           int slot, int k0, int kend, int g0,
+                                           int r0) {
+  const int tid = threadIdx.x;
+  int32_t* ws = sm.words + slot * Smem<kGemm, kTwoLimb>::kWordStage;
+  const int64_t plane = static_cast<int64_t>(p.K) * p.G;
 #pragma unroll
-  for (int i = 1; i <= N; ++i) {
+  for (int pl = 0; pl < Smem<kGemm, kTwoLimb>::kPlanes; ++pl) {
+    int32_t* dst = ws + pl * kBK * kMaxGroups;
+    const int32_t* src = p.w + pl * plane;
+    if (p.vec_w) {   // G % 4 == 0: rows of 16-byte chunks
+      for (int idx = tid; idx < kBK * (kMaxGroups / 4); idx += kThreads) {
+        const int kk = idx / (kMaxGroups / 4);
+        const int gl = (idx % (kMaxGroups / 4)) * 4;
+        if (gl >= p.bg) continue;
+        const bool ok = k0 + kk < kend && g0 + gl < p.G;
+        cp_async16(dst + kk * kMaxGroups + gl,
+                   ok ? src + static_cast<int64_t>(k0 + kk) * p.G + g0 + gl
+                      : src,
+                   ok);
+      }
+    } else {
+      for (int idx = tid; idx < kBK * kMaxGroups; idx += kThreads) {
+        const int kk = idx / kMaxGroups, gl = idx % kMaxGroups;
+        if (gl >= p.bg) continue;
+        const bool ok = k0 + kk < kend && g0 + gl < p.G;
+        cp_async4(dst + kk * kMaxGroups + gl,
+                  ok ? src + static_cast<int64_t>(k0 + kk) * p.G + g0 + gl
+                     : src,
+                  ok);
+      }
+    }
+  }
+  int32_t* xs = sm.xs + slot * Shape<kGemm>::kXStage;
+  if constexpr (kGemm) {   // x [rows, K] -> [kGemmRows][kXPitch]
+    if (p.vec_x) {         // K % 4 == 0
+      for (int idx = tid; idx < kGemmRows * (kBK / 4); idx += kThreads) {
+        const int rr = idx / (kBK / 4), kk = (idx % (kBK / 4)) * 4;
+        const bool ok = r0 + rr < p.rows && k0 + kk < kend;
+        cp_async16(xs + rr * kXPitch + kk,
+                   ok ? p.x + static_cast<int64_t>(r0 + rr) * p.K + k0 + kk
+                      : p.x,
+                   ok);
+      }
+    } else {
+      for (int idx = tid; idx < kGemmRows * kBK; idx += kThreads) {
+        const int rr = idx / kBK, kk = idx % kBK;
+        const bool ok = r0 + rr < p.rows && k0 + kk < kend;
+        cp_async4(xs + rr * kXPitch + kk,
+                  ok ? p.x + static_cast<int64_t>(r0 + rr) * p.K + k0 + kk
+                     : p.x,
+                  ok);
+      }
+    }
+  } else {                 // x_t [K, rows]: the stage is one contiguous run
+    const int valid = (kend - k0) * p.rows;
+    for (int e = tid; e < kBK * p.rows; e += kThreads) {
+      const bool ok = e < valid;
+      cp_async4(xs + e, ok ? p.x + static_cast<int64_t>(k0) * p.rows + e
+                           : p.x,
+                ok);
+    }
+  }
+}
+
+// Decode the stage's words into the A tile: thread (gl, ku) takes the 16
+// k of chunk ku of group g0 + gl and writes lane i's 16 bytes to slot
+// i * bg + gl
+template <bool kGemm, bool kTwoLimb>
+__device__ __forceinline__ void decode_stage(const Params& p,
+                                             const Smem<kGemm, kTwoLimb>& sm,
+                                             int slot) {
+  const int gl = threadIdx.x % kMaxGroups, ku = threadIdx.x / kMaxGroups;
+  if (gl >= p.bg) return;
+  const int32_t* ws = sm.words + slot * Smem<kGemm, kTwoLimb>::kWordStage +
+                      ku * 16 * kMaxGroups + gl;
+  uint32_t lo[16], hi[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    lo[j] = static_cast<uint32_t>(ws[j * kMaxGroups]);
+    hi[j] = kTwoLimb ? static_cast<uint32_t>(ws[kBK * kMaxGroups +
+                                                j * kMaxGroups])
+                     : 0u;
+  }
+  // signed: the field's w_a - 1 bits minus the sign bit moved to bit
+  // w_a - 1 (the low byte is the lane's two's complement); unsigned: the
+  // field's w_a bits
+  const uint32_t rmask = (1u << (p.signed_a ? p.w_a - 1 : p.w_a)) - 1u;
+  const uint32_t smask = p.signed_a ? 1u << (p.w_a - 1) : 0u;
+  for (int i = 0; i < p.n; ++i) {
     const int s = i * p.lane;
-    const uint32_t mm = (static_cast<uint32_t>(acc2 >> s) -
-                         static_cast<uint32_t>(acc >> s) -
-                         op.lsb2[i] * x4) & 3u;
-    spill[i - 1] += (signed_spill && mm == 3u) ? -1 : static_cast<int>(mm);
-  }
-  acc = acc2;
-}
-
-// Eq. 3 extraction of one row's lanes into out[N] (int32, wrapping).
-template <int N>
-__device__ __forceinline__ void extract(uint64_t acc, const int (&spill)[N],
-                                        const Plan& p, int32_t* out,
-                                        bool accumulate) {
-  const uint64_t mask = (uint64_t(1) << p.lane) - 1;
+    const int t = p.signed_a ? p.sign_shift + i - (p.w_a - 1) : 0;
+    uint32_t v[16];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    uint64_t v = (static_cast<uint64_t>(static_cast<int64_t>(spill[i]))
-                  << p.lane) + ((acc >> (i * p.lane)) & mask);
-    if (i > 0) v -= static_cast<uint64_t>(static_cast<int64_t>(spill[i - 1]));
-    const int32_t lane_value =
-        static_cast<int32_t>(static_cast<uint32_t>(v));
-    if (accumulate)
-      atomicAdd(out + i, lane_value);
-    else
-      out[i] = lane_value;
+    for (int j = 0; j < 16; ++j)
+      v[j] = (shr<kTwoLimb>(lo[j], hi[j], s) & rmask) -
+             (shr<kTwoLimb>(lo[j], hi[j], t) & smask);
+    uint4 q;
+    q.x = pack4(v[0], v[1], v[2], v[3]);
+    q.y = pack4(v[4], v[5], v[6], v[7]);
+    q.z = pack4(v[8], v[9], v[10], v[11]);
+    q.w = pack4(v[12], v[13], v[14], v[15]);
+    *reinterpret_cast<uint4*>(sm.a + tile_off(i * p.bg + gl, ku)) = q;
   }
 }
 
-// B1: x_t [K, B] (K-major), w [K, G] or [2, K, G] -> out [B, G, N].
-// Grid (ceil(G / 64), K splits); one thread per lane group g.
-template <int N>
-__global__ void __launch_bounds__(kGemvThreads)
-sdv_gemv_kernel(const int32_t* __restrict__ x_t,
-                const int32_t* __restrict__ w, int32_t* __restrict__ out,
-                int B, int K, int G, int kchunk, Plan p) {
-  __shared__ int32_t xs[kGemvKTile * kGemvMaxRows];
-  const int g = blockIdx.x * kGemvThreads + threadIdx.x;
-  const int k0 = blockIdx.y * kchunk;
-  const int k1 = min(K, k0 + kchunk);
-  const bool two_limb = p.flags & kTwoLimb;
-  const int64_t plane = static_cast<int64_t>(K) * G;
-
-  uint64_t acc[kGemvMaxRows];
-  int spill[kGemvMaxRows][N];
+// Narrow the stage's int32 activations into the int8 B tile [rows][64 k]
+template <bool kGemm, bool kTwoLimb>
+__device__ __forceinline__ void convert_stage(const Params& p,
+                                              const Smem<kGemm, kTwoLimb>& sm,
+                                              int slot) {
+  const int32_t* xs = sm.xs + slot * Shape<kGemm>::kXStage;
+  if constexpr (kGemm) {
+    // unit (row rr, chunk c); consecutive threads on consecutive rows,
+    // conflict-free through the padded pitch
+    for (int u = threadIdx.x; u < kGemmRows * 4; u += kThreads) {
+      const int rr = u % kGemmRows, c = u / kGemmRows;
+      const int4* src = reinterpret_cast<const int4*>(xs + rr * kXPitch +
+                                                      c * 16);
+      uint32_t w4[4];
 #pragma unroll
-  for (int r = 0; r < kGemvMaxRows; ++r) {
-    acc[r] = 0;
+      for (int q = 0; q < 4; ++q) {
+        const int4 v = src[q];
+        w4[q] = pack4(v.x, v.y, v.z, v.w);
+      }
+      *reinterpret_cast<uint4*>(sm.b + tile_off(rr, c)) =
+          make_uint4(w4[0], w4[1], w4[2], w4[3]);
+    }
+  } else {
+    if (threadIdx.x >= kGemvRows * 4) return;
+    const int b = threadIdx.x % kGemvRows, c = threadIdx.x / kGemvRows;
+    uint32_t v[16];
 #pragma unroll
-    for (int i = 0; i < N; ++i) spill[r][i] = 0;
+    for (int q = 0; q < 16; ++q)
+      v[q] = b < p.rows ? static_cast<uint32_t>(xs[(c * 16 + q) * p.rows + b])
+                        : 0u;
+    *reinterpret_cast<uint4*>(sm.b + tile_off(b, c)) =
+        make_uint4(pack4(v[0], v[1], v[2], v[3]),
+                   pack4(v[4], v[5], v[6], v[7]),
+                   pack4(v[8], v[9], v[10], v[11]),
+                   pack4(v[12], v[13], v[14], v[15]));
   }
+}
 
-  for (int kt = k0; kt < k1; kt += kGemvKTile) {
-    const int kn = min(kGemvKTile, k1 - kt);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kn * B; idx += kGemvThreads)
-      xs[idx] = x_t[static_cast<int64_t>(kt) * B + idx];
-    __syncthreads();
-    if (g < G) {
-      for (int kk = 0; kk < kn; ++kk) {
-        Operand<N> op;
-        decode<N>(load_word(w, plane,
-                            static_cast<int64_t>(kt + kk) * G + g, two_limb),
-                  p, op);
+// One block: channels g0 * n .. (g0 + bg) * n, rows r0 .. r0 + kBN, k in
+// [blockIdx.z * kchunk, + kchunk)
+template <bool kGemm, bool kTwoLimb, bool kAU8, bool kBU8>
+__device__ __forceinline__ void sdv_body(const Params& p) {
+  using S = Shape<kGemm>;
+  constexpr int kWM = kTileM / S::kWarpsM, kWN = S::kBN / S::kWarpsN;
+  constexpr int kMT = kWM / 16, kNT = kWN / 8;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Smem<kGemm, kTwoLimb> sm(smem);
+
+  const int g0 = blockIdx.x * p.bg, r0 = blockIdx.y * S::kBN;
+  const int kbeg = blockIdx.z * p.kchunk;
+  const int kend = min(p.K, kbeg + p.kchunk);
+  const int nstages = (kend - kbeg + kBK - 1) / kBK;
+  const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
+  const int m_base = (warp / S::kWarpsN) * kWM;
+  const int n_base = (warp % S::kWarpsN) * kWN;
+  const int slots = p.n * p.bg;
+
+  int acc[kMT][kNT][4];
 #pragma unroll
-        for (int r = 0; r < kGemvMaxRows; ++r)
-          if (r < B) mac<N>(acc[r], spill[r], op, xs[kk * B + r], p);
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nstages) load_stage(p, sm, s, kbeg + s * kBK, kend, g0, r0);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nstages; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage t landed; the tiles of stage t-1 are free
+    const int next = t + kStages - 1;
+    if (next < nstages)
+      load_stage(p, sm, next % kStages, kbeg + next * kBK, kend, g0, r0);
+    cp_async_commit();
+    decode_stage(p, sm, t % kStages);
+    convert_stage(p, sm, t % kStages);
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      uint32_t b[kNT][2];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        ldmatrix_x2(b[nt], sm.b + tile_off(n_base + nt * 8 + lane_id % 8,
+                                           2 * ks + (lane_id / 8) % 2));
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (m_base + mt * 16 >= slots) continue;   // padding slots
+        uint32_t a[4];
+        ldmatrix_x4(a, sm.a + tile_off(m_base + mt * 16 + lane_id % 16,
+                                       2 * ks + lane_id / 16));
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+          Mma<kAU8, kBU8>::run(acc[mt][nt], a, b[nt]);
       }
     }
   }
-  if (g >= G) return;
-  const bool accumulate = gridDim.y > 1;
-#pragma unroll
-  for (int r = 0; r < kGemvMaxRows; ++r)
-    if (r < B)
-      extract<N>(acc[r], spill[r], p,
-                 out + (static_cast<int64_t>(r) * G + g) * N, accumulate);
-}
 
-// B2: x [R, K] (row-major), w [K, G] or [2, K, G] -> out [R, G, N].
-// Grid (ceil(G / BG), ceil(R / BR), K splits); block (BG, BR / 8): each
-// thread owns 8 rows of one lane group.
-template <int N>
-__global__ void __launch_bounds__(kGemmBG * kGemmRowThreads)
-sdv_gemm_kernel(const int32_t* __restrict__ x,
-                const int32_t* __restrict__ w, int32_t* __restrict__ out,
-                int R, int K, int G, int kchunk, Plan p) {
-  __shared__ uint64_t ws[kGemmBK][kGemmBG];
-  __shared__ int32_t xs[kGemmBK][kGemmBR + 1];  // +1: conflict-free fill
-  const int tid = threadIdx.y * kGemmBG + threadIdx.x;
-  constexpr int kThreads = kGemmBG * kGemmRowThreads;
-  const int g0 = blockIdx.x * kGemmBG;
-  const int r0 = blockIdx.y * kGemmBR;
-  const int g = g0 + threadIdx.x;
-  const int rbase = threadIdx.y * kRowsPerThread;  // within the tile
-  const int k0 = blockIdx.z * kchunk;
-  const int k1 = min(K, k0 + kchunk);
-  const bool two_limb = p.flags & kTwoLimb;
-  const int64_t plane = static_cast<int64_t>(K) * G;
-
-  uint64_t acc[kRowsPerThread];
-  int spill[kRowsPerThread][N];
+  // accumulator e of a m16n8 tile: slot gid (+8 for e >= 2), row
+  // 2 tig (+1 for odd e)
+  const int gid = lane_id / 4, tig = lane_id % 4;
+  const int64_t row_stride = static_cast<int64_t>(p.G) * p.n;
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    acc[j] = 0;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int i = 0; i < N; ++i) spill[j][i] = 0;
-  }
-
-  for (int kt = k0; kt < k1; kt += kGemmBK) {
-    const int kn = min(kGemmBK, k1 - kt);
-    __syncthreads();
-    for (int idx = tid; idx < kGemmBK * kGemmBG; idx += kThreads) {
-      const int kk = idx / kGemmBG, gg = idx % kGemmBG;
-      ws[kk][gg] = (kk < kn && g0 + gg < G)
-                       ? load_word(w, plane,
-                                   static_cast<int64_t>(kt + kk) * G + g0 + gg,
-                                   two_limb)
-                       : 0;
-    }
-    for (int idx = tid; idx < kGemmBR * kGemmBK; idx += kThreads) {
-      const int rr = idx / kGemmBK, kk = idx % kGemmBK;
-      xs[kk][rr] = (kk < kn && r0 + rr < R)
-                       ? x[static_cast<int64_t>(r0 + rr) * K + kt + kk]
-                       : 0;
-    }
-    __syncthreads();
-    if (g < G) {
-      for (int kk = 0; kk < kn; ++kk) {
-        Operand<N> op;
-        decode<N>(ws[kk][threadIdx.x], p, op);
+    for (int e = 0; e < 4; ++e) {
+      const int slot = m_base + mt * 16 + gid + (e >= 2 ? 8 : 0);
+      if (slot >= slots) continue;
+      const int i = slot / p.bg, g = g0 + slot % p.bg;
+      if (g >= p.G) continue;
 #pragma unroll
-        for (int j = 0; j < kRowsPerThread; ++j)
-          mac<N>(acc[j], spill[j], op, xs[kk][rbase + j], p);
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int r = r0 + n_base + nt * 8 + 2 * tig + (e & 1);
+        if (r >= p.rows) continue;
+        int32_t* o = p.out + r * row_stride +
+                     static_cast<int64_t>(g) * p.n + i;
+        if (p.accumulate)
+          atomicAdd(o, acc[mt][nt][e]);
+        else
+          *o = acc[mt][nt][e];
       }
     }
-  }
-  if (g >= G) return;
-  const bool accumulate = gridDim.z > 1;
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const int r = r0 + rbase + j;
-    if (r < R)
-      extract<N>(acc[j], spill[j], p,
-                 out + (static_cast<int64_t>(r) * G + g) * N, accumulate);
-  }
 }
 
-template <int N>
-cudaError_t launch_gemv(const int32_t* x_t, const int32_t* w, int32_t* out,
-                        int B, int K, int G, int kchunk, Plan p,
-                        cudaStream_t stream) {
-  const dim3 grid((G + kGemvThreads - 1) / kGemvThreads,
-                  (K + kchunk - 1) / kchunk);
-  sdv_gemv_kernel<N><<<grid, kGemvThreads, 0, stream>>>(x_t, w, out, B, K, G,
-                                                        kchunk, p);
+template <bool kTwoLimb, bool kAU8, bool kBU8>
+__global__ void __launch_bounds__(kThreads, 2)
+sdv_gemv_kernel(Params p) {
+  sdv_body<false, kTwoLimb, kAU8, kBU8>(p);
+}
+
+template <bool kTwoLimb, bool kAU8, bool kBU8>
+__global__ void __launch_bounds__(kThreads, 1)
+sdv_gemm_kernel(Params p) {
+  sdv_body<true, kTwoLimb, kAU8, kBU8>(p);
+}
+
+template <bool kGemm, bool kTwoLimb, bool kAU8, bool kBU8>
+cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<kGemm, kTwoLimb>();
+  auto kernel = kGemm ? sdv_gemm_kernel<kTwoLimb, kAU8, kBU8>
+                      : sdv_gemv_kernel<kTwoLimb, kAU8, kBU8>;
+  static bool configured = false;   // above 48 KB only after opting in
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int N>
-cudaError_t launch_gemm(const int32_t* x, const int32_t* w, int32_t* out,
-                        int R, int K, int G, int kchunk, Plan p,
-                        cudaStream_t stream) {
-  const dim3 grid((G + kGemmBG - 1) / kGemmBG, (R + kGemmBR - 1) / kGemmBR,
-                  (K + kchunk - 1) / kchunk);
-  const dim3 block(kGemmBG, kGemmRowThreads);
-  sdv_gemm_kernel<N><<<grid, block, 0, stream>>>(x, w, out, R, K, G, kchunk,
-                                                 p);
-  return cudaGetLastError();
+template <bool kGemm>
+cudaError_t dispatch(const Params& p, int flags, dim3 grid,
+                     cudaStream_t stream) {
+  const int key = (flags & kTwoLimb ? 4 : 0) | (flags & kSignedA ? 0 : 2) |
+                  (flags & kSignedB ? 0 : 1);
+  switch (key) {
+    case 0: return launch<kGemm, false, false, false>(p, grid, stream);
+    case 1: return launch<kGemm, false, false, true>(p, grid, stream);
+    case 2: return launch<kGemm, false, true, false>(p, grid, stream);
+    case 3: return launch<kGemm, false, true, true>(p, grid, stream);
+    case 4: return launch<kGemm, true, false, false>(p, grid, stream);
+    case 5: return launch<kGemm, true, false, true>(p, grid, stream);
+    case 6: return launch<kGemm, true, true, false>(p, grid, stream);
+    default: return launch<kGemm, true, true, true>(p, grid, stream);
+  }
 }
 
-#define SDV_DISPATCH(FN, ...)                            \
-  switch (n) {                                           \
-    case 1: return FN<1>(__VA_ARGS__);                   \
-    case 2: return FN<2>(__VA_ARGS__);                   \
-    case 3: return FN<3>(__VA_ARGS__);                   \
-    case 4: return FN<4>(__VA_ARGS__);                   \
-    case 5: return FN<5>(__VA_ARGS__);                   \
-    case 6: return FN<6>(__VA_ARGS__);                   \
-    case 7: return FN<7>(__VA_ARGS__);                   \
-    case 8: return FN<8>(__VA_ARGS__);                   \
-    case 9: return FN<9>(__VA_ARGS__);                   \
-    case 10: return FN<10>(__VA_ARGS__);                 \
-    case 11: return FN<11>(__VA_ARGS__);                 \
-    case 12: return FN<12>(__VA_ARGS__);                 \
-    case 13: return FN<13>(__VA_ARGS__);                 \
-    case 14: return FN<14>(__VA_ARGS__);                 \
-    case 15: return FN<15>(__VA_ARGS__);                 \
-    default: return cudaErrorInvalidValue;               \
+template <bool kGemm>
+int run(const void* x, const void* w, void* out, int rows, int K, int G,
+        int n, int lane, int w_a, int sign_shift, int flags, int bg,
+        int kchunk, void* stream) {
+  constexpr int kBN = Shape<kGemm>::kBN;
+  if (n < 1 || n > kMaxLanes || rows < 1 || K < 1 || G < 1 ||
+      (!kGemm && rows > kGemvRows) || bg < 4 || bg % 4 != 0 ||
+      bg > kMaxGroups || n * bg > kTileM || kchunk < kBK ||
+      kchunk % kBK != 0 || w_a < 1 || w_a > 8)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = (K + kchunk - 1) / kchunk;
+  Params p{static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
+           static_cast<int32_t*>(out), rows, K, G, n, lane, w_a, sign_shift,
+           bg, kchunk, (flags & kSignedA) != 0,
+           G % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0,
+           K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0,
+           splits > 1};
+  if (p.accumulate) {   // split-K blocks add into a zeroed output
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(rows) * G * n * sizeof(int32_t), s);
+    if (err != cudaSuccess) return err;
   }
-
-cudaError_t prepare(int32_t* out, int64_t out_elems, int K, int kchunk,
-                    cudaStream_t stream) {
-  // split-K blocks accumulate into a zeroed output
-  if (kchunk < K)
-    return cudaMemsetAsync(out, 0, out_elems * sizeof(int32_t), stream);
-  return cudaSuccess;
+  const dim3 grid((G + bg - 1) / bg, (rows + kBN - 1) / kBN, splits);
+  return dispatch<kGemm>(p, flags, grid, s);
 }
 
 }  // namespace
@@ -329,35 +515,30 @@ const char* sdv_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Every launcher returns cudaGetLastError() of its launch (0 = success).
-int sdv_gemv(const void* x_t, const void* w, void* out, int B, int K, int G,
-             int n, int lane, int w_a, int sign_shift, int flags, int kchunk,
-             void* stream) {
-  if (n < 1 || n > kMaxLanes || B < 1 || B > kGemvMaxRows || kchunk < 1)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare(static_cast<int32_t*>(out),
-                            static_cast<int64_t>(B) * G * n, K, kchunk, s);
-  if (err != cudaSuccess) return err;
-  const Plan p{lane, w_a, sign_shift, flags};
-  SDV_DISPATCH(launch_gemv, static_cast<const int32_t*>(x_t),
-               static_cast<const int32_t*>(w), static_cast<int32_t*>(out), B,
-               K, G, kchunk, p, s)
+// Dynamic shared memory of one block (bytes): B2 (gemm) or B1, on the
+// two-limb or the INT32 words.
+int sdv_smem_bytes(int gemm, int two_limb) {
+  if (gemm)
+    return two_limb ? smem_bytes<true, true>() : smem_bytes<true, false>();
+  return two_limb ? smem_bytes<false, true>() : smem_bytes<false, false>();
 }
 
-int sdv_gemm(const void* x, const void* w, void* out, int R, int K, int G,
-             int n, int lane, int w_a, int sign_shift, int flags, int kchunk,
-             void* stream) {
-  if (n < 1 || n > kMaxLanes || R < 1 || kchunk < 1)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = prepare(static_cast<int32_t*>(out),
-                            static_cast<int64_t>(R) * G * n, K, kchunk, s);
-  if (err != cudaSuccess) return err;
-  const Plan p{lane, w_a, sign_shift, flags};
-  SDV_DISPATCH(launch_gemm, static_cast<const int32_t*>(x),
-               static_cast<const int32_t*>(w), static_cast<int32_t*>(out), R,
-               K, G, kchunk, p, s)
+// Both launchers return cudaGetLastError() of their launch (0 = success).
+// B1: x_t [K, rows] (rows <= 8); B2: x [rows, K].  bg: word columns per
+// block (a multiple of 4, n * bg <= 128); kchunk: K per block (a multiple
+// of 64).
+int sdv_gemv(const void* x_t, const void* w, void* out, int rows, int K,
+             int G, int n, int lane, int w_a, int sign_shift, int flags,
+             int bg, int kchunk, void* stream) {
+  return run<false>(x_t, w, out, rows, K, G, n, lane, w_a, sign_shift, flags,
+                    bg, kchunk, stream);
+}
+
+int sdv_gemm(const void* x, const void* w, void* out, int rows, int K, int G,
+             int n, int lane, int w_a, int sign_shift, int flags, int bg,
+             int kchunk, void* stream) {
+  return run<true>(x, w, out, rows, K, G, n, lane, w_a, sign_shift, flags,
+                   bg, kchunk, stream);
 }
 
 }  // extern "C"

@@ -4,18 +4,23 @@
 ``sdv_matmul`` computes the exact per-lane dot products of row-major
 integer activations ``[R, K]`` against SDV storage words ``[K, G]``
 (``[2, K, G]`` limb planes for the wide DSP48E2/DSP58 words), returning
-``[R, G, n]`` int32, through the paper's packed arithmetic: the in-word
-pre-adder ``D - A``, one wide multiply per (row, group, k) carrying
-``n`` MACs, mod-4 spill-over tracking at every lane boundary (with a
-virtual observer lane at ``n L``) and the Eq. 3 extractor.
+``[R, G, n]`` int32.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/sdv.cu::sdv_gemm_kernel``; on a CPU tensor it runs
-``sdv_matmul_plain``, the same word arithmetic step by step in int64
-tensor ops.  There is no fallback between the two: a CUDA tensor that
-the kernel cannot take raises.
+``csrc/sdv.cu::sdv_gemm_kernel``, which decodes each word once into its
+``n`` lanes as int8 and multiplies them on the int8 tensor cores
+(``decode_lanes_plain`` mirrors that decode and its tile layout).  On a
+CPU tensor it runs ``sdv_matmul_plain``, the paper's packed arithmetic
+step by step in int64 tensor ops: the in-word pre-adder ``D - A``, one
+wide multiply per (row, group, k) carrying ``n`` MACs, mod-4 spill-over
+tracking at every lane boundary (with a virtual observer lane at
+``n L``) and the Eq. 3 extractor.  Both give the exact integer sums.
+There is no fallback between the two: a CUDA tensor that the kernel
+cannot take raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,12 +28,16 @@ from ..core import limbs
 from ..device import sm_count
 from . import bseg_common, build
 
-#: the kernels' limits and tile shapes (mirrors csrc/sdv.cu)
+#: the kernels' limits and tiles (mirrors csrc/sdv.cu): lane slots
+#: (output channels) and word columns per block, k per pipeline stage,
+#: the row tiles of B1 and B2, and the blocks per SM the K split aims at
 MAX_LANES = 15
+MAX_BITS = 8
 GEMV_MAX_ROWS = 8
-GEMV_THREADS = 64
-GEMM_BG, GEMM_BR, GEMM_BK = 64, 32, 32
-_SIGNED_A, _SIGNED_SPILL, _TWO_LIMB = 1, 2, 4
+TILE_M, MAX_GROUPS, TILE_K = 128, 64, 64
+GEMM_ROWS = 128
+GEMV_BLOCKS_PER_SM, GEMM_BLOCKS_PER_SM = 2, 1
+_SIGNED_A, _SIGNED_B, _TWO_LIMB = 1, 2, 4
 
 
 def check_operands(x: torch.Tensor, w_words: torch.Tensor, plan, *,
@@ -43,6 +52,9 @@ def check_operands(x: torch.Tensor, w_words: torch.Tensor, plan, *,
                          f"{plan.spec.name} rounds (fp32)")
     if bseg_common.sdv_layout_bits(plan) > plan.spec.w_word:
         raise ValueError(f"plan overruns its {plan.spec.name} word: {plan}")
+    if plan.w_a > MAX_BITS or plan.w_b > MAX_BITS:
+        raise ValueError(f"the SDV kernels multiply int8 operands: w_a="
+                         f"{plan.w_a}, w_b={plan.w_b} exceed {MAX_BITS} bits")
     if plan.n > MAX_LANES or plan.n * plan.lane + 2 > 64:
         raise ValueError(f"plan n={plan.n}, L={plan.lane} exceeds the "
                          f"kernels' limit of {MAX_LANES} lanes in 64 bits")
@@ -131,23 +143,110 @@ def sdv_matmul_plain(x: torch.Tensor, w_words: torch.Tensor,
 sdv_matmul_plain.calls = 0
 
 
-def k_chunk(k: int, blocks: int, step: int, device: torch.device) -> int:
-    """K steps per block: split K until about four blocks per SM are in
-    flight, each chunk a multiple of ``step``."""
-    target = 4 * sm_count(device.index if device.index is not None
-                           else torch.cuda.current_device())
-    split = max(1, min(-(-k // step), -(-target // blocks)))
-    chunk = -(-k // split)
-    return -(-chunk // step) * step
+def block_groups(n: int) -> int:
+    """Word columns one block decodes: its ``n`` lanes fill at most
+    ``TILE_M`` slots, in multiples of 4 columns (16-byte word loads)."""
+    return min(MAX_GROUPS, TILE_M // n // 4 * 4)
+
+
+class Geometry(NamedTuple):
+    bg: int          # word columns per block
+    row_tile: int    # activation rows per block
+    chunk: int       # K per block (a multiple of TILE_K)
+    grid: tuple      # (column blocks, row blocks, K splits)
+
+
+def launch_geometry(rows: int, k: int, g: int, n: int, *, gemv: bool,
+                    sms: int) -> Geometry:
+    """The kernels' launch: blocks of ``block_groups(n)`` word columns x
+    ``row_tile`` rows, K split until about ``*_BLOCKS_PER_SM`` blocks per
+    SM are in flight (each split a multiple of ``TILE_K``)."""
+    bg = block_groups(n)
+    row_tile = GEMV_MAX_ROWS if gemv else GEMM_ROWS
+    blocks = -(-g // bg) * -(-rows // row_tile)
+    target = sms * (GEMV_BLOCKS_PER_SM if gemv else GEMM_BLOCKS_PER_SM)
+    split = max(1, min(-(-k // TILE_K), -(-target // blocks)))
+    per_split = -(-k // split)
+    chunk = -(-per_split // TILE_K) * TILE_K
+    return Geometry(bg, row_tile, chunk,
+                    (-(-g // bg), -(-rows // row_tile), -(-k // chunk)))
+
+
+def mma_types(plan) -> tuple:
+    """The tensor-core operand types of (decoded lanes, activations):
+    ``u8`` for unsigned storage / unsigned activations (255 at 8 bits),
+    else ``s8``."""
+    return ("s8" if plan.signed_a else "u8",
+            "s8" if plan.signed_b else "u8")
 
 
 def plan_flags(plan) -> int:
-    flags = _SIGNED_A if plan.signed_a else 0
-    if plan.signed_a or plan.signed_b:
-        flags |= _SIGNED_SPILL
+    a, b = mma_types(plan)
+    flags = (_SIGNED_A if a == "s8" else 0) | (_SIGNED_B if b == "s8" else 0)
     if bseg_common.sdv_word_spec(plan).limbs == 2:
         flags |= _TWO_LIMB
     return flags
+
+
+def slot_channels(g: int, n: int) -> torch.Tensor:
+    """Output channel of each A-tile slot of ``decode_lanes_plain`` (-1
+    for padding): block ``b``'s slot ``i * bg + gl`` is lane ``i`` of
+    group ``b * bg + gl``."""
+    bg = block_groups(n)
+    tiles = -(-g // bg)
+    slot = torch.arange(TILE_M)
+    i, gl = slot // bg, slot % bg
+    grp = torch.arange(tiles)[:, None] * bg + gl
+    chan = torch.where((slot < n * bg) & (grp < g), grp * n + i, -1)
+    return chan.reshape(-1)
+
+
+def decode_lanes_plain(w_words: torch.Tensor, plan) -> torch.Tensor:
+    """The kernels' decode, plain: storage words -> the int8 A tiles
+    [tiles * TILE_M, K] (channel slots, K contiguous; uint8 for unsigned
+    storage), block by block as ``slot_channels`` orders them; padding
+    slots and the zero words past G decode to 0.
+
+    Lane i: signed, the (w_a - 1)-bit field at i L minus the parked sign
+    bit at packed_width + i moved to bit w_a - 1; unsigned, the w_a-bit
+    field at i L.  The low byte is the lane's value."""
+    n, lane, w_a = plan.n, plan.lane, plan.w_a
+    words = _stored_words(w_words)                           # [K, G]
+    k, g = words.shape
+    bg = block_groups(n)
+    tiles = -(-g // bg)
+    words = torch.nn.functional.pad(words, (0, tiles * bg - g))
+    if plan.signed_a:
+        rmask, smask = (1 << w_a - 1) - 1, 1 << w_a - 1
+    else:
+        rmask, smask = (1 << w_a) - 1, 0
+    lanes = []
+    for i in range(n):
+        t = plan.packed_width + i - (w_a - 1) if plan.signed_a else 0
+        lanes.append(((words >> i * lane) & rmask) - ((words >> t) & smask))
+    v = torch.stack(lanes).reshape(n, k, tiles, bg)
+    a = torch.zeros((tiles, TILE_M, k), dtype=torch.int64)
+    a[:, :n * bg] = v.permute(2, 0, 3, 1).reshape(tiles, n * bg, k)
+    a = (a.reshape(tiles * TILE_M, k) & 0xFF).to(torch.uint8)
+    return a.view(torch.int8) if plan.signed_a else a
+
+
+def launch(name: str, x: torch.Tensor, w_words: torch.Tensor, plan,
+           rows: int, k: int, g: int) -> torch.Tensor:
+    """Launch ``csrc/sdv.cu``'s ``name`` (``sdv_gemv`` or ``sdv_gemm``)
+    on CUDA tensors; returns [rows, G, n] int32."""
+    geo = launch_geometry(rows, k, g, plan.n, gemv=name == "sdv_gemv",
+                          sms=sm_count(x.device.index
+                                       if x.device.index is not None
+                                       else torch.cuda.current_device()))
+    out = torch.empty((rows, g, plan.n), dtype=torch.int32, device=x.device)
+    lib = build.library("sdv")
+    err = getattr(lib, name)(
+        x.data_ptr(), w_words.data_ptr(), out.data_ptr(), rows, k, g,
+        plan.n, plan.lane, plan.w_a, plan.packed_width, plan_flags(plan),
+        geo.bg, geo.chunk, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, name)
+    return out
 
 
 def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
@@ -167,15 +266,7 @@ def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
     r, k, g = check_operands(x_q, w_words, plan, k_axis=1)
     if x_q.device.type == "cpu":
         return sdv_matmul_plain(x_q, w_words, plan)
-    out = torch.empty((r, g, plan.n), dtype=torch.int32, device=x_q.device)
-    blocks = -(-g // GEMM_BG) * -(-r // GEMM_BR)
-    chunk = k_chunk(k, blocks, GEMM_BK, x_q.device)
-    lib = build.library("sdv")
-    err = lib.sdv_gemm(x_q.data_ptr(), w_words.data_ptr(), out.data_ptr(),
-                       r, k, g, plan.n, plan.lane, plan.w_a,
-                       plan.packed_width, plan_flags(plan), chunk,
-                       torch.cuda.current_stream(x_q.device).cuda_stream)
-    build.check(lib, err, "sdv_gemm")
+    out = launch("sdv_gemm", x_q, w_words, plan, r, k, g)
     sdv_matmul.launches += 1
     return out
 

@@ -26,28 +26,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(spec, wa, wb, signed_a, m, k, rows, seed):
+def _case(spec, wa, wb, signed_a, m, k, rows, seed, signed_b=True, n=None):
+    kw = {} if n is None else dict(n=n)
     plan = plan_sdv(DATAPATHS[spec], wa, wb, signed_a=signed_a,
-                    signed_b=True, park_sign_bits=signed_a)
+                    signed_b=signed_b, park_sign_bits=signed_a, **kw)
     rng = np.random.default_rng(seed)
     lo, hi = (-(1 << wa - 1), 1 << wa - 1) if signed_a else (0, 1 << wa)
     w = rng.integers(lo, hi, (m, k))
-    x = rng.integers(-(1 << wb - 1), 1 << wb - 1, (rows, k))
+    lo, hi = (-(1 << wb - 1), 1 << wb - 1) if signed_b else (0, 1 << wb)
+    x = rng.integers(lo, hi, (rows, k))
     words = ops.prepare_sdv_weights(torch.tensor(w), plan)
     return plan, w, x, words
 
 
-@pytest.mark.parametrize("spec,wa,wb", [("int32", 4, 8), ("dsp48e2", 4, 8),
-                                        ("dsp58", 4, 4), ("int32", 2, 2),
-                                        ("int32", 4, 5), ("dsp48e2", 4, 5),
-                                        ("dsp58", 4, 5)])
-@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 77])
-def test_kernels_match_plain_and_exact(cuda, spec, wa, wb, rows):
-    """(4, 5) is the im2col plan of the W4A4 BSEG plans: the 1x1 head."""
-    plan, w, x, words = _case(spec, wa, wb, True, 301, 700, rows, rows)
+def _check_both_kernels(cuda, plan, w, x, words):
+    """B2 (and B1 up to 8 rows) on the card == the plain version on the
+    CPU == the exact product, bit for bit."""
+    rows, m = x.shape[0], w.shape[0]
     xt = torch.tensor(x, dtype=torch.int32)
     want = sdv_matmul.sdv_matmul_plain(xt, words, plan)
-    assert (want.reshape(rows, -1)[:, :301].numpy() == x @ w.T).all()
+    assert (want.reshape(rows, -1)[:, :m].numpy() == x @ w.T).all()
     got = sdv_matmul.sdv_matmul(xt.to(cuda), words.to(cuda), plan=plan)
     torch.cuda.synchronize()
     assert (got.cpu() == want).all()
@@ -56,6 +54,62 @@ def test_kernels_match_plain_and_exact(cuda, spec, wa, wb, rows):
                                     words.to(cuda), plan=plan)
         torch.cuda.synchronize()
         assert (got.cpu() == want).all()
+
+
+#: (spec, w_a, w_b, signed_a, signed_b, n): the serve plans (W4A8 on the
+#: INT32 and DSP48E2 words), W4A4 on DSP58, the im2col plans (4, 5),
+#: unsigned activations at w_b = 8 (.u8 B), unsigned storage at w_a = 8
+#: (.u8 A), both unsigned, n = 1, and the most lanes plan_sdv yields
+#: (n = 10 on INT32 2x2 unsigned; n = 9 on DSP58 2x2)
+_SDV_PLANS = [("int32", 4, 8, True, True, None),
+              ("dsp48e2", 4, 8, True, True, None),
+              ("dsp58", 4, 4, True, True, None),
+              ("int32", 2, 2, True, True, None),
+              ("int32", 4, 5, True, True, None),
+              ("dsp48e2", 4, 5, True, True, None),
+              ("dsp58", 4, 5, True, True, None),
+              ("int32", 4, 8, True, False, None),
+              ("dsp48e2", 4, 8, True, False, None),
+              ("int32", 8, 8, False, True, None),
+              ("dsp58", 8, 8, False, False, None),
+              ("int32", 8, 8, True, True, 1),
+              ("dsp48e2", 4, 8, True, True, 1),
+              ("int32", 2, 2, False, True, None),
+              ("dsp58", 2, 2, True, True, None)]
+
+
+@pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b,n", _SDV_PLANS)
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64, 77, 128])
+def test_kernels_match_plain_and_exact(cuda, spec, wa, wb, signed_a,
+                                       signed_b, n, rows):
+    """(4, 5) is the im2col plan of the W4A4 BSEG plans: the 1x1 head.
+    M = 301 is no multiple of 16 and K = 700 of 64."""
+    _check_both_kernels(cuda, *_case(spec, wa, wb, signed_a, 301, 700,
+                                     rows, rows, signed_b=signed_b, n=n))
+
+
+@pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b,n",
+                         [_SDV_PLANS[i] for i in (0, 1, 7, 9, 11, 13)])
+@pytest.mark.parametrize("k", [17, 33])
+@pytest.mark.parametrize("rows,m", [(5, 45), (130, 77)])
+def test_kernels_short_ragged_k(cuda, spec, wa, wb, signed_a, signed_b, n,
+                                k, rows, m):
+    """K below one 32-deep tensor-core step and between two; M no
+    multiple of 16."""
+    _check_both_kernels(cuda, *_case(spec, wa, wb, signed_a, m, k, rows,
+                                     k + rows, signed_b=signed_b, n=n))
+
+
+def test_kernels_at_the_im2col_head_shape(cuda):
+    """B2 at the UltraNet head's im2col product: 5408 rows (8 x 26 x 26),
+    K = 64, M = 36, on the head's plan (w_a = 4, w_b = 5, n = 3)."""
+    from repro_torch.kernels.ops import _im2col_sdv_plan
+    plan = _im2col_sdv_plan(plan_bseg(DATAPATHS["int32"], 4, 4))
+    rng = np.random.default_rng(5408)
+    w = rng.integers(-8, 8, (36, 64))
+    x = rng.integers(0, 16, (5408, 64))
+    words = ops.prepare_sdv_weights(torch.tensor(w), plan)
+    _check_both_kernels(cuda, plan, w, x, words)
 
 
 def test_unsigned_elements_on_gemm(cuda):
