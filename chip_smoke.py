@@ -11,13 +11,19 @@ exit at the first failure:
      ``csrc/packbits.cu`` and B5 (quantized matmul) from
      ``csrc/quant_matmul.cu`` with nvcc for sm_90a, one nvcc per source,
      all started together; prints ptxas's registers and spills of each
-     B1/B2 instantiation and their dynamic shared memory;
+     B1/B2/B3 instantiation, B1/B2's dynamic shared memory (B3's, which
+     follows the layer, is printed with each conv case);
   2. kernels — each kernel against its plain torch version bit for bit,
      and against the exact integer product (float64 on the card, exact
      while |sum| < 2^53), at the main path's (K, M) shapes, for the
      INT32 W4A8 plan and the wide DSP48E2 W4A8 (n=3, [2, K, G] limb
      planes) plan; times each kernel, its plain version and
-     ``torch._int_mm`` (the library yardstick, never used by the port);
+     ``torch._int_mm`` (the library yardstick, never used by the port).
+     Then B1 (8 rows) and B2 (128 rows) at K = 2048, M = 256 on
+     operands wider than 8 bits (byte slices): the planner's W4A9 /
+     W8A9 and W4A16 on each exact-wrap word and the widest w_a = w_b
+     plan of each, against the plain version and the exact product mod
+     2^32 (int64 on the CPU);
   3. serve — full-width tinyllama-1.1b from a seeded torch init, packed
      by ``serve_params(compute="sdv", min_size=1024)``: a 16-token
      prefill of 8 prompts (128 GEMM rows -> B2), 16 greedy decode steps
@@ -28,8 +34,11 @@ exit at the first failure:
      versions), the recurrent ones over 24 decode steps, which wrap the
      reduced attention window;
   4. conv kernels — B3 at every UltraNet-INT4 conv shape at 416x416,
-     batch 8, on the int32, fp32m, dsp48e2 and dsp58 W4A4 plans, against
-     its plain version bit for bit and the float64 conv oracle; B2 on
+     batch 8, on the int32, fp32m, dsp48e2 and dsp58 W4A4 plans, and at
+     the first and a 26x26 shape on taps wider than 8 bits (W12A4 on
+     dsp58 and the widest w_k of each word), against its plain version
+     bit for bit and the float64 conv oracle, a second launch bit for
+     bit against the first; B2 on
      the im2col plan of the 1x1 head; times each kernel, its plain
      version and ``torch.nn.functional.conv2d`` on float32 operands with
      TF32 off (the library yardstick, never used by the port; its
@@ -154,6 +163,18 @@ RAGGED_PACK = (37, 301)
 MEMORY_BITS = 4
 
 
+#: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
+#: w_a, w_b) — the planner's w_b = a_bits + 1 and W4A16 on every
+#: exact-wrap word, and the widest w_a = w_b plan of each word
+WIDE_SDV_PLANS = [(s, wa, wb) for s in ("int32", "dsp48e2", "dsp58")
+                  for wa, wb in ((4, 9), (8, 9), (4, 16))] + [
+    ("int32", 15, 15), ("dsp48e2", 23, 23), ("dsp58", 26, 26)]
+WIDE_SDV_SHAPE = (2048, 256)
+#: B3 plans with taps wider than 8 bits: (word, w_k, w_i) — W12A4 on
+#: DSP58 and the widest w_k plan_bseg admits on each word (at w_i = 1)
+WIDE_B3_PLANS = [("dsp58", 12, 4), ("int32", 29, 1), ("fp32m", 21, 1),
+                 ("dsp48e2", 26, 1), ("dsp58", 26, 1)]
+
 #: the kernel functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("sdv_gemv_kernel", "sdv_gemm_kernel", "bseg_conv2d_kernel",
                 "bseg_conv1d_kernel", "quant_matmul_kernel",
@@ -174,16 +195,20 @@ def check(cond, msg):
 
 
 def event_ms(fn, reps, flush=None):
-    """Mean device time of ``fn`` over ``reps`` calls (CUDA events around
-    each call; ``flush`` runs before each, outside the events), after two
-    untimed calls.  The card first spins ``SPIN_CYCLES``, long enough for
-    the host to queue the flush, the events and the call behind it: the
-    events then time the device's work and not the wrapper's host time,
-    which exceeds a small kernel's."""
+    """Median device time of ``fn`` over ``reps`` calls (CUDA events
+    around each call; ``flush`` runs before each, outside the events),
+    after two untimed calls.  The card first spins ``SPIN_CYCLES``, long
+    enough for the host to queue the flush, the events and the call
+    behind it: the events then time the device's work and not the
+    wrapper's host time, which exceeds a small kernel's.  The median
+    keeps out a call whose host stalled longer than the spin (the card
+    then idles between the events)."""
+    import statistics
+
     import torch
     fn()
     fn()
-    total = 0.0
+    times = []
     for _ in range(reps):
         torch.cuda._sleep(SPIN_CYCLES)
         if flush is not None:
@@ -194,8 +219,8 @@ def event_ms(fn, reps, flush=None):
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound_ms(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
@@ -218,9 +243,10 @@ def phase_build():
         print(f"[build] {name}.cu -> {build.library_path(name).name} (nvcc "
               f"{build.build_seconds[name]:.1f} s); {len(regs)} kernels, "
               f"e.g. {regs[:2]}")
-        if name == "sdv":
+        if name in ("sdv", "bseg"):
             for line in ptxas_report(log):
                 print(f"[build]   {line}")
+        if name == "sdv":
             lib = build.library(name)
             print("[build]   dynamic shared memory per block: " + ", ".join(
                 f"{k} {w} words {lib.sdv_smem_bytes(gemm, limb)} B"
@@ -231,15 +257,19 @@ def phase_build():
 
 def ptxas_report(log):
     """One line per kernel of an ``-Xptxas -v`` log: its name with its
-    template flags (sdv.cu: <two-limb words, .u8 lanes, .u8
-    activations>), registers, spills and static shared memory (sdv.cu's
-    tiles are dynamic shared memory, sized by its launcher)."""
+    template arguments (sdv.cu: <two-limb words, .u8 lanes, .u8
+    activations>, the ``_sliced`` kernels <two-limb words>; bseg.cu:
+    <n-tiles of 8 output channels>), registers, spills and static shared
+    memory (the tiles are dynamic shared memory, sized by the
+    launchers)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(sdv_gem[mv]_kernel)I(\w*)E", m.group(1))
-            flags = [] if k is None else re.findall(r"Lb([01])E", k.group(2))
+            k = re.search(r"\d+((?:sdv_gem[mv]|bseg_conv2d)_kernel\w*?)"
+                          r"I(\w*)E", m.group(1))
+            flags = [] if k is None else \
+                re.findall(r"L[bi](\d+)E", k.group(2))
             name = m.group(1) if k is None else \
                 f"{k.group(1)}<{','.join(flags)}>"
         elif "spill stores" in line:
@@ -284,11 +314,60 @@ def phase_kernels(dev, flush):
                             acc["library_ms"] = None
                         else:
                             acc["library_ms"] += mult * r["library_ms"]
+    for kname, err in wide_sdv_cases(gen, flush).items():
+        max_err[kname] = max(max_err[kname], err)
     for kname, acc in layer.items():
         acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
         acc["max_abs_err"] = max_err[kname]
     print(f"[kernels] all shapes exact, {time.perf_counter() - t_phase:.1f} s")
     return layer
+
+
+def wide_sdv_cases(gen, flush):
+    """B1 and B2 on the plans wider than int8 (``WIDE_SDV_PLANS``, fault
+    C1): random operands of the full widths, each kernel against its
+    plain version and the exact product mod 2^32 (int64 on the CPU,
+    where a product that wraps keeps its low 32 bits).  Returns the
+    largest difference from the plain version by kernel."""
+    import torch
+    from repro_torch.core.datapath import DATAPATHS, plan_sdv
+    from repro_torch.core.limbs import lo32
+    from repro_torch.kernels import ops, sdv_matmul, sdv_matvec
+
+    k, m = WIDE_SDV_SHAPE
+    max_err = {"B1": 0, "B2": 0}
+    for spec, wa, wb in WIDE_SDV_PLANS:
+        plan = plan_sdv(DATAPATHS[spec], wa, wb, signed_a=True,
+                        signed_b=True, park_sign_bits=True)
+        w = torch.randint(-(1 << wa - 1), 1 << wa - 1, (m, k), generator=gen,
+                          device=gen.device)
+        words = ops.prepare_sdv_weights(w, plan)
+        for kname, rows in (("B1", DECODE_ROWS), ("B2", PREFILL_ROWS)):
+            x = torch.randint(-(1 << wb - 1), 1 << wb - 1, (rows, k),
+                              generator=gen, device=gen.device,
+                              dtype=torch.int32)
+            if kname == "B1":
+                xt = x.T.contiguous()
+
+                def run():
+                    return sdv_matvec.sdv_matvec(xt, words, plan=plan)
+            else:
+                def run():
+                    return sdv_matmul.sdv_matmul(x, words, plan=plan)
+            got = run()
+            want = sdv_matmul.sdv_matmul_plain(x, words, plan)
+            exact = lo32(x.cpu().long() @ w.cpu().long().T)
+            err = int((got.long() - want.long()).abs().max())
+            max_err[kname] = max(max_err[kname], err)
+            where = (f"{spec} W{wa}A{wb} (n={plan.n}, "
+                     f"{len(sdv_matmul.slice_pairs(plan))} slice pairs) "
+                     f"K={k} M={m} rows={rows}")
+            check(err == 0, f"{kname} != plain at {where} (max err {err})")
+            check(torch.equal(got.reshape(rows, -1)[:, :m].cpu(), exact),
+                  f"{kname} != exact product at {where}")
+            ms = event_ms(run, reps=5, flush=flush)
+            print(f"[kernels] {kname} {where}: {ms:.4f} ms, exact")
+    return max_err
 
 
 def sdv_case(kname, plan, pname, k, m, rows, gen, flush):
@@ -404,6 +483,8 @@ def phase_conv_kernels(dev, flush):
             where = f"{spec} L{li} {h}x{w} {cin}->{cout} k{k}"
             check(err == 0, f"B3 != plain at {where} (max err {err})")
             check(torch.equal(got, exact), f"B3 != exact conv at {where}")
+            check(torch.equal(run(), got),
+                  f"B3 differs between two launches at {where}")
             ms = event_ms(run, reps=5, flush=flush)
             nbytes = x_pad.numel() + kappa.numel() * 4 + got.numel() * 4
             macs = b * h * w * cout * cin * k * k
@@ -415,7 +496,8 @@ def phase_conv_kernels(dev, flush):
                   f"{b_by}, {b_ms / ms:.1%} of bound; {mults / 1e6:.1f}M "
                   f"wide multiplies, {mults / ms / 1e6:.2f} G/s), plain "
                   f"{plain_ms:.1f} ms, F.conv2d fp32 {lib_ms:.4f} ms "
-                  f"(max |err| {lib_err:g}), exact")
+                  f"(max |err| {lib_err:g}), exact; "
+                  f"{b3_geometry(x_pad, kappa, plan, h, w)}")
             tot["ms"] += ms
             tot["mults"] += mults
             if spec == "int32" and k == 3:
@@ -429,6 +511,7 @@ def phase_conv_kernels(dev, flush):
         print(f"[conv] B3 {spec} plan (n_k={plan.n_k}, n_i={plan.n_i}, "
               f"L={plan.lane}): all 9 convs {tot['ms']:.3f} ms, "
               f"{tot['mults'] / 1e9:.3f}G wide multiplies")
+    max_err = max(max_err, wide_b3_cases(gen, flush))
     acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
     acc["max_abs_err"] = max_err
 
@@ -465,6 +548,64 @@ def phase_conv_kernels(dev, flush):
           "exact")
     print(f"[conv] all shapes exact, {time.perf_counter() - t_phase:.1f} s")
     return acc, per_layer, head_ms
+
+
+def b3_geometry(x_pad, kappa, plan, h, w):
+    """B3's launch at this shape: tiles, grid and shared memory."""
+    from repro_torch.device import sm_count
+    from repro_torch.kernels import bseg_conv2d
+    b, _, _, c_in = x_pad.shape
+    n_groups, kh, _, c_out = kappa.shape[-4:]
+    geo = bseg_conv2d.launch_shape(b, h, w, c_in, c_out, kh,
+                                   n_groups * plan.n_k,
+                                   bseg_conv2d.tap_slices(plan),
+                                   sms=sm_count(x_pad.device.index))
+    return (f"{geo.n_tile} ch x {geo.tr}x{geo.tc} px tiles (mt {geo.mt}), "
+            f"{geo.tiles[2]} tiles, grid {geo.grid}, {geo.smem} B smem")
+
+
+def wide_b3_cases(gen, flush):
+    """B3 on taps wider than 8 bits (``WIDE_B3_PLANS``, byte-sliced) at
+    UltraNet's first and a 26x26 shape, batch 8: against its plain
+    version and the float64 oracle (exact: every sum is below 2^53).
+    Returns the largest difference from the plain version."""
+    import torch
+    from repro_torch.core.datapath import DATAPATHS, plan_bseg
+    from repro_torch.kernels import bseg_conv2d, ops, ref
+    from repro_torch.models.ultranet import ultranet_layer_shapes
+
+    shapes = ultranet_layer_shapes(ULTRA_SIZE, ULTRA_SIZE)
+    max_err = 0
+    for spec, wk, wi in WIDE_B3_PLANS:
+        plan = plan_bseg(DATAPATHS[spec], wk, wi)
+        for li in (0, 4):
+            s = shapes[li]
+            h, w, cin, cout, k = s["h"], s["w"], s["cin"], s["cout"], s["k"]
+            x = torch.randint(0, 1 << wi, (ULTRA_BATCH, h, w, cin),
+                              generator=gen, device=gen.device,
+                              dtype=torch.int32)
+            taps = torch.randint(-(1 << wk - 1), 1 << wk - 1,
+                                 (cout, cin, k, k), generator=gen,
+                                 device=gen.device, dtype=torch.int32)
+            x_pad, kappa, _ = ops.bseg_conv2d_operands(x, taps, plan)
+
+            def run():
+                return bseg_conv2d.bseg_conv2d(x_pad, kappa, plan=plan,
+                                               h_out=h, w_out=w)
+            got = run()
+            want = bseg_conv2d.bseg_conv2d_plain(x_pad, kappa, plan,
+                                                 h_out=h, w_out=w)
+            err = int((got.long() - want.long()).abs().max())
+            max_err = max(max_err, err)
+            where = (f"{spec} W{wk}A{wi} ({bseg_conv2d.tap_slices(plan)} "
+                     f"tap slices) L{li} {h}x{w} {cin}->{cout} k{k}")
+            check(err == 0, f"B3 != plain at {where} (max err {err})")
+            check(torch.equal(got, ref.conv2d_int_ref(x, taps)),
+                  f"B3 != exact conv at {where}")
+            ms = event_ms(run, reps=5, flush=flush)
+            print(f"[conv] B3 {where}: {ms:.4f} ms, exact; "
+                  f"{b3_geometry(x_pad, kappa, plan, h, w)}")
+    return max_err
 
 
 def conv2d_library_ms(x, taps, exact, flush):

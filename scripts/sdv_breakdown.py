@@ -35,8 +35,8 @@ OUT = ROOT / "build" / "breakdown"
 SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
 
 _MEMSET = "  if (p.accumulate) {   // split-K blocks add into a zeroed output"
-_DECODE = "    decode_stage(p, sm, t % kStages);\n"
-_CONVERT = "    convert_stage(p, sm, t % kStages);\n"
+_DECODE = "    decode_stage(p, sm, t % kStages, ia);\n"
+_CONVERT = "    convert_stage(p, sm, t % kStages, ib);\n"
 _MMA = "#pragma unroll\n    for (int ks = 0; ks < kBK / 32; ++ks) {"
 _EPILOGUE = "        if (p.accumulate)\n          atomicAdd("
 _BODY = "  const Smem<kGemm, kTwoLimb> sm(smem);\n"

@@ -12,14 +12,22 @@ the extracted lanes are summed over (r, ci, group) — the paper's adder
 tree — into an output-row accumulator whose index ``c + n_k - 1`` is
 output column ``c``.
 
-On a CUDA tensor ``bseg_conv2d`` launches the hand-written Hopper
-kernel ``csrc/bseg.cu::bseg_conv2d_kernel``; on a CPU tensor it runs
-``bseg_conv2d_plain``, the same word arithmetic step by step in int64
-tensors.  There is no fallback between the two: a CUDA tensor that the
-kernel cannot take raises.  The reference's TPU tile arguments
-(``bh``/``bco``) are gone: the kernel picks its own Hopper tiles.
+With its guard bits every lane of that arithmetic is exact, so the
+result is the plain correlation of ``x_pad`` with the taps decoded from
+``kappa`` (mod 2^32).  On a CUDA tensor ``bseg_conv2d`` launches the
+hand-written Hopper kernel ``csrc/bseg.cu::bseg_conv2d_kernel``, which
+computes it that way: it decodes the taps once per block into int8 tiles
+(byte slices for taps wider than 8 bits; ``decode_taps_plain`` mirrors
+the decode) and runs an implicit GEMM on the int8 tensor cores.  On a CPU
+tensor it runs ``bseg_conv2d_plain``, the paper's word arithmetic step
+by step in int64 tensors.  There is no fallback between the two: a CUDA
+tensor that the kernel cannot take raises.  The reference's TPU tile
+arguments (``bh``/``bco``) are gone: the kernel picks its own Hopper
+tiles (``launch_shape``).
 """
 from __future__ import annotations
+
+from typing import List, NamedTuple
 
 import torch
 
@@ -27,13 +35,22 @@ from ..core import limbs
 from ..device import sm_count
 from . import bseg_common, build
 
-#: the kernel's limits (mirrors csrc/bseg.cu)
+#: the plans the kernel takes: at most MAX_LANES product lanes (plan_bseg
+#: gives at most 12 at w <= 8)
 MAX_LANES = 12
+#: the kernel's tiles (mirrors csrc/bseg.cu): warps per block, each MT
+#: m16 tiles of pixels (MT = 1, 2 or 4, MT x N <= 64); output channels
+#: per block (N = 8, 16, 32 or 64); input channels per chunk; byte slices
+#: of a tap; shared memory per block and per SM (a block reserves 1 KB
+#: more)
+WARPS = 8
+MAX_MT = 4
+MAX_N_TILE = 64
+MAX_CHANNEL_CHUNK = 64
+MAX_SLICES = 4
 MAX_SHARED_BYTES = 227 * 1024
-#: threads per block the launch aims at, and the widest output-channel
-#: tile (one warp)
-BLOCK_THREADS = 256
-MAX_CO_TILE = 32
+SM_SHARED_BYTES = 228 * 1024
+BLOCKS_PER_SM = 2
 
 
 def check_operands(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
@@ -117,37 +134,150 @@ def bseg_conv2d_plain(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
 bseg_conv2d_plain.calls = 0
 
 
-def launch_shape(b: int, h_out: int, w_out: int, khc: int, c_out: int,
-                 plan, device: torch.device):
-    """Hopper tiles for one launch: (co_tile, pipe_threads,
-    pipes_per_block, shared bytes).
+def tap_slices(plan) -> int:
+    """Byte slices of a decoded tap: one int8 per 8 bits of ``w_k``, at
+    most ``MAX_SLICES`` (only a tap's low 32 bits reach a sum mod
+    2^32)."""
+    return min(MAX_SLICES, -(-plan.w_k // 8))
 
-    A block owns one output row of one batch image and ``co_tile``
-    output channels (a warp's worth, or fewer when the row accumulator
-    would not fit shared memory); its ``pipe_threads`` thread rows share
-    the (r, ci) pipelines.  The pipelines are split across blocks (with
-    integer atomics into a zeroed output) until about four blocks per SM
-    are in flight: UltraNet's 26x26 layers have few rows."""
-    n_steps, _ = bseg_common.schedule(plan, w_out, 1)
-    buf = n_steps * plan.n_i
-    co_tile = MAX_CO_TILE
-    while co_tile > 1 and co_tile // 2 >= c_out:
-        co_tile //= 2
-    while co_tile > 1 and buf * co_tile * 4 > MAX_SHARED_BYTES:
-        co_tile //= 2
-    smem = buf * co_tile * 4
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"output rows of {w_out} columns need {smem} bytes "
-                         f"of shared memory; the kernel has "
-                         f"{MAX_SHARED_BYTES}")
-    pipe_threads = max(1, min(khc, BLOCK_THREADS // co_tile))
-    blocks = b * h_out * -(-c_out // co_tile)
-    target = 4 * sm_count(device.index if device.index is not None
-                           else torch.cuda.current_device())
-    split = max(1, min(-(-khc // pipe_threads), -(-target // blocks)))
-    per_block = -(-khc // split)
-    pipes_per_block = -(-per_block // pipe_threads) * pipe_threads
-    return co_tile, pipe_threads, pipes_per_block, smem
+
+def decode_taps_plain(kappa: torch.Tensor, plan) -> List[torch.Tensor]:
+    """The kernel's tap decode, plain: packed factors in the plan's
+    transport layout -> its int8 B tiles, one per byte slice, each
+    [C_out, kh, S, C_in] (S = n_groups * n_k; the kernel lays K out in
+    this (r, s, ci) order): uint8, int8 for the top slice.
+
+    Each word's lanes hold the arithmetic sum of its group's reversed
+    taps: lane i, sign-extended from L bits after the lower lanes are
+    taken off (borrow), is tap ``g n_k + n_k - 1 - i``.
+    ``join_slices`` gives back the taps."""
+    rem = bseg_common.kappa_words(kappa, plan)     # [G, kh, C_in, C_out]
+    lane, n_k = plan.lane, plan.n_k
+    taps = []
+    for i in range(n_k):
+        f = (rem >> i * lane) & ((1 << lane) - 1)
+        v = torch.where(f >= 1 << lane - 1, f - (1 << lane), f)
+        rem = rem - (v << i * lane)
+        taps.append(v)
+    t = torch.stack(taps[::-1], dim=1)             # [G, n_k, kh, C_in, C_out]
+    g, _, kh, c_in, c_out = t.shape
+    t = t.reshape(g * n_k, kh, c_in, c_out).permute(3, 1, 0, 2)
+    n = tap_slices(plan)
+    out = []
+    for j in range(n):
+        b = ((t >> 8 * j) & 0xFF).to(torch.uint8).contiguous()
+        out.append(b.view(torch.int8) if j == n - 1 else b)
+    return out
+
+
+def join_slices(slices: List[torch.Tensor]) -> torch.Tensor:
+    """Byte slices (low first) -> their int64 sum ``sum_j 2^(8j) s_j``."""
+    return sum(s.to(torch.int64) << 8 * j for j, s in enumerate(slices))
+
+
+def correlate_plain(x_pad: torch.Tensor, taps: torch.Tensor, *, h_out: int,
+                    w_out: int) -> torch.Tensor:
+    """The kernel's function, plain: the correlation of ``x_pad`` [B,
+    H_pad, W_pad, C_in] with taps [C_out, kh, S, C_in], [B, h_out, w_out,
+    C_out] int32 (mod 2^32)."""
+    c_out, kh, taps_w, c_in = taps.shape
+    x = x_pad.to(torch.int64)
+    out = torch.zeros((x.shape[0], h_out, w_out, c_out), dtype=torch.int64)
+    for r in range(kh):
+        for s in range(taps_w):
+            out += x[:, r:r + h_out, s:s + w_out] @ taps[:, r, s].T
+    return limbs.lo32(out)
+
+
+class Geometry(NamedTuple):
+    n_tile: int      # output channels per block
+    mt: int          # m16 pixel tiles a warp
+    tr: int          # output rows of a pixel tile
+    tc: int          # output columns of a pixel tile
+    cc: int          # input channels per chunk: 16, 32 or 64
+    tiles: tuple     # pixel tiles (per row, per image, in all)
+    grid: tuple      # (channel tiles, blocks per channel tile)
+    smem: int        # dynamic shared memory per block, bytes
+
+
+def smem_bytes(n_tile: int, tr: int, tc: int, cc: int, kh: int, taps: int,
+               slices: int) -> int:
+    """Shared memory of one block (mirrors csrc/bseg.cu's ``layout``): the
+    B tiles, the K-chunk offsets, two activation strips and the warps'
+    output stages."""
+    cpc = cc // 16
+    pp = 16 * (cpc if cpc % 2 else cpc + 1)
+    nq = kh * taps * cpc
+    bp = 16 * (nq + nq % 2 + 1)
+    strip = (tr + kh - 1) * (tc + taps - 1) * pp
+    q_table = -(-(nq + 1) * 4 // 16) * 16
+    return (slices * n_tile * bp + q_table + 2 * strip
+            + WARPS * 8 * (n_tile + 4) * 4)
+
+
+def launch_shape(b: int, h_out: int, w_out: int, c_in: int, c_out: int,
+                 kh: int, taps: int, slices: int, *, sms: int) -> Geometry:
+    """The kernel's tiles and persistent grid for one launch.
+
+    A pixel tile is ``tr`` output rows x ``tc`` columns (at most 64) of
+    one image, at most ``16 WARPS MT`` pixels with ``MT x n_tile <= 64``;
+    a block owns ``n_tile`` output channels (``C_out`` up to 64) and
+    walks every ``grid[1]``-th pixel tile.  Shared memory is fitted by
+    fewer channels per chunk, then fewer output channels, then fewer
+    rows; the card is filled (two (pixel tile, channel tile) items per
+    SM) by fewer rows down to 64 pixels, then fewer output channels down
+    to 16, then fewer rows.  MT is the fewest m16 tiles a warp that
+    cover the pixel tile."""
+    n_tile = 8
+    while n_tile < min(c_out, MAX_N_TILE):
+        n_tile *= 2
+    cc = 16                                # 16, 32 or 64 channels a chunk
+    while cc < min(c_in, MAX_CHANNEL_CHUNK):
+        cc *= 2
+    tiles_x = -(-w_out // 64)
+    tc = -(-w_out // tiles_x)
+    mt_max = min(MAX_MT, MAX_N_TILE // n_tile)
+    tr = max(1, min(h_out, 16 * WARPS * mt_max // tc))
+
+    def smem():
+        return smem_bytes(n_tile, tr, tc, cc, kh, taps, slices)
+
+    while smem() > MAX_SHARED_BYTES:
+        if cc > 16:
+            cc //= 2
+        elif n_tile > 8:
+            n_tile //= 2
+        elif tr > 1:
+            tr -= 1
+        else:
+            raise ValueError(
+                f"a {kh}-row kernel of {taps} taps at {tc} columns needs "
+                f"{smem()} bytes of shared memory; the kernel has "
+                f"{MAX_SHARED_BYTES}")
+
+    def items():
+        return (b * -(-h_out // tr) * tiles_x) * -(-c_out // n_tile)
+
+    while items() < 2 * sms:
+        if tr > 1 and tr * tc > 64:
+            tr = -(-tr // 2)
+        elif n_tile > 16:
+            n_tile //= 2
+        elif tr > 1:
+            tr = -(-tr // 2)
+        else:
+            break
+    n_tiles = b * -(-h_out // tr) * tiles_x
+    co_tiles = -(-c_out // n_tile)
+    resident = max(1, min(BLOCKS_PER_SM,
+                          SM_SHARED_BYTES // (smem() + 1024)))
+    grid_y = min(n_tiles, -(-sms * resident // co_tiles))
+    mt = 1
+    while 16 * WARPS * mt < tr * tc:
+        mt *= 2
+    return Geometry(n_tile, mt, tr, tc, cc,
+                    (tiles_x, -(-h_out // tr), n_tiles), (co_tiles, grid_y),
+                    smem())
 
 
 def bseg_conv2d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
@@ -169,7 +299,8 @@ def bseg_conv2d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
     Returns:
       [B, h_out, w_out, C_out] int32 — exact correlation totals summed
       over kernel rows, input channels and tap groups (guard bias
-      removed; zero-point correction is the caller's).
+      removed; zero-point correction is the caller's), mod 2^32.  Any
+      tap width ``plan_bseg`` admits.
     """
     n_groups, kh, c_out = check_operands(x_pad, kappa, plan, h_out=h_out,
                                          w_out=w_out)
@@ -182,17 +313,20 @@ def bseg_conv2d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
         # the word in integers (exact conversion, not a fallback)
         kappa = kappa.to(torch.int32)
     b, h_pad, w_pad, c_in = x_pad.shape
-    co_tile, pipe_threads, pipes_per_block, smem = launch_shape(
-        b, h_out, w_out, kh * c_in, c_out, plan, x_pad.device)
+    slices = tap_slices(plan)
+    geo = launch_shape(b, h_out, w_out, c_in, c_out, kh,
+                       n_groups * plan.n_k, slices,
+                       sms=sm_count(x_pad.device.index
+                                    if x_pad.device.index is not None
+                                    else torch.cuda.current_device()))
     out = torch.empty((b, h_out, w_out, c_out), dtype=torch.int32,
                       device=x_pad.device)
     lib = build.library("bseg")
     err = lib.bseg_conv2d(
         x_pad.data_ptr(), kappa.data_ptr(), out.data_ptr(), b, h_pad, w_pad,
-        c_in, kh, n_groups, c_out, h_out, w_out, plan.n_i, plan.n_k,
-        plan.n_lanes, plan.lane, plan.w_l, ws.bias_full, ws.bias_top,
-        int(ws.limbs == 2), co_tile,
-        pipe_threads, pipes_per_block, smem,
+        c_in, kh, n_groups, c_out, h_out, w_out, plan.n_k, plan.lane,
+        slices, int(ws.limbs == 2), geo.n_tile, geo.mt, geo.tr, geo.tc,
+        geo.cc, geo.grid[1], geo.smem,
         torch.cuda.current_stream(x_pad.device).cuda_stream)
     build.check(lib, err, "bseg_conv2d")
     bseg_conv2d.launches += 1

@@ -89,8 +89,7 @@ _SIGNATURES = {
         "sdv_error_string": ([_INT], ctypes.c_char_p),
     },
     "bseg": {
-        "bseg_conv2d": ([_PTR, _PTR, _PTR] + [_INT] * 14 + [_U64, _U64]
-                        + [_INT] * 5 + [_PTR], _INT),
+        "bseg_conv2d": ([_PTR, _PTR, _PTR] + [_INT] * 20 + [_PTR], _INT),
         "bseg_error_string": ([_INT], ctypes.c_char_p),
     },
     "bseg1d": {

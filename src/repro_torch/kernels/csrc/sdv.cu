@@ -7,8 +7,8 @@
 // both built on the shared body repro/kernels/sdv_matmul.py::_body.
 //
 // What is computed: the exact int32 per-lane dot products
-//   out[r, g, i] = sum_k x[r, k] * a_i(word[k, g])
-// of integer activations (w_b <= 8 bits) against SDV storage words
+//   out[r, g, i] = sum_k x[r, k] * a_i(word[k, g])   (mod 2^32)
+// of integer activations (w_b bits) against SDV storage words
 // ([K, G] int32, or [2, K, G] int32 lo/hi limb planes for the wide
 // DSP48E2/DSP58 words).  Lane i of a word (paper Sec. III-C, the storage
 // layout of ops.prepare_sdv_weights) is
@@ -26,6 +26,18 @@
 // TOP/s is below the words' bytes (4 M K / n at 3.35 TB/s) up to R ~ 590
 // rows at n = 2.  The packing still pays where the bytes are: a layer
 // streams the words, never int8 weights.
+//
+// Wider operands (the planner's w_b = a_bits + 1 = 9, W16A16, ...) are
+// cut into byte slices, v = sum_j 2^(8j) s_j: the top slice signed (.s8)
+// when the operand is, the lower ones unsigned (.u8), at most 4 slices
+// (only the low 32 bits of an operand reach a sum mod 2^32).  Each slice
+// pair (ia, ib) with ia + ib <= 3 is a block of its own (the grid's z
+// axis runs over K splits x slice pairs) that decodes lane byte ia and
+// activation byte ib into the same int8 tiles and adds its sum, shifted
+// left 8 (ia + ib) bits in 32-bit integers, into the zeroed output: the
+// integer MMA wraps (no .satfinite), so the total is the exact sum mod
+// 2^32, the reference's lo32.  Operands of at most 8 bits run the
+// unsliced kernels, which carry no slice arithmetic.
 //
 // What the design does about it.  Each block owns up to 64 word columns
 // (bg groups, n * bg <= 128 output channels) and 8 (B1) or 128 (B2)
@@ -52,7 +64,7 @@
 
 namespace {
 
-constexpr int kMaxLanes = 15;    // plan_sdv's largest n for w_a, w_b <= 8
+constexpr int kMaxLanes = 15;    // plan_sdv's largest n is 10
 constexpr int kThreads = 256;    // 8 warps
 constexpr int kTileM = 128;      // lane slots (output channels) per block
 constexpr int kMaxGroups = 64;   // word columns per block
@@ -62,14 +74,18 @@ constexpr int kGemvRows = 8;
 constexpr int kGemmRows = 128;
 constexpr int kXPitch = kBK + 4;  // int32 per staged B2 activation row
 
+// Flag bits 3-4 and 5-6 hold the byte slices of the lanes and of the
+// activations, minus 1
 enum Flags : int { kSignedA = 1, kSignedB = 2, kTwoLimb = 4 };
+constexpr int kSlicesA = 3, kSlicesB = 5;
 
 struct Params {
   const int32_t* x;   // B1: x_t [K, rows]; B2: x [rows, K]
   const int32_t* w;   // [K, G] or [2, K, G]
   int32_t* out;       // [rows, G, n]
   int rows, K, G, n, lane, w_a, sign_shift, bg, kchunk;
-  bool signed_a, vec_w, vec_x, accumulate;
+  int a_slices, b_slices, splits;   // byte slices; K splits per slice pair
+  bool signed_a, signed_b, vec_w, vec_x, accumulate;
 };
 
 // B1 and B2 differ in their row tile, warp layout and activation layout
@@ -269,12 +285,12 @@ __device__ __forceinline__ void load_stage(const Params& p,
 }
 
 // Decode the stage's words into the A tile: thread (gl, ku) takes the 16
-// k of chunk ku of group g0 + gl and writes lane i's 16 bytes to slot
-// i * bg + gl
+// k of chunk ku of group g0 + gl and writes byte ia of lane i's 16 values
+// to slot i * bg + gl
 template <bool kGemm, bool kTwoLimb>
 __device__ __forceinline__ void decode_stage(const Params& p,
                                              const Smem<kGemm, kTwoLimb>& sm,
-                                             int slot) {
+                                             int slot, int ia) {
   const int gl = threadIdx.x % kMaxGroups, ku = threadIdx.x / kMaxGroups;
   if (gl >= p.bg) return;
   const int32_t* ws = sm.words + slot * Smem<kGemm, kTwoLimb>::kWordStage +
@@ -290,7 +306,8 @@ __device__ __forceinline__ void decode_stage(const Params& p,
   // signed: the field's w_a - 1 bits minus the sign bit moved to bit
   // w_a - 1 (the low byte is the lane's two's complement); unsigned: the
   // field's w_a bits
-  const uint32_t rmask = (1u << (p.signed_a ? p.w_a - 1 : p.w_a)) - 1u;
+  const int rbits = p.signed_a ? p.w_a - 1 : p.w_a;
+  const uint32_t rmask = rbits >= 32 ? ~0u : (1u << rbits) - 1u;
   const uint32_t smask = p.signed_a ? 1u << (p.w_a - 1) : 0u;
   for (int i = 0; i < p.n; ++i) {
     const int s = i * p.lane;
@@ -298,8 +315,8 @@ __device__ __forceinline__ void decode_stage(const Params& p,
     uint32_t v[16];
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      v[j] = (shr<kTwoLimb>(lo[j], hi[j], s) & rmask) -
-             (shr<kTwoLimb>(lo[j], hi[j], t) & smask);
+      v[j] = ((shr<kTwoLimb>(lo[j], hi[j], s) & rmask) -
+              (shr<kTwoLimb>(lo[j], hi[j], t) & smask)) >> (8 * ia);
     uint4 q;
     q.x = pack4(v[0], v[1], v[2], v[3]);
     q.y = pack4(v[4], v[5], v[6], v[7]);
@@ -309,11 +326,12 @@ __device__ __forceinline__ void decode_stage(const Params& p,
   }
 }
 
-// Narrow the stage's int32 activations into the int8 B tile [rows][64 k]
+// Narrow byte ib of the stage's int32 activations into the int8 B tile
+// [rows][64 k]
 template <bool kGemm, bool kTwoLimb>
 __device__ __forceinline__ void convert_stage(const Params& p,
                                               const Smem<kGemm, kTwoLimb>& sm,
-                                              int slot) {
+                                              int slot, int ib) {
   const int32_t* xs = sm.xs + slot * Shape<kGemm>::kXStage;
   if constexpr (kGemm) {
     // unit (row rr, chunk c); consecutive threads on consecutive rows,
@@ -326,7 +344,8 @@ __device__ __forceinline__ void convert_stage(const Params& p,
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int4 v = src[q];
-        w4[q] = pack4(v.x, v.y, v.z, v.w);
+        w4[q] = pack4(v.x >> (8 * ib), v.y >> (8 * ib), v.z >> (8 * ib),
+                      v.w >> (8 * ib));
       }
       *reinterpret_cast<uint4*>(sm.b + tile_off(rr, c)) =
           make_uint4(w4[0], w4[1], w4[2], w4[3]);
@@ -337,8 +356,10 @@ __device__ __forceinline__ void convert_stage(const Params& p,
     uint32_t v[16];
 #pragma unroll
     for (int q = 0; q < 16; ++q)
-      v[q] = b < p.rows ? static_cast<uint32_t>(xs[(c * 16 + q) * p.rows + b])
-                        : 0u;
+      v[q] = b < p.rows
+                 ? static_cast<uint32_t>(xs[(c * 16 + q) * p.rows + b]) >>
+                       (8 * ib)
+                 : 0u;
     *reinterpret_cast<uint4*>(sm.b + tile_off(b, c)) =
         make_uint4(pack4(v[0], v[1], v[2], v[3]),
                    pack4(v[4], v[5], v[6], v[7]),
@@ -348,9 +369,10 @@ __device__ __forceinline__ void convert_stage(const Params& p,
 }
 
 // One block: channels g0 * n .. (g0 + bg) * n, rows r0 .. r0 + kBN, k in
-// [blockIdx.z * kchunk, + kchunk)
+// [split * kchunk, + kchunk), lane byte ia times activation byte ib
 template <bool kGemm, bool kTwoLimb, bool kAU8, bool kBU8>
-__device__ __forceinline__ void sdv_body(const Params& p) {
+__device__ __forceinline__ void sdv_body(const Params& p, int split, int ia,
+                                         int ib) {
   using S = Shape<kGemm>;
   constexpr int kWM = kTileM / S::kWarpsM, kWN = S::kBN / S::kWarpsN;
   constexpr int kMT = kWM / 16, kNT = kWN / 8;
@@ -358,7 +380,7 @@ __device__ __forceinline__ void sdv_body(const Params& p) {
   const Smem<kGemm, kTwoLimb> sm(smem);
 
   const int g0 = blockIdx.x * p.bg, r0 = blockIdx.y * S::kBN;
-  const int kbeg = blockIdx.z * p.kchunk;
+  const int kbeg = split * p.kchunk;
   const int kend = min(p.K, kbeg + p.kchunk);
   const int nstages = (kend - kbeg + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane_id = threadIdx.x % 32;
@@ -386,8 +408,8 @@ __device__ __forceinline__ void sdv_body(const Params& p) {
     if (next < nstages)
       load_stage(p, sm, next % kStages, kbeg + next * kBK, kend, g0, r0);
     cp_async_commit();
-    decode_stage(p, sm, t % kStages);
-    convert_stage(p, sm, t % kStages);
+    decode_stage(p, sm, t % kStages, ia);
+    convert_stage(p, sm, t % kStages, ib);
     __syncthreads();
 #pragma unroll
     for (int ks = 0; ks < kBK / 32; ++ks) {
@@ -427,10 +449,12 @@ __device__ __forceinline__ void sdv_body(const Params& p) {
         if (r >= p.rows) continue;
         int32_t* o = p.out + r * row_stride +
                      static_cast<int64_t>(g) * p.n + i;
+        const int32_t v = static_cast<int32_t>(
+            static_cast<uint32_t>(acc[mt][nt][e]) << (8 * (ia + ib)));
         if (p.accumulate)
-          atomicAdd(o, acc[mt][nt][e]);
+          atomicAdd(o, v);
         else
-          *o = acc[mt][nt][e];
+          *o = v;
       }
     }
 }
@@ -438,22 +462,65 @@ __device__ __forceinline__ void sdv_body(const Params& p) {
 template <bool kTwoLimb, bool kAU8, bool kBU8>
 __global__ void __launch_bounds__(kThreads, 2)
 sdv_gemv_kernel(Params p) {
-  sdv_body<false, kTwoLimb, kAU8, kBU8>(p);
+  sdv_body<false, kTwoLimb, kAU8, kBU8>(p, blockIdx.z, 0, 0);
 }
 
 template <bool kTwoLimb, bool kAU8, bool kBU8>
 __global__ void __launch_bounds__(kThreads, 1)
 sdv_gemm_kernel(Params p) {
-  sdv_body<true, kTwoLimb, kAU8, kBU8>(p);
+  sdv_body<true, kTwoLimb, kAU8, kBU8>(p, blockIdx.z, 0, 0);
 }
 
-template <bool kGemm, bool kTwoLimb, bool kAU8, bool kBU8>
-cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<kGemm, kTwoLimb>();
-  auto kernel = kGemm ? sdv_gemm_kernel<kTwoLimb, kAU8, kBU8>
-                      : sdv_gemv_kernel<kTwoLimb, kAU8, kBU8>;
-  static bool configured = false;   // above 48 KB only after opting in
-  if (!configured) {
+// Slice pair `pair` in the order (ia, ib), ia + ib <= 3, ib fastest
+// (sdv_matmul.slice_pairs mirrors it)
+__device__ __forceinline__ void slice_pair(const Params& p, int pair,
+                                           int& ia, int& ib) {
+  for (ia = 0; ia < p.a_slices; ++ia) {
+    const int nb = min(p.b_slices, 4 - ia);
+    if (pair < nb) break;
+    pair -= nb;
+  }
+  ib = pair;
+}
+
+// The sliced operands: blockIdx.z = pair * splits + split; the top slice
+// of a signed operand is .s8, every other slice .u8
+template <bool kGemm, bool kTwoLimb>
+__device__ __forceinline__ void sliced_body(const Params& p) {
+  int ia, ib;
+  slice_pair(p, blockIdx.z / p.splits, ia, ib);
+  const int split = blockIdx.z % p.splits;
+  const bool au8 = !(p.signed_a && ia == p.a_slices - 1);
+  const bool bu8 = !(p.signed_b && ib == p.b_slices - 1);
+  if (au8) {
+    if (bu8)
+      sdv_body<kGemm, kTwoLimb, true, true>(p, split, ia, ib);
+    else
+      sdv_body<kGemm, kTwoLimb, true, false>(p, split, ia, ib);
+  } else {
+    if (bu8)
+      sdv_body<kGemm, kTwoLimb, false, true>(p, split, ia, ib);
+    else
+      sdv_body<kGemm, kTwoLimb, false, false>(p, split, ia, ib);
+  }
+}
+
+template <bool kTwoLimb>
+__global__ void __launch_bounds__(kThreads, 2)
+sdv_gemv_kernel_sliced(Params p) {
+  sliced_body<false, kTwoLimb>(p);
+}
+
+template <bool kTwoLimb>
+__global__ void __launch_bounds__(kThreads, 1)
+sdv_gemm_kernel_sliced(Params p) {
+  sliced_body<true, kTwoLimb>(p);
+}
+
+template <typename Kernel>
+cudaError_t launch_kernel(Kernel kernel, bool& configured, int bytes,
+                          const Params& p, dim3 grid, cudaStream_t stream) {
+  if (!configured) {   // above 48 KB only after opting in
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
@@ -463,9 +530,30 @@ cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool kGemm, bool kTwoLimb, bool kAU8, bool kBU8>
+cudaError_t launch(const Params& p, dim3 grid, cudaStream_t stream) {
+  static bool configured = false;
+  return launch_kernel(kGemm ? sdv_gemm_kernel<kTwoLimb, kAU8, kBU8>
+                             : sdv_gemv_kernel<kTwoLimb, kAU8, kBU8>,
+                       configured, smem_bytes<kGemm, kTwoLimb>(), p, grid,
+                       stream);
+}
+
+template <bool kGemm, bool kTwoLimb>
+cudaError_t launch_sliced(const Params& p, dim3 grid, cudaStream_t stream) {
+  static bool configured = false;
+  return launch_kernel(kGemm ? sdv_gemm_kernel_sliced<kTwoLimb>
+                             : sdv_gemv_kernel_sliced<kTwoLimb>,
+                       configured, smem_bytes<kGemm, kTwoLimb>(), p, grid,
+                       stream);
+}
+
 template <bool kGemm>
 cudaError_t dispatch(const Params& p, int flags, dim3 grid,
                      cudaStream_t stream) {
+  if (p.a_slices > 1 || p.b_slices > 1)
+    return flags & kTwoLimb ? launch_sliced<kGemm, true>(p, grid, stream)
+                            : launch_sliced<kGemm, false>(p, grid, stream);
   const int key = (flags & kTwoLimb ? 4 : 0) | (flags & kSignedA ? 0 : 2) |
                   (flags & kSignedB ? 0 : 1);
   switch (key) {
@@ -488,22 +576,27 @@ int run(const void* x, const void* w, void* out, int rows, int K, int G,
   if (n < 1 || n > kMaxLanes || rows < 1 || K < 1 || G < 1 ||
       (!kGemm && rows > kGemvRows) || bg < 4 || bg % 4 != 0 ||
       bg > kMaxGroups || n * bg > kTileM || kchunk < kBK ||
-      kchunk % kBK != 0 || w_a < 1 || w_a > 8)
+      kchunk % kBK != 0 || w_a < 1 || w_a > 32)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int splits = (K + kchunk - 1) / kchunk;
+  const int a_slices = ((flags >> kSlicesA) & 3) + 1;
+  const int b_slices = ((flags >> kSlicesB) & 3) + 1;
+  int pairs = 0;
+  for (int ia = 0; ia < a_slices; ++ia) pairs += min(b_slices, 4 - ia);
   Params p{static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
            static_cast<int32_t*>(out), rows, K, G, n, lane, w_a, sign_shift,
-           bg, kchunk, (flags & kSignedA) != 0,
+           bg, kchunk, a_slices, b_slices, splits, (flags & kSignedA) != 0,
+           (flags & kSignedB) != 0,
            G % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0,
            K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0,
-           splits > 1};
+           splits * pairs > 1};
   if (p.accumulate) {   // split-K blocks add into a zeroed output
     const cudaError_t err = cudaMemsetAsync(
         out, 0, static_cast<size_t>(rows) * G * n * sizeof(int32_t), s);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((G + bg - 1) / bg, (rows + kBN - 1) / kBN, splits);
+  const dim3 grid((G + bg - 1) / bg, (rows + kBN - 1) / kBN, splits * pairs);
   return dispatch<kGemm>(p, flags, grid, s);
 }
 
@@ -526,7 +619,8 @@ int sdv_smem_bytes(int gemm, int two_limb) {
 // Both launchers return cudaGetLastError() of their launch (0 = success).
 // B1: x_t [K, rows] (rows <= 8); B2: x [rows, K].  bg: word columns per
 // block (a multiple of 4, n * bg <= 128); kchunk: K per block (a multiple
-// of 64).
+// of 64); flags: Flags | (lane slices - 1) << 3 | (activation slices - 1)
+// << 5.
 int sdv_gemv(const void* x_t, const void* w, void* out, int rows, int K,
              int G, int n, int lane, int w_a, int sign_shift, int flags,
              int bg, int kchunk, void* stream) {

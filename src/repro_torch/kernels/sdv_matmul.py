@@ -9,7 +9,9 @@ integer activations ``[R, K]`` against SDV storage words ``[K, G]``
 On a CUDA tensor it launches the hand-written Hopper kernel
 ``csrc/sdv.cu::sdv_gemm_kernel``, which decodes each word once into its
 ``n`` lanes as int8 and multiplies them on the int8 tensor cores
-(``decode_lanes_plain`` mirrors that decode and its tile layout).  On a
+(``decode_lanes_plain`` mirrors that decode and its tile layout).
+Operands wider than 8 bits go through in byte slices, one slice pair per
+block, shifted together mod 2^32 (``slice_counts``, ``slice_pairs``).  On a
 CPU tensor it runs ``sdv_matmul_plain``, the paper's packed arithmetic
 step by step in int64 tensor ops: the in-word pre-adder ``D - A``, one
 wide multiply per (row, group, k) carrying ``n`` MACs, mod-4 spill-over
@@ -30,14 +32,16 @@ from . import bseg_common, build
 
 #: the kernels' limits and tiles (mirrors csrc/sdv.cu): lane slots
 #: (output channels) and word columns per block, k per pipeline stage,
-#: the row tiles of B1 and B2, and the blocks per SM the K split aims at
+#: the row tiles of B1 and B2, the blocks per SM the K split aims at, and
+#: the most byte slices of an operand (its low 32 bits)
 MAX_LANES = 15
-MAX_BITS = 8
 GEMV_MAX_ROWS = 8
 TILE_M, MAX_GROUPS, TILE_K = 128, 64, 64
 GEMM_ROWS = 128
 GEMV_BLOCKS_PER_SM, GEMM_BLOCKS_PER_SM = 2, 1
+MAX_SLICES = 4
 _SIGNED_A, _SIGNED_B, _TWO_LIMB = 1, 2, 4
+_SLICES_A, _SLICES_B = 3, 5      # flag bits of (slices - 1)
 
 
 def check_operands(x: torch.Tensor, w_words: torch.Tensor, plan, *,
@@ -52,9 +56,6 @@ def check_operands(x: torch.Tensor, w_words: torch.Tensor, plan, *,
                          f"{plan.spec.name} rounds (fp32)")
     if bseg_common.sdv_layout_bits(plan) > plan.spec.w_word:
         raise ValueError(f"plan overruns its {plan.spec.name} word: {plan}")
-    if plan.w_a > MAX_BITS or plan.w_b > MAX_BITS:
-        raise ValueError(f"the SDV kernels multiply int8 operands: w_a="
-                         f"{plan.w_a}, w_b={plan.w_b} exceed {MAX_BITS} bits")
     if plan.n > MAX_LANES or plan.n * plan.lane + 2 > 64:
         raise ValueError(f"plan n={plan.n}, L={plan.lane} exceeds the "
                          f"kernels' limit of {MAX_LANES} lanes in 64 bits")
@@ -157,25 +158,45 @@ class Geometry(NamedTuple):
 
 
 def launch_geometry(rows: int, k: int, g: int, n: int, *, gemv: bool,
-                    sms: int) -> Geometry:
+                    sms: int, pairs: int = 1) -> Geometry:
     """The kernels' launch: blocks of ``block_groups(n)`` word columns x
-    ``row_tile`` rows, K split until about ``*_BLOCKS_PER_SM`` blocks per
-    SM are in flight (each split a multiple of ``TILE_K``)."""
+    ``row_tile`` rows for each of ``pairs`` byte-slice pairs, K split
+    until about ``*_BLOCKS_PER_SM`` blocks per SM are in flight (each
+    split a multiple of ``TILE_K``); the grid's z axis runs over slice
+    pairs x K splits."""
     bg = block_groups(n)
     row_tile = GEMV_MAX_ROWS if gemv else GEMM_ROWS
-    blocks = -(-g // bg) * -(-rows // row_tile)
+    blocks = -(-g // bg) * -(-rows // row_tile) * pairs
     target = sms * (GEMV_BLOCKS_PER_SM if gemv else GEMM_BLOCKS_PER_SM)
     split = max(1, min(-(-k // TILE_K), -(-target // blocks)))
     per_split = -(-k // split)
     chunk = -(-per_split // TILE_K) * TILE_K
     return Geometry(bg, row_tile, chunk,
-                    (-(-g // bg), -(-rows // row_tile), -(-k // chunk)))
+                    (-(-g // bg), -(-rows // row_tile),
+                     -(-k // chunk) * pairs))
+
+
+def slice_counts(plan) -> tuple:
+    """Byte slices of (decoded lanes, activations): one int8 per 8 bits
+    of the operand, at most ``MAX_SLICES`` (only an operand's low 32
+    bits reach a sum mod 2^32)."""
+    return (min(MAX_SLICES, -(-plan.w_a // 8)),
+            min(MAX_SLICES, -(-plan.w_b // 8)))
+
+
+def slice_pairs(plan) -> list:
+    """The kernels' slice pairs (ia, ib) in launch order: every lane
+    slice against every activation slice whose product lands below bit
+    32 (ia + ib <= 3; higher ones vanish mod 2^32)."""
+    sa, sb = slice_counts(plan)
+    return [(ia, ib) for ia in range(sa)
+            for ib in range(min(sb, MAX_SLICES - ia))]
 
 
 def mma_types(plan) -> tuple:
-    """The tensor-core operand types of (decoded lanes, activations):
-    ``u8`` for unsigned storage / unsigned activations (255 at 8 bits),
-    else ``s8``."""
+    """The tensor-core operand types of the top byte slices of
+    (decoded lanes, activations): ``u8`` for unsigned storage / unsigned
+    activations (255 at 8 bits), else ``s8``.  Lower slices are ``u8``."""
     return ("s8" if plan.signed_a else "u8",
             "s8" if plan.signed_b else "u8")
 
@@ -185,7 +206,8 @@ def plan_flags(plan) -> int:
     flags = (_SIGNED_A if a == "s8" else 0) | (_SIGNED_B if b == "s8" else 0)
     if bseg_common.sdv_word_spec(plan).limbs == 2:
         flags |= _TWO_LIMB
-    return flags
+    sa, sb = slice_counts(plan)
+    return flags | (sa - 1) << _SLICES_A | (sb - 1) << _SLICES_B
 
 
 def slot_channels(g: int, n: int) -> torch.Tensor:
@@ -201,15 +223,26 @@ def slot_channels(g: int, n: int) -> torch.Tensor:
     return chan.reshape(-1)
 
 
-def decode_lanes_plain(w_words: torch.Tensor, plan) -> torch.Tensor:
+def _slice_byte(v: torch.Tensor, j: int, top: bool,
+                signed: bool) -> torch.Tensor:
+    """Byte ``j`` of int64 values as the kernels' int8 tile holds it:
+    ``int8`` for the top slice of a signed operand, else ``uint8``."""
+    b = ((v >> 8 * j) & 0xFF).to(torch.uint8)
+    return b.view(torch.int8) if top and signed else b
+
+
+def decode_lanes_plain(w_words: torch.Tensor, plan,
+                       a_slice: int = 0) -> torch.Tensor:
     """The kernels' decode, plain: storage words -> the int8 A tiles
-    [tiles * TILE_M, K] (channel slots, K contiguous; uint8 for unsigned
-    storage), block by block as ``slot_channels`` orders them; padding
-    slots and the zero words past G decode to 0.
+    [tiles * TILE_M, K] (channel slots, K contiguous), block by block as
+    ``slot_channels`` orders them; padding slots and the zero words past
+    G decode to 0.  Each tile holds byte ``a_slice`` of the lanes: int8
+    for the top slice of signed storage, else uint8 (at w_a <= 8 the one
+    slice is the lane's value).
 
     Lane i: signed, the (w_a - 1)-bit field at i L minus the parked sign
     bit at packed_width + i moved to bit w_a - 1; unsigned, the w_a-bit
-    field at i L.  The low byte is the lane's value."""
+    field at i L."""
     n, lane, w_a = plan.n, plan.lane, plan.w_a
     words = _stored_words(w_words)                           # [K, G]
     k, g = words.shape
@@ -227,8 +260,17 @@ def decode_lanes_plain(w_words: torch.Tensor, plan) -> torch.Tensor:
     v = torch.stack(lanes).reshape(n, k, tiles, bg)
     a = torch.zeros((tiles, TILE_M, k), dtype=torch.int64)
     a[:, :n * bg] = v.permute(2, 0, 3, 1).reshape(tiles, n * bg, k)
-    a = (a.reshape(tiles * TILE_M, k) & 0xFF).to(torch.uint8)
-    return a.view(torch.int8) if plan.signed_a else a
+    top = a_slice == slice_counts(plan)[0] - 1
+    return _slice_byte(a.reshape(tiles * TILE_M, k), a_slice, top,
+                       plan.signed_a)
+
+
+def activation_slice_plain(x: torch.Tensor, plan,
+                           b_slice: int) -> torch.Tensor:
+    """The kernels' B tile of activation byte ``b_slice``, plain: int8
+    for the top slice of signed activations, else uint8."""
+    top = b_slice == slice_counts(plan)[1] - 1
+    return _slice_byte(x.to(torch.int64), b_slice, top, plan.signed_b)
 
 
 def launch(name: str, x: torch.Tensor, w_words: torch.Tensor, plan,
@@ -238,7 +280,8 @@ def launch(name: str, x: torch.Tensor, w_words: torch.Tensor, plan,
     geo = launch_geometry(rows, k, g, plan.n, gemv=name == "sdv_gemv",
                           sms=sm_count(x.device.index
                                        if x.device.index is not None
-                                       else torch.cuda.current_device()))
+                                       else torch.cuda.current_device()),
+                          pairs=len(slice_pairs(plan)))
     out = torch.empty((rows, g, plan.n), dtype=torch.int32, device=x.device)
     lib = build.library("sdv")
     err = getattr(lib, name)(
@@ -258,10 +301,11 @@ def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
         (signed or unsigned per ``plan.signed_b``).
       w_words: [K, G] int32 storage words (``ops.prepare_sdv_weights``),
         or [2, K, G] limb planes for the wide words.
-      plan: SDV lane plan on an exact-wrap datapath, n <= 15.
+      plan: SDV lane plan on an exact-wrap datapath, n <= 15, any
+        operand widths.
 
     Returns:
-      [R, G, n] int32 — exact per-lane dot products.  Any K.
+      [R, G, n] int32 — exact per-lane dot products (mod 2^32).  Any K.
     """
     r, k, g = check_operands(x_q, w_words, plan, k_axis=1)
     if x_q.device.type == "cpu":

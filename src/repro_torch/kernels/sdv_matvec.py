@@ -25,7 +25,8 @@ def sdv_matvec(x_t: torch.Tensor, w_words: torch.Tensor, *,
       x_t: [K, B] int32 activations (K-major), B <= 8, values within
         w_b bits.
       w_words: [K, G] int32 storage words, or [2, K, G] limb planes.
-      plan: SDV lane plan on an exact-wrap datapath, n <= 15.
+      plan: SDV lane plan on an exact-wrap datapath, n <= 15, any
+        operand widths.
 
     Returns:
       [B, G, n] int32 — exact per-lane dot products.

@@ -39,13 +39,20 @@ def _case(spec, wa, wb, signed_a, m, k, rows, seed, signed_b=True, n=None):
     return plan, w, x, words
 
 
+def _lo32(a):
+    """The low 32 bits of int64 values, as int32 (an int64 product that
+    wraps keeps them)."""
+    return (np.asarray(a, dtype=np.int64) & 0xFFFFFFFF).astype(np.uint32) \
+        .view(np.int32)
+
+
 def _check_both_kernels(cuda, plan, w, x, words):
     """B2 (and B1 up to 8 rows) on the card == the plain version on the
-    CPU == the exact product, bit for bit."""
+    CPU == the exact product (mod 2^32), bit for bit."""
     rows, m = x.shape[0], w.shape[0]
     xt = torch.tensor(x, dtype=torch.int32)
     want = sdv_matmul.sdv_matmul_plain(xt, words, plan)
-    assert (want.reshape(rows, -1)[:, :m].numpy() == x @ w.T).all()
+    assert (want.reshape(rows, -1)[:, :m].numpy() == _lo32(x @ w.T)).all()
     got = sdv_matmul.sdv_matmul(xt.to(cuda), words.to(cuda), plan=plan)
     torch.cuda.synchronize()
     assert (got.cpu() == want).all()
@@ -86,6 +93,45 @@ def test_kernels_match_plain_and_exact(cuda, spec, wa, wb, signed_a,
     M = 301 is no multiple of 16 and K = 700 of 64."""
     _check_both_kernels(cuda, *_case(spec, wa, wb, signed_a, 301, 700,
                                      rows, rows, signed_b=signed_b, n=n))
+
+
+#: operands wider than 8 bits, in byte slices: the nine plans of the
+#: planner's w_b = a_bits + 1 and W4A16 on every exact-wrap word, the
+#: widest w_a = w_b plan of each word (15, 23, 26), the widest w_a (30 on
+#: INT32, 26 on DSP58), the planner's W16A16, and unsigned wide operands
+_WIDE_SDV_PLANS = [(s, wa, wb, True, True, None)
+                   for s in ("int32", "dsp48e2", "dsp58")
+                   for wa, wb in ((4, 9), (8, 9), (4, 16))] + [
+    ("int32", 15, 15, True, True, None), ("dsp48e2", 23, 23, True, True, None),
+    ("dsp58", 26, 26, True, True, None), ("int32", 30, 1, True, True, None),
+    ("dsp58", 26, 31, True, True, None), ("dsp48e2", 16, 16, True, True, None),
+    ("dsp58", 12, 20, False, False, None), ("int32", 9, 3, False, True, None)]
+
+
+@pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b,n", _WIDE_SDV_PLANS)
+@pytest.mark.parametrize("rows", [3, 8, 77])
+def test_wide_operands_match_plain_and_exact(cuda, spec, wa, wb, signed_a,
+                                             signed_b, n, rows):
+    """B1/B2 on byte-sliced operands: bit-exact against the plain version
+    and the exact product mod 2^32 (M = 45, K = 700)."""
+    _check_both_kernels(cuda, *_case(spec, wa, wb, signed_a, 45, 700, rows,
+                                     wa * 100 + wb + rows,
+                                     signed_b=signed_b, n=n))
+
+
+def test_wide_operands_through_packed_matmul(cuda):
+    """``ops.packed_matmul(plan=...)`` routes a W8A9 plan to B1 (8 rows)
+    and B2 (12 rows) on the card, launching each once."""
+    plan, w, x, words = _case("dsp48e2", 8, 9, True, 64, 128, 12, 2)
+    xd, wd = torch.tensor(x).to(cuda), words.to(cuda)
+    b1, b2 = sdv_matvec.sdv_matvec.launches, sdv_matmul.sdv_matmul.launches
+    y8 = ops.packed_matmul(xd[:8], wd, plan=plan, m=64)
+    y12 = ops.packed_matmul(xd, wd, plan=plan, m=64)
+    torch.cuda.synchronize()
+    assert sdv_matvec.sdv_matvec.launches == b1 + 1
+    assert sdv_matmul.sdv_matmul.launches == b2 + 1
+    assert (y12.cpu().numpy() == x @ w.T).all()
+    assert (y8.cpu().numpy() == x[:8] @ w.T).all()
 
 
 @pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b,n",
@@ -144,11 +190,15 @@ def _conv_case(spec, wk, wi, c_in, c_out, k, h, w, b, seed):
     return plan, x, taps
 
 
-#: (spec, w_k, w_i): the four W4A4 plans of UltraNet, and plans with
-#: more lanes and other n_i
+#: (spec, w_k, w_i): the four W4A4 plans of UltraNet, plans with more
+#: lanes and other n_i, and taps wider than 8 bits (byte-sliced): W12A4 on
+#: DSP58, W16A2 on INT32, W9A7 on DSP48E2, and the widest w_k that
+#: plan_bseg admits on each word (test_torch_bseg_tc checks they are)
 _B3_PLANS = [("int32", 4, 4), ("fp32m", 4, 4), ("dsp48e2", 4, 4),
              ("dsp58", 4, 4), ("int32", 2, 2), ("dsp48e2", 2, 2),
-             ("fp32m", 3, 3), ("dsp58", 4, 7)]
+             ("fp32m", 3, 3), ("dsp58", 4, 7), ("dsp58", 12, 4),
+             ("int32", 16, 2), ("dsp48e2", 9, 7), ("int32", 29, 1),
+             ("fp32m", 21, 1), ("dsp48e2", 26, 1), ("dsp58", 26, 1)]
 
 
 @pytest.mark.parametrize("spec,wk,wi", _B3_PLANS)
@@ -177,6 +227,33 @@ def test_bseg_conv2d_matches_plain_and_exact(cuda, spec, wk, wi, c_in, c_out,
                           mode="bseg_conv2d")
     torch.cuda.synchronize()
     assert (y.cpu() == exact).all()
+
+
+@pytest.mark.parametrize("spec,wk,wi", [("int32", 4, 4), ("dsp58", 12, 4)])
+def test_bseg_conv2d_is_deterministic(cuda, spec, wk, wi):
+    """Two launches on the same operands give the same bits (every output
+    is written once, by one block, without atomics)."""
+    plan, x, taps = _conv_case(spec, wk, wi, 64, 64, 3, 26, 26, 8, 9)
+    x_pad, kappa, _ = ops.bseg_conv2d_operands(x, taps, plan)
+    xd, kd = x_pad.to(cuda), kappa.to(cuda)
+    a = bseg_conv2d.bseg_conv2d(xd, kd, plan=plan, h_out=26, w_out=26)
+    b = bseg_conv2d.bseg_conv2d(xd, kd, plan=plan, h_out=26, w_out=26)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), ref.conv2d_int_ref(x, taps))
+
+
+def test_bseg_conv2d_many_channel_chunks(cuda):
+    """C_in = 160 runs in three channel chunks of 64 (the B tile decoded
+    again for each), and C_in = 40 (no multiple of 16) by byte loads."""
+    for c_in, c_out in ((160, 24), (40, 70)):
+        plan, x, taps = _conv_case("dsp48e2", 4, 4, c_in, c_out, 3, 5, 19, 2,
+                                   c_in)
+        x_pad, kappa, _ = ops.bseg_conv2d_operands(x, taps, plan)
+        got = bseg_conv2d.bseg_conv2d(x_pad.to(cuda), kappa.to(cuda),
+                                      plan=plan, h_out=5, w_out=19)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.conv2d_int_ref(x, taps))
 
 
 def test_bseg_conv2d_zero_point_and_wide_rows(cuda):

@@ -13,7 +13,11 @@ paper's packed arithmetic bit for bit is checked here without a card:
   of the decoded lanes is the same function;
 - the launch geometry covers every output once, at every projection
   shape of the main paths;
-- the int8 operand gate and the operand types.
+- operands wider than 8 bits (fault C1): the byte slices of the decoded
+  lanes and of the activations, shifted together mod 2^32, give the
+  exact product, and ``sdv_matmul``, ``sdv_matvec`` and
+  ``ops.packed_matmul(plan=...)`` equal the reference's on such plans;
+- the operand types and flags.
 
 The kernels themselves are held against ``sdv_matmul_plain`` and the
 exact product on the card in ``test_torch_kernels_cuda``.
@@ -49,6 +53,13 @@ def _ints(lo_hi_signed, bits, shape, rng):
     if lo_hi_signed:
         return rng.integers(-(1 << bits - 1), 1 << bits - 1, shape)
     return rng.integers(0, 1 << bits, shape)
+
+
+def _lo32(a):
+    """The low 32 bits of int64 values, as int32 (an int64 product that
+    wraps keeps them)."""
+    return (np.asarray(a, dtype=np.int64) & 0xFFFFFFFF).astype(np.uint32) \
+        .view(np.int32)
 
 
 def _check_decode(jplan, tplan, m, k, seed):
@@ -228,15 +239,140 @@ def test_launch_geometry_covers_every_output_once(kname, rows, k, m, n):
     assert blocks <= max(gx * gy, 2 * sms * per_sm)
 
 
-@pytest.mark.parametrize("wa,wb", [(9, 4), (4, 9), (12, 3)])
-def test_operands_wider_than_int8_are_refused(wa, wb):
-    """``check_operands``: the kernels' int8 operands need w_a, w_b <= 8,
-    on the CPU path too."""
-    plan = tdp.plan_sdv(tdp.DATAPATHS["dsp58"], wa, wb, signed_a=True,
+#: plans wider than int8 (fault C1), all signed, sign bits parked: the
+#: planner's w_b = a_bits + 1 (W4A9, W8A9) and W4A16 on every exact-wrap
+#: word, and the widest w_a = w_b plan_sdv admits on each (15, 23, 26)
+_C1_PLANS = [(s, wa, wb) for s in SPECS
+             for wa, wb in ((4, 9), (8, 9), (4, 16))]
+_WIDEST_SDV = [("int32", 15, 15), ("dsp48e2", 23, 23), ("dsp58", 26, 26)]
+
+
+@pytest.mark.parametrize("spec,wa,wb", _WIDEST_SDV)
+def test_widest_square_plans(spec, wa, wb):
+    """``_WIDEST_SDV`` is the widest w_a = w_b plan each word admits."""
+    word = tdp.DATAPATHS[spec].w_word
+
+    def fits(w):
+        try:
+            plan = tdp.plan_sdv(tdp.DATAPATHS[spec], w, w, signed_a=True,
+                                signed_b=True, park_sign_bits=True)
+        except ValueError:
+            return False
+        return plan.packed_width + plan.n <= word
+    assert wa == wb and fits(wa) and not fits(wa + 1)
+
+
+@pytest.mark.parametrize("spec,wa,wb", _C1_PLANS + _WIDEST_SDV)
+def test_wide_operands_match_the_reference(spec, wa, wb):
+    """Fault C1, repaired: ``sdv_matmul`` and ``sdv_matvec`` (their plain
+    versions on the CPU) and ``ops.packed_matmul(plan=...)`` give the
+    reference's ``packed_matmul`` and ``x @ w.T`` (mod 2^32) at 3 rows, K
+    = 33, M = 2n + 1, numpy seed 0, operands at their full widths; the
+    route is the reference's."""
+    jplan, tplan = _plans(spec, wa, wb, True, True)
+    rng = np.random.default_rng(0)
+    m, k, rows = 2 * tplan.n + 1, 33, 3
+    w = _ints(True, wa, (m, k), rng)
+    x = _ints(True, wb, (rows, k), rng)
+    want = _lo32(x @ w.T)
+    jw = jops.prepare_sdv_weights(jnp.asarray(w), jplan)
+    assert jops.select_packed_route(rows, plan=jplan) \
+        == tops.select_packed_route(rows, plan=tplan)
+    jy = np.asarray(jops.packed_matmul(jnp.asarray(x), jw, plan=jplan, m=m))
+    assert (jy == want).all()
+    tw = tops.prepare_sdv_weights(torch.tensor(w), tplan)
+    assert (np.asarray(jw) == tw.numpy()).all()
+    xt = torch.tensor(x, dtype=torch.int32)
+    ty = tops.packed_matmul(torch.tensor(x), tw, plan=tplan, m=m)
+    assert (ty.numpy() == jy).all()
+    for y in (tmm.sdv_matmul(xt, tw, plan=tplan),
+              tmv.sdv_matvec(xt.T.contiguous(), tw, plan=tplan)):
+        assert (y.reshape(rows, -1)[:, :m].numpy() == want).all()
+
+
+def _wide_sliced_keys():
+    keys = [(s, wa, wb, True, True) for s, wa, wb in _C1_PLANS + _WIDEST_SDV]
+    keys += [("dsp58", 12, 20, False, False), ("int32", 9, 3, False, True),
+             ("int32", 30, 1, True, True), ("dsp58", 26, 31, True, False)]
+    return keys
+
+
+@pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b", _wide_sliced_keys())
+def test_byte_slices_give_the_exact_product(spec, wa, wb, signed_a,
+                                            signed_b):
+    """The kernels' sliced premise: every slice pair (ia, ib), ia + ib <=
+    3, the int8 product of lane byte ia (``decode_lanes_plain``) and
+    activation byte ib (``activation_slice_plain``), shifted left 8 (ia +
+    ib) bits and summed mod 2^32, == x @ w.T mod 2^32, in the kernels'
+    slot order; the top slice of a signed operand is int8, every other
+    uint8; the slice counts and pairs reach the kernels through the
+    flags."""
+    jplan, tplan = _plans(spec, wa, wb, signed_a, signed_b)
+    rng = np.random.default_rng(wa * 100 + wb)
+    m, k, rows = 3 * tplan.n + 1, 70, 5
+    w = _ints(signed_a, wa, (m, k), rng)
+    x = _ints(signed_b, wb, (rows, k), rng)
+    tw = tops.prepare_sdv_weights(torch.tensor(w), tplan)
+    sa, sb = tmm.slice_counts(tplan)
+    assert (sa, sb) == (min(4, -(-wa // 8)), min(4, -(-wb // 8)))
+    pairs = tmm.slice_pairs(tplan)
+    assert pairs == [(i, j) for i in range(sa) for j in range(sb)
+                     if i + j <= 3]
+    flags = tmm.plan_flags(tplan)
+    assert (flags >> tmm._SLICES_A & 3, flags >> tmm._SLICES_B & 3) \
+        == (sa - 1, sb - 1)
+    chan = tmm.slot_channels(tw.shape[-1], tplan.n)
+    total = torch.zeros((rows, chan.numel()), dtype=torch.int64)
+    for ia, ib in pairs:
+        a = tmm.decode_lanes_plain(tw, tplan, ia)
+        b = tmm.activation_slice_plain(torch.tensor(x), tplan, ib)
+        assert a.dtype == (torch.int8 if signed_a and ia == sa - 1
+                           else torch.uint8)
+        assert b.dtype == (torch.int8 if signed_b and ib == sb - 1
+                           else torch.uint8)
+        total += (b.to(torch.int64) @ a.to(torch.int64).T) << 8 * (ia + ib)
+    got = torch.zeros((rows, tw.shape[-1] * tplan.n), dtype=torch.int64)
+    got[:, chan[chan >= 0]] = total[:, chan >= 0]
+    assert (_lo32(got[:, :m].numpy()) == _lo32(x @ w.T)).all()
+
+
+@pytest.mark.parametrize("signed_a", [True, False])
+@pytest.mark.parametrize("wa", [9, 12, 16, 23])
+def test_decode_lanes_slices_match_unpack_ref(wa, signed_a):
+    """Each byte slice of ``decode_lanes_plain`` holds byte j of the
+    lanes ``sdv_unpack_words_ref`` decodes (both packages), on the wide
+    DSP58 word, its padding slots 0."""
+    jplan, tplan = _plans("dsp58", wa, 4, signed_a, True)
+    rng = np.random.default_rng(wa)
+    m, k = 2 * tmm.TILE_M + tplan.n + 1, 21
+    w = _ints(signed_a, wa, (m, k), rng)
+    tw = tops.prepare_sdv_weights(torch.tensor(w), tplan)
+    jw = jops.prepare_sdv_weights(jnp.asarray(w), jplan)
+    want = tref.sdv_unpack_words_ref(tw, plan=tplan).to(torch.int64)
+    assert (np.asarray(jref.sdv_unpack_words_ref(jw, plan=jplan))
+            == want.numpy()).all()
+    chan = tmm.slot_channels(tw.shape[-1], tplan.n)
+    used = chan >= 0
+    sa = tmm.slice_counts(tplan)[0]
+    for j in range(sa):
+        a = tmm.decode_lanes_plain(tw, tplan, j)
+        assert ((a[used].to(torch.int64) & 0xFF)
+                == (want.T[chan[used]] >> 8 * j) & 0xFF).all()
+        assert (a[~used] == 0).all()
+
+
+def test_wide_launch_geometry():
+    """A sliced launch: the grid's z axis runs over K splits x slice
+    pairs, and the K split aims at the same blocks per SM."""
+    plan = tdp.plan_sdv(tdp.DATAPATHS["dsp58"], 26, 26, signed_a=True,
                         signed_b=True, park_sign_bits=True)
-    w = tops.prepare_sdv_weights(torch.ones(2 * plan.n, 16,
-                                            dtype=torch.int64), plan)
-    with pytest.raises(ValueError, match="int8"):
-        tmm.sdv_matmul(torch.ones(3, 16, dtype=torch.int32), w, plan=plan)
-    with pytest.raises(ValueError, match="int8"):
-        tmv.sdv_matvec(torch.ones(16, 3, dtype=torch.int32), w, plan=plan)
+    pairs = len(tmm.slice_pairs(plan))
+    assert pairs == 10
+    one = tmm.launch_geometry(8, 2048, 256, plan.n, gemv=True, sms=132)
+    geo = tmm.launch_geometry(8, 2048, 256, plan.n, gemv=True, sms=132,
+                              pairs=pairs)
+    splits = -(-2048 // geo.chunk)
+    assert geo.grid == (one.grid[0], one.grid[1], splits * pairs)
+    assert splits <= -(-2048 // one.chunk)
+    assert geo.grid[0] * geo.grid[1] * geo.grid[2] >= 132 * \
+        tmm.GEMV_BLOCKS_PER_SM
