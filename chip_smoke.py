@@ -51,9 +51,10 @@ exit at the first failure:
      forward's device busy share (torch.profiler, device events only)
      and the wall time of its operand prep are printed.  A 32x32 frame
      on the card is held against the same frame on the CPU;
-  6. conv1d kernels — B4 on the int32, fp32m, dsp48e2 and dsp58 W4A4
-     plans at the decode shape (batch 8, 4 samples: 1 new + 3 of
-     history) and at 2048 samples, with the channels of mamba2-130m
+  6. conv1d kernels — B4 (decoded taps, no carry chain) on the int32,
+     fp32m, dsp48e2 and dsp58 W4A4 plans at the decode shape (batch 8,
+     4 samples: 1 new + 3 of history) and at 2048 samples, with the
+     channels of mamba2-130m
      (1792) and recurrentgemma-2b (2560), and on a 'same'-padded
      depthwise ``packed_conv2d``: against its plain version and the
      exact conv, timed beside its bound and
@@ -80,9 +81,10 @@ exit at the first failure:
      (``quant_matmul.error_bound``, which grows with K) and within
      ``ROUNDING_LIMIT`` typical float32 roundings
      (``quant_matmul.rounding_scale``), a check that TF32-rounded and
-     bf16-rounded x, run beside it on the float32 cases, must fail; each
-     timed beside its bound (B5's operations at the bf16 tensor rate for
-     bf16 x, the float32 CUDA-core rate for float32 x), B5 also beside
+     bf16-rounded x, run beside it on the float32 cases, must fail; two
+     launches bit-identical; each timed beside its bound (B5's
+     operations at the bf16 tensor rate for bf16 x, a third of it for
+     float32 x, split into three bf16 parts), B5 also beside
      ``torch.mm`` on float32 operands
      (TF32 off; no single PyTorch call packs bit fields, so B6/B7 have
      no library time);
@@ -118,8 +120,9 @@ ROOT = Path(__file__).resolve().parent
 #: ops/s, dense bf16 tensor FLOP/s, float32 CUDA-core FLOP/s.  Kernel B5's
 #: bound takes its activations' type: a bf16 value times a field of at
 #: most 8 bits is exact in float32, so bf16 tensor cores with float32
-#: accumulation compute its function on bf16 x; float32 x needs float32
-#: FMAs (TF32 would round x)
+#: accumulation compute its function on bf16 x; float32 x splits exactly
+#: into three bf16 parts, three tensor-core products each (TF32 would
+#: round x), which is faster than float32 FMAs at the CUDA-core rate
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 BF16_OPS_PER_S = 989e12
@@ -243,7 +246,7 @@ def phase_build():
         print(f"[build] {name}.cu -> {build.library_path(name).name} (nvcc "
               f"{build.build_seconds[name]:.1f} s); {len(regs)} kernels, "
               f"e.g. {regs[:2]}")
-        if name in ("sdv", "bseg"):
+        if name in ("sdv", "bseg", "bseg1d", "quant_matmul"):
             for line in ptxas_report(log):
                 print(f"[build]   {line}")
         if name == "sdv":
@@ -259,15 +262,16 @@ def ptxas_report(log):
     """One line per kernel of an ``-Xptxas -v`` log: its name with its
     template arguments (sdv.cu: <two-limb words, .u8 lanes, .u8
     activations>, the ``_sliced`` kernels <two-limb words>; bseg.cu:
-    <n-tiles of 8 output channels>), registers, spills and static shared
-    memory (the tiles are dynamic shared memory, sized by the
-    launchers)."""
+    <n-tiles of 8 output channels>; bseg1d.cu: <word form, taps a
+    pass>; quant_matmul.cu: <w, x rows, float32 x>),
+    registers, spills and static shared memory (the tiles are dynamic
+    shared memory, sized by the launchers)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+((?:sdv_gem[mv]|bseg_conv2d)_kernel\w*?)"
-                          r"I(\w*)E", m.group(1))
+            k = re.search(r"\d+((?:sdv_gem[mv]|bseg_conv[12]d|quant_matmul)"
+                          r"_kernel\w*?)I(\w*)E", m.group(1))
             flags = [] if k is None else \
                 re.findall(r"L[bi](\d+)E", k.group(2))
             name = m.group(1) if k is None else \
@@ -1292,6 +1296,7 @@ def quant_matmul_case(rows, k, n, w, dtype, gen, flush, where):
     time (``torch.mm`` on float32 x and the dequantized float32 weights,
     TF32 off)."""
     import torch
+    from repro_torch.device import sm_count
     from repro_torch.kernels import packbits, quant_matmul
 
     half = 1 << (w - 1)
@@ -1304,7 +1309,11 @@ def quant_matmul_case(rows, k, n, w, dtype, gen, flush, where):
     def run():
         return quant_matmul.quant_matmul(x, words, scale, w=w)
     got = run()
+    again = run()
     torch.cuda.synchronize()
+    check(torch.equal(got, again),
+          f"B5 not deterministic at {where}: two launches differ by "
+          f"{float((got - again).abs().max()):.3g}")
     t0 = time.perf_counter()
     want = quant_matmul.quant_matmul_plain(x, words, scale, w=w)
     torch.cuda.synchronize()
@@ -1354,13 +1363,16 @@ def quant_matmul_case(rows, k, n, w, dtype, gen, flush, where):
     xf = x.float()
     wf = w_int.float() * scale
     lib_ms = event_ms(lambda: torch.mm(xf, wf), 10, flush)
+    grid = quant_matmul.launch_geometry(rows, n, k, w,
+                                        sm_count(x.device.index)).grid
     print(f"[memory] B5 W{w} {where} {str(dtype)[6:]} x [{rows}, {k}] @ "
           f"[{k}, {n}]: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
           f"{b_ms / ms:.1%} of bound), plain {plain_ms:.2f} ms, torch.mm "
           f"fp32 {lib_ms:.4f} ms; max |B5 - plain| {err:.3g}, max |B5 - "
           f"exact| {float(err_exact.max()):.3g} (bound at that entry "
           f"{float(bound.flatten()[err_exact.argmax()]):.3g}); reading "
-          f"{reading:.3f} (plain {plain_reading:.3f}) rounding scales"
+          f"{reading:.3f} (plain {plain_reading:.3f}) rounding scales; "
+          f"{grid} blocks, bit-identical twice"
           + "".join(f", {c} control {v:.1f}" for c, v in controls.items()))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, max_abs_err=err, bytes=nbytes,
@@ -1376,9 +1388,12 @@ def qmm_reading(y, exact, x, w_int, scale):
 
 
 def qmm_ops_per_s(dtype):
-    """The peak rate B5's bound takes for activations of ``dtype``."""
+    """The peak rate B5's bound takes for activations of ``dtype``: the
+    bf16 tensor rate, a third of it for float32 x (three exact bf16
+    parts; the float32 CUDA-core rate is lower still)."""
     import torch
-    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else \
+        max(BF16_OPS_PER_S / 3, F32_OPS_PER_S)
 
 
 def phase_memory_kernels(dev, flush):
@@ -1459,9 +1474,10 @@ def phase_memory_kernels(dev, flush):
     print(f"[memory] B5 rounding readings (|y - exact| over "
           f"quant_matmul.rounding_scale, limit "
           f"{quant_matmul.ROUNDING_LIMIT}): largest {max(readings):.3f} over "
-          f"{len(readings)} cases; the smallest of the float32 cases' "
-          f"controls: " + ", ".join(f"{c} {v:.1f}"
-                                    for c, v in controls.items()))
+          f"{len(readings)} cases (accumulator restarted every "
+          f"{quant_matmul.ACC_STAGES} x {quant_matmul.TILE_K} k); the "
+          f"smallest of the float32 cases' controls: "
+          + ", ".join(f"{c} {v:.1f}" for c, v in controls.items()))
     print(f"[memory] all cases within their checks, "
           f"{time.perf_counter() - t_phase:.1f} s")
     return out

@@ -6,9 +6,8 @@ Builds the shipped source and copies of it with one phase taken out
 (text patches of the source, for timing only: their outputs are wrong),
 and times each at tinyllama-1.1b's projection shapes on the INT32 W4A8
 plan (B1 at 8 rows, B2 at 128), beside a plain streaming read of the
-same word bytes and an empty launch.  Times are CUDA events around one
-call after a ~1 ms device spin with the L2 flushed, as ``chip_smoke.py``
-times its kernels, in microseconds.
+same word bytes and an empty launch.  Timing as in
+``breakdown_common``, in microseconds.
 
   PYTHONPATH=src python scripts/sdv_breakdown.py
 
@@ -23,15 +22,10 @@ Variants:
 """
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-OUT = ROOT / "build" / "breakdown"
+from breakdown_common import OUT, Timer, build_variants, print_card
+
 SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
 
 _MEMSET = "  if (p.accumulate) {   // split-K blocks add into a zeroed output"
@@ -76,28 +70,9 @@ extern "C" int stream(const void* in, long long bytes, void* out, void* s) {
 """
 
 
-def patched(name: str) -> Path:
-    src = (ROOT / "src/repro_torch/kernels/csrc/sdv.cu").read_text()
-    for old, new in PATCHES[name]:
-        if old not in src:
-            raise SystemExit(f"{name}: patch target not found: {old!r}")
-        src = src.replace(old, new)
-    path = OUT / f"sdv-{name}.cu"
-    path.write_text(src)
-    return path
-
-
-def compile_so(src: Path):
-    from repro_torch.kernels import build
-    out = src.with_suffix(".so")
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                           str(src)], capture_output=True, text=True)
-    if proc.returncode:
-        raise SystemExit(f"nvcc failed on {src}:\n{proc.stderr[-3000:]}")
-    return ctypes.CDLL(str(out))
-
-
 def main() -> int:
+    import ctypes
+
     import torch
     from repro_torch.kernels import ops, sdv_matmul
     from repro_torch.models.quantized import default_sdv_plan
@@ -106,42 +81,15 @@ def main() -> int:
         return 1
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "stream.cu").write_text(STREAM)
-    sources = [patched(name) for name in PATCHES] + [OUT / "stream.cu"]
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source
-        libs = list(pool.map(compile_so, sources))
-    kernels = dict(zip(PATCHES, libs))
-    stream_lib = libs[-1]
-    for lib in kernels.values():
-        for fn in ("sdv_gemv", "sdv_gemm"):
-            getattr(lib, fn).argtypes = [ctypes.c_void_p] * 3 \
-                + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-            getattr(lib, fn).restype = ctypes.c_int
+    kernels, (stream_so,) = build_variants("sdv", PATCHES,
+                                           [OUT / "stream.cu"])
+    stream_lib = ctypes.CDLL(str(stream_so))
     stream_lib.stream.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
                                   ctypes.c_void_p, ctypes.c_void_p]
     dev = torch.device("cuda", 0)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    timer = Timer(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def event_us(fn, reps=10):
-        fn()
-        fn()
-        total = 0.0
-        for _ in range(reps):
-            torch.cuda._sleep(2_000_000)
-            flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            total += a.elapsed_time(b)
-        return total / reps * 1e3
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True)
-    print(f"card: {smi.stdout.strip()}; torch {torch.__version__}")
+    print_card()
     plan = default_sdv_plan(4, 8)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -156,28 +104,21 @@ def main() -> int:
             x = torch.randint(-127, 128, (rows, k), generator=gen,
                               device=dev, dtype=torch.int32)
             xin = x.T.contiguous() if kname == "B1" else x
-            out = torch.empty((rows, g, plan.n), dtype=torch.int32,
-                              device=dev)
-            geo = sdv_matmul.launch_geometry(rows, k, g, plan.n,
-                                             gemv=kname == "B1", sms=sms)
+            geo = sdv_matmul.launch_geometry(
+                rows, k, g, plan.n, gemv=kname == "B1", sms=sms,
+                pairs=len(sdv_matmul.slice_pairs(plan)))
             fn = "sdv_gemv" if kname == "B1" else "sdv_gemm"
-            times = []
-            for name, lib in kernels.items():
-                def call(lib=lib):
-                    err = getattr(lib, fn)(
-                        xin.data_ptr(), words.data_ptr(), out.data_ptr(),
-                        rows, k, g, plan.n, plan.lane, plan.w_a,
-                        plan.packed_width, sdv_matmul.plan_flags(plan),
-                        geo.bg, geo.chunk, stream)
-                    if err:
-                        raise SystemExit(f"{name} {fn}: CUDA error {err}")
-                times.append(event_us(call))
-                if name == "shipped":
-                    exact = (x.double() @ w.double().T).long()
-                    if not torch.equal(out.reshape(rows, -1)[:, :m].long(),
-                                       exact):
-                        raise SystemExit(f"{fn} K={k} M={m}: not exact")
-            times.append(event_us(lambda: stream_lib.stream(
+
+            def call(lib):
+                return sdv_matmul.launch(fn, xin, words, plan, rows, k, g,
+                                         lib=lib)
+            out = call(kernels["shipped"])
+            exact = (x.double() @ w.double().T).long()
+            if not torch.equal(out.reshape(rows, -1)[:, :m].long(), exact):
+                raise SystemExit(f"{fn} K={k} M={m}: not exact")
+            times = [timer.us(lambda lib=lib: call(lib))
+                     for lib in kernels.values()]
+            times.append(timer.us(lambda: stream_lib.stream(
                 words.data_ptr(), words.numel() * 4, sink.data_ptr(),
                 stream)))
             print(f"{kname} {k} x {m} {rows} (grid {geo.grid}) | "

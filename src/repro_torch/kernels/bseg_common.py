@@ -169,6 +169,22 @@ def schedule(plan, s_out: int, n_groups: int) -> Tuple[int, int]:
     return n_steps, need
 
 
+def decode_group_taps(words: torch.Tensor, plan) -> torch.Tensor:
+    """Exact signed factors [G, ...] (``kappa_words``) -> their taps
+    [G, n_k, ...] int64.  Each word holds the arithmetic sum of its
+    group's reversed taps: lane i, sign-extended from L bits after the
+    lower lanes are taken off (borrow), is tap ``n_k - 1 - i`` of the
+    group."""
+    lane = plan.lane
+    rem, taps = words, []
+    for i in range(plan.n_k):
+        f = (rem >> i * lane) & ((1 << lane) - 1)
+        v = torch.where(f >= 1 << lane - 1, f - (1 << lane), f)
+        rem = rem - (v << i * lane)
+        taps.append(v)
+    return torch.stack(taps[::-1], dim=1)
+
+
 def kappa_words(kappa: torch.Tensor, plan) -> torch.Tensor:
     """Packed factors in the plan's transport layout -> their exact
     signed int64 values (int32 sign-extended, FP32M's exact float

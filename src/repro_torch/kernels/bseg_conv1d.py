@@ -11,14 +11,22 @@ into a resident low part (into the next carry word) and a high part
 that goes straight to the row accumulator, whose index ``s + n_k - 1``
 is output ``s``.
 
-On a CUDA tensor ``bseg_conv1d`` launches the hand-written Hopper
-kernel ``csrc/bseg1d.cu::bseg_conv1d_kernel``; on a CPU tensor it runs
-``bseg_conv1d_plain``, the same word arithmetic step by step in int64
-tensors.  There is no fallback between the two: a CUDA tensor that the
-kernel cannot take raises.  The reference's TPU channel tile (``bc``)
-is gone: the kernel picks its own Hopper launch.
+With its guard bits every lane of that arithmetic is exact, so the
+result is the plain correlation of ``x_pad`` with the taps decoded from
+``kappa`` (mod 2^32).  On a CUDA tensor ``bseg_conv1d`` launches the
+hand-written Hopper kernel ``csrc/bseg1d.cu::bseg_conv1d_kernel``, which
+computes it that way: each thread decodes its channels' taps
+(``decode_conv1d_taps_plain`` mirrors the decode) and sums tap x sample
+over a strip of outputs (``correlate1d_plain``), with no carry word and
+no serial step chain.  On a CPU tensor it runs ``bseg_conv1d_plain``,
+the paper's word arithmetic step by step in int64 tensors.  There is no
+fallback between the two: a CUDA tensor that the kernel cannot take
+raises.  The reference's TPU channel tile (``bc``) is gone: the kernel
+picks its own Hopper launch (``launch_shape``).
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -29,10 +37,15 @@ from . import bseg_common, build
 #: the kernel's limits (mirrors csrc/bseg1d.cu)
 MAX_LANES = 12
 MAX_GROUPS = 8
-#: threads per block (one channel each), and the fewest outputs one
-#: thread's chunk of a long row gets
-BLOCK_THREADS = 256
-MIN_CHUNK = 64
+#: the most threads per block (4 channels each), the threads an SM holds,
+#: the waves of them a long row is cut for, and the fewest outputs a strip
+#: of a long row gets
+BLOCK_THREADS = 128
+SM_THREADS = 2048
+WAVES = 2
+MIN_STRIP = 16
+#: word forms of the launcher (csrc/bseg1d.cu ``Kind``)
+_KIND_INT32, _KIND_FP32, _KIND_TWO_LIMB = 0, 1, 2
 
 
 def check_operands(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
@@ -112,17 +125,73 @@ def bseg_conv1d_plain(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *,
 bseg_conv1d_plain.calls = 0
 
 
-def launch_shape(b: int, c: int, s_out: int, device: torch.device):
-    """(threads per block, outputs per thread) for one launch.
+def decode_conv1d_taps_plain(kappa: torch.Tensor, plan) -> torch.Tensor:
+    """The kernel's tap decode, plain: packed factors in the plan's
+    transport layout ([G, C] int32 / float32, or [2, G, C] limb planes)
+    -> the taps, [C, G n_k] int64, tap ``g n_k + n_k - 1 - i`` from lane i
+    of group g (``bseg_common.decode_group_taps``)."""
+    t = bseg_common.decode_group_taps(bseg_common.kappa_words(kappa, plan),
+                                      plan)              # [G, n_k, C]
+    return t.reshape(-1, t.shape[-1]).T
 
-    A thread owns one (row, channel) chain; when the B * C chains are
-    too few to fill the card (2048 threads per SM), each row's outputs
-    are cut into chunks of at least ``MIN_CHUNK``, one thread each."""
-    threads = min(BLOCK_THREADS, -(-c // 32) * 32)
-    target = 2048 * sm_count(device.index if device.index is not None
-                             else torch.cuda.current_device())
-    chunks = max(1, min(-(-target // (b * c)), -(-s_out // MIN_CHUNK)))
-    return threads, -(-s_out // chunks)
+
+def correlate1d_plain(x_pad: torch.Tensor, taps: torch.Tensor, *,
+                      s_out: int) -> torch.Tensor:
+    """The kernel's function, plain: ``out[b, s, c] = sum_j taps[c, j] *
+    x_pad[b, s + j, c]`` for x_pad [B, S_pad, C] and taps [C, S], as
+    [B, s_out, C] int32 (mod 2^32)."""
+    x = x_pad.to(torch.int64)
+    out = torch.zeros((x.shape[0], s_out, x.shape[2]), dtype=torch.int64)
+    for j in range(taps.shape[1]):
+        out += x[:, j:j + s_out] * taps[:, j]
+    return limbs.lo32(out)
+
+
+def launch_shape(b: int, c: int, s_out: int, *, sms: int):
+    """(threads per block, outputs per strip) for one launch.
+
+    A thread owns 4 adjacent channels of one batch row and one strip of
+    outputs; when the ``B * ceil(C / 4)`` rows of channel quads are too
+    few to fill the card ``WAVES`` times (``SM_THREADS`` threads per SM),
+    each row's outputs are cut into strips of at least ``MIN_STRIP`` (a
+    multiple of the kernel's 8-output sub-strip), one thread each."""
+    quads = -(-c // 4)
+    threads = min(BLOCK_THREADS, -(-quads // 32) * 32)
+    strips = max(1, min(-(-WAVES * sms * SM_THREADS // (b * quads)),
+                        -(-s_out // MIN_STRIP)))
+    strip = -(-s_out // strips)
+    if strip > 8:
+        strip = -(-strip // 8) * 8
+    return threads, strip
+
+
+def launch(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *, s_out: int,
+           shape: Optional[Tuple[int, int]] = None,
+           lib=None) -> torch.Tensor:
+    """Launch ``csrc/bseg1d.cu`` on checked CUDA operands; returns [B,
+    s_out, C] int32.  ``shape`` (threads per block, outputs per strip)
+    defaults to ``launch_shape``'s and ``lib`` to the built source (a
+    breakdown script passes other shapes and patched copies)."""
+    n_groups = kappa.shape[-2]
+    ws = bseg_common.word_spec(plan)
+    # FP32M factors are exact integers below 2^24: the kernel converts
+    # them itself
+    kind = (_KIND_TWO_LIMB if ws.limbs == 2 else
+            _KIND_FP32 if ws.dtype == torch.float32 else _KIND_INT32)
+    b, s_pad, c = x_pad.shape
+    threads, strip = shape or launch_shape(
+        b, c, s_out, sms=sm_count(x_pad.device.index
+                                  if x_pad.device.index is not None
+                                  else torch.cuda.current_device()))
+    out = torch.empty((b, s_out, c), dtype=torch.int32, device=x_pad.device)
+    if lib is None:
+        lib = build.library("bseg1d")
+    err = lib.bseg_conv1d(
+        x_pad.data_ptr(), kappa.data_ptr(), out.data_ptr(), b, s_pad, c,
+        n_groups, s_out, plan.n_k, plan.lane, kind, strip, threads,
+        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    build.check(lib, err, "bseg_conv1d")
+    return out
 
 
 def bseg_conv1d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
@@ -144,24 +213,10 @@ def bseg_conv1d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
       [B, S_out, C] int32 — exact correlation totals (guard bias
       removed; the zero-point correction is the caller's).
     """
-    n_groups = check_operands(x_pad, kappa, plan, s_out=s_out)
+    check_operands(x_pad, kappa, plan, s_out=s_out)
     if x_pad.device.type == "cpu":
         return bseg_conv1d_plain(x_pad, kappa, plan, s_out=s_out)
-    ws = bseg_common.word_spec(plan)
-    if ws.dtype == torch.float32:
-        # FP32M factors are exact integers below 2^24: the kernel runs
-        # the word in integers (exact conversion, not a fallback)
-        kappa = kappa.to(torch.int32)
-    b, s_pad, c = x_pad.shape
-    threads, chunk = launch_shape(b, c, s_out, x_pad.device)
-    out = torch.empty((b, s_out, c), dtype=torch.int32, device=x_pad.device)
-    lib = build.library("bseg1d")
-    err = lib.bseg_conv1d(
-        x_pad.data_ptr(), kappa.data_ptr(), out.data_ptr(), b, s_pad, c,
-        n_groups, s_out, plan.n_i, plan.n_k, plan.n_lanes, plan.lane,
-        plan.w_l, ws.bias_full, ws.bias_top, int(ws.limbs == 2), chunk,
-        threads, torch.cuda.current_stream(x_pad.device).cuda_stream)
-    build.check(lib, err, "bseg_conv1d")
+    out = launch(x_pad, kappa, plan, s_out=s_out)
     bseg_conv1d.launches += 1
     return out
 

@@ -149,18 +149,12 @@ def decode_taps_plain(kappa: torch.Tensor, plan) -> List[torch.Tensor]:
 
     Each word's lanes hold the arithmetic sum of its group's reversed
     taps: lane i, sign-extended from L bits after the lower lanes are
-    taken off (borrow), is tap ``g n_k + n_k - 1 - i``.
-    ``join_slices`` gives back the taps."""
-    rem = bseg_common.kappa_words(kappa, plan)     # [G, kh, C_in, C_out]
-    lane, n_k = plan.lane, plan.n_k
-    taps = []
-    for i in range(n_k):
-        f = (rem >> i * lane) & ((1 << lane) - 1)
-        v = torch.where(f >= 1 << lane - 1, f - (1 << lane), f)
-        rem = rem - (v << i * lane)
-        taps.append(v)
-    t = torch.stack(taps[::-1], dim=1)             # [G, n_k, kh, C_in, C_out]
-    g, _, kh, c_in, c_out = t.shape
+    taken off (borrow), is tap ``g n_k + n_k - 1 - i``
+    (``bseg_common.decode_group_taps``).  ``join_slices`` gives back the
+    taps."""
+    t = bseg_common.decode_group_taps(bseg_common.kappa_words(kappa, plan),
+                                      plan)   # [G, n_k, kh, C_in, C_out]
+    g, n_k, kh, c_in, c_out = t.shape
     t = t.reshape(g * n_k, kh, c_in, c_out).permute(3, 1, 0, 2)
     n = tap_slices(plan)
     out = []
@@ -280,6 +274,38 @@ def launch_shape(b: int, h_out: int, w_out: int, c_in: int, c_out: int,
                     smem())
 
 
+def launch(x_pad: torch.Tensor, kappa: torch.Tensor, plan, *, h_out: int,
+           w_out: int, lib=None) -> torch.Tensor:
+    """Launch ``csrc/bseg.cu`` on checked CUDA operands; returns [B,
+    h_out, w_out, C_out] int32.  ``lib`` defaults to the built source (a
+    breakdown script passes patched copies)."""
+    n_groups, kh, c_out = kappa.shape[-4], kappa.shape[-3], kappa.shape[-1]
+    ws = bseg_common.word_spec(plan)
+    if ws.dtype == torch.float32:
+        # FP32M factors are exact integers below 2^24: the kernel runs
+        # the word in integers (exact conversion, not a fallback)
+        kappa = kappa.to(torch.int32)
+    b, h_pad, w_pad, c_in = x_pad.shape
+    slices = tap_slices(plan)
+    geo = launch_shape(b, h_out, w_out, c_in, c_out, kh,
+                       n_groups * plan.n_k, slices,
+                       sms=sm_count(x_pad.device.index
+                                    if x_pad.device.index is not None
+                                    else torch.cuda.current_device()))
+    out = torch.empty((b, h_out, w_out, c_out), dtype=torch.int32,
+                      device=x_pad.device)
+    if lib is None:
+        lib = build.library("bseg")
+    err = lib.bseg_conv2d(
+        x_pad.data_ptr(), kappa.data_ptr(), out.data_ptr(), b, h_pad, w_pad,
+        c_in, kh, n_groups, c_out, h_out, w_out, plan.n_k, plan.lane,
+        slices, int(ws.limbs == 2), geo.n_tile, geo.mt, geo.tr, geo.tc,
+        geo.cc, geo.grid[1], geo.smem,
+        torch.cuda.current_stream(x_pad.device).cuda_stream)
+    build.check(lib, err, "bseg_conv2d")
+    return out
+
+
 def bseg_conv2d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
                 h_out: int, w_out: int) -> torch.Tensor:
     """Dense stride-1 conv2d through the BSEG datapath (kernel B3).
@@ -302,33 +328,11 @@ def bseg_conv2d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
       removed; zero-point correction is the caller's), mod 2^32.  Any
       tap width ``plan_bseg`` admits.
     """
-    n_groups, kh, c_out = check_operands(x_pad, kappa, plan, h_out=h_out,
-                                         w_out=w_out)
+    check_operands(x_pad, kappa, plan, h_out=h_out, w_out=w_out)
     if x_pad.device.type == "cpu":
         return bseg_conv2d_plain(x_pad, kappa, plan, h_out=h_out,
                                  w_out=w_out)
-    ws = bseg_common.word_spec(plan)
-    if ws.dtype == torch.float32:
-        # FP32M factors are exact integers below 2^24: the kernel runs
-        # the word in integers (exact conversion, not a fallback)
-        kappa = kappa.to(torch.int32)
-    b, h_pad, w_pad, c_in = x_pad.shape
-    slices = tap_slices(plan)
-    geo = launch_shape(b, h_out, w_out, c_in, c_out, kh,
-                       n_groups * plan.n_k, slices,
-                       sms=sm_count(x_pad.device.index
-                                    if x_pad.device.index is not None
-                                    else torch.cuda.current_device()))
-    out = torch.empty((b, h_out, w_out, c_out), dtype=torch.int32,
-                      device=x_pad.device)
-    lib = build.library("bseg")
-    err = lib.bseg_conv2d(
-        x_pad.data_ptr(), kappa.data_ptr(), out.data_ptr(), b, h_pad, w_pad,
-        c_in, kh, n_groups, c_out, h_out, w_out, plan.n_k, plan.lane,
-        slices, int(ws.limbs == 2), geo.n_tile, geo.mt, geo.tr, geo.tc,
-        geo.cc, geo.grid[1], geo.smem,
-        torch.cuda.current_stream(x_pad.device).cuda_stream)
-    build.check(lib, err, "bseg_conv2d")
+    out = launch(x_pad, kappa, plan, h_out=h_out, w_out=w_out)
     bseg_conv2d.launches += 1
     return out
 

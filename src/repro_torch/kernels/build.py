@@ -93,8 +93,7 @@ _SIGNATURES = {
         "bseg_error_string": ([_INT], ctypes.c_char_p),
     },
     "bseg1d": {
-        "bseg_conv1d": ([_PTR, _PTR, _PTR] + [_INT] * 10 + [_U64, _U64]
-                        + [_INT] * 3 + [_PTR], _INT),
+        "bseg_conv1d": ([_PTR, _PTR, _PTR] + [_INT] * 10 + [_PTR], _INT),
         "bseg1d_error_string": ([_INT], ctypes.c_char_p),
     },
     "packbits": {
@@ -103,21 +102,27 @@ _SIGNATURES = {
         "packbits_error_string": ([_INT], ctypes.c_char_p),
     },
     "quant_matmul": {
-        "quant_matmul": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+        "quant_matmul": ([_PTR] * 6 + [_INT] * 7 + [_PTR], _INT),
         "quant_matmul_error_string": ([_INT], ctypes.c_char_p),
     },
 }
 
 
-@functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    lib = ctypes.CDLL(str(build(name)))
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """Load a library built from ``csrc/<name>.cu`` (or a copy of it)
+    at ``path``, with ``name``'s C signatures."""
+    lib = ctypes.CDLL(str(path))
     for fn, (argtypes, restype) in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     lib.error_string = getattr(lib, f"{name}_error_string")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    return load(build(name), name)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -274,16 +274,18 @@ def activation_slice_plain(x: torch.Tensor, plan,
 
 
 def launch(name: str, x: torch.Tensor, w_words: torch.Tensor, plan,
-           rows: int, k: int, g: int) -> torch.Tensor:
+           rows: int, k: int, g: int, *, lib=None) -> torch.Tensor:
     """Launch ``csrc/sdv.cu``'s ``name`` (``sdv_gemv`` or ``sdv_gemm``)
-    on CUDA tensors; returns [rows, G, n] int32."""
+    on CUDA tensors; returns [rows, G, n] int32.  ``lib`` defaults to the
+    built source (a breakdown script passes patched copies)."""
     geo = launch_geometry(rows, k, g, plan.n, gemv=name == "sdv_gemv",
                           sms=sm_count(x.device.index
                                        if x.device.index is not None
                                        else torch.cuda.current_device()),
                           pairs=len(slice_pairs(plan)))
     out = torch.empty((rows, g, plan.n), dtype=torch.int32, device=x.device)
-    lib = build.library("sdv")
+    if lib is None:
+        lib = build.library("sdv")
     err = getattr(lib, name)(
         x.data_ptr(), w_words.data_ptr(), out.data_ptr(), rows, k, g,
         plan.n, plan.lane, plan.w_a, plan.packed_width, plan_flags(plan),

@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from repro_torch.core.datapath import DATAPATHS, plan_bseg, plan_sdv
-from repro_torch.kernels import (bseg_conv1d, bseg_conv2d, ops, packbits,
-                                 quant_matmul, ref, sdv_matmul, sdv_matvec)
+from repro_torch.kernels import (bseg_common, bseg_conv1d, bseg_conv2d, ops,
+                                 packbits, quant_matmul, ref, sdv_matmul,
+                                 sdv_matvec)
 
 
 @pytest.fixture
@@ -345,6 +346,64 @@ def test_bseg_conv1d_same_padding_and_depthwise_conv2d(cuda, spec):
     assert (y.cpu() == ref.conv2d_int_ref(x, w)).all()
 
 
+@pytest.mark.parametrize("spec", ["int32", "fp32m", "dsp48e2", "dsp58"])
+@pytest.mark.parametrize("c", [37, 1792])
+def test_bseg_conv1d_every_short_row_and_a_long_one(cuda, spec, c):
+    """B4 at S_out = 1..8 (the decode shapes, one strip a row) and 2048
+    (strips of the long rows), at C = 1792 and C = 37 (C % 4 != 0: byte
+    loads), against its plain version bit for bit; x_pad random in every
+    position, the schedule's unused right end too."""
+    plan = plan_bseg(DATAPATHS[spec], 4, 4)
+    rng = np.random.default_rng(c)
+    taps = torch.tensor(rng.integers(-8, 8, (c, 4)))
+    kappa, _ = ops.prepare_bseg_taps(taps, plan)
+    for s in list(range(1, 9)) + [2048]:
+        _, need = bseg_common.schedule(plan, s, kappa.shape[-2])
+        x_pad = torch.tensor(rng.integers(0, 16, (2, need + 1, c)),
+                             dtype=torch.int8)
+        want = bseg_conv1d.bseg_conv1d_plain(x_pad, kappa, plan, s_out=s)
+        got = bseg_conv1d.bseg_conv1d(x_pad.to(cuda), kappa.to(cuda),
+                                      plan=plan, s_out=s)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), s
+
+
+@pytest.mark.parametrize("spec,wk,wi,n_taps", [
+    ("int32", 29, 1, 4), ("fp32m", 21, 1, 4), ("dsp48e2", 26, 1, 4),
+    ("dsp58", 26, 1, 4), ("dsp48e2", 4, 4, 17), ("int32", 8, 4, 8)])
+def test_bseg_conv1d_wide_taps_and_many_taps(cuda, spec, wk, wi, n_taps):
+    """B4 on the widest taps of each word (the decode's 64-bit words and
+    lanes) and on 17 taps in 6 groups of 3 (18 taps: two passes of 16
+    over the outputs), at an odd C, against its plain version."""
+    plan = plan_bseg(DATAPATHS[spec], wk, wi)
+    rng = np.random.default_rng(wk + n_taps)
+    c, s = 37, 50
+    taps = torch.tensor(rng.integers(-(1 << wk - 1), 1 << wk - 1,
+                                     (c, n_taps)))
+    kappa, _ = ops.prepare_bseg_taps(taps, plan)
+    _, need = bseg_common.schedule(plan, s, kappa.shape[-2])
+    x_pad = torch.tensor(rng.integers(0, 1 << wi, (3, need + 2, c)),
+                         dtype=torch.int8)
+    want = bseg_conv1d.bseg_conv1d_plain(x_pad, kappa, plan, s_out=s)
+    got = bseg_conv1d.bseg_conv1d(x_pad.to(cuda), kappa.to(cuda), plan=plan,
+                                  s_out=s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("s", [4, 2048])
+def test_bseg_conv1d_is_deterministic(cuda, s):
+    """Two launches of B4 on the same operands are bit-identical."""
+    plan, taps, xq, kappa, tap_sum = _conv1d_case("int32", 1792, s, 4, s)
+    x_pad = ops.bseg_conv1d_x_pad(xq, plan, n_groups=kappa.shape[-2],
+                                  n_taps=4, zero_point=8).to(cuda)
+    kd = kappa.to(cuda)
+    first = bseg_conv1d.bseg_conv1d(x_pad, kd, plan=plan, s_out=s)
+    second = bseg_conv1d.bseg_conv1d(x_pad, kd, plan=plan, s_out=s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_bseg_conv1d_rejects_operands(cuda):
     plan, taps, xq, kappa, _ = _conv1d_case("int32", 8, 6, 4, 0)
     kd = kappa.to(cuda)
@@ -464,6 +523,115 @@ def test_quant_matmul_matches_plain(cuda, w, dtype, m, k, n):
             .view(torch.float32)
         low = (x_tf32.double() @ w_int.double()) * scale.double()
         assert not ((low - exact).abs() <= limit).all()
+
+
+def _qmm_checks(got, x, w_int, scale, want=None):
+    """B5's output against the float64 product (within ``error_bound``
+    and ``ROUNDING_LIMIT`` rounding scales) and, given, its plain
+    version (within twice the bound)."""
+    bound = quant_matmul.error_bound(x, w_int, scale)
+    limit = quant_matmul.ROUNDING_LIMIT \
+        * quant_matmul.rounding_scale(x, w_int, scale)
+    exact = (x.double() @ w_int.double()) * scale.double()
+    got = got.cpu().double()
+    assert ((got - exact).abs() <= bound).all()
+    assert ((got - exact).abs() <= limit).all()
+    if want is not None:
+        assert ((got - want.double()).abs() <= 2 * bound).all()
+
+
+@pytest.mark.parametrize("w", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n_words", [(3, 77, 7), (8, 1000, 37),
+                                         (37, 300, 41), (130, 2100, 25)])
+def test_quant_matmul_every_width(cuda, w, dtype, m, k, n_words):
+    """B5 at w = 2..8 (120-column tiles at w = 3, 5, 6), ragged m, k and
+    word counts (unaligned rows: 4-byte copies and plain loads), with and
+    without a K split, against its plain version and the float64
+    product."""
+    per = 32 // w
+    x, w_int, words, scale = _qmm_case(m, k, n_words * per, w, dtype,
+                                       w * 1000 + m)
+    got = quant_matmul.quant_matmul(x.to(cuda), words.to(cuda),
+                                    scale.to(cuda), w=w)
+    torch.cuda.synchronize()
+    want = quant_matmul.quant_matmul_plain(x, words, scale, w=w)
+    _qmm_checks(got, x, w_int, scale, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", [(8, 5632, 256), (8, 2048, 2048),
+                                   (128, 2048, 256), (64, 5632, 512)])
+def test_quant_matmul_split_k_is_deterministic(cuda, dtype, m, k, n):
+    """At shapes whose grid splits K (8 and 128 rows), two launches give
+    bit-identical output (the partials are added in split order by the
+    last block of each tile, whose ticket resets itself), within the
+    checks."""
+    geo = quant_matmul.launch_geometry(
+        m, n, k, 4, torch.cuda.get_device_properties(cuda)
+        .multi_processor_count)
+    assert geo.grid[2] > 1
+    x, w_int, words, scale = _qmm_case(m, k, n, 4, dtype, 17)
+    xd, wd, sd = x.to(cuda), words.to(cuda), scale.to(cuda)
+    first = quant_matmul.quant_matmul(xd, wd, sd, w=4)
+    second = quant_matmul.quant_matmul(xd, wd, sd, w=4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _qmm_checks(first, x, w_int, scale)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 5632, 2048), (128, 2048, 256)])
+def test_quant_matmul_controls_fail(cuda, m, k, n):
+    """On float32 x the checks refuse the lower precisions: x rounded to
+    TF32 (exact product after) and B5 itself on bf16-rounded x."""
+    x, w_int, words, scale = _qmm_case(m, k, n, 4, torch.float32, 5)
+    limit = quant_matmul.ROUNDING_LIMIT \
+        * quant_matmul.rounding_scale(x, w_int, scale)
+    exact = (x.double() @ w_int.double()) * scale.double()
+    bits = x.view(torch.int32)
+    x_tf32 = ((bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF) \
+        .view(torch.float32)
+    low = (x_tf32.double() @ w_int.double()) * scale.double()
+    assert not ((low - exact).abs() <= limit).all()
+    y16 = quant_matmul.quant_matmul(x.bfloat16().to(cuda), words.to(cuda),
+                                    scale.to(cuda), w=4)
+    torch.cuda.synchronize()
+    assert not ((y16.cpu().double() - exact).abs() <= limit).all()
+
+
+def test_quant_matmul_float32_edge_values(cuda):
+    """float32 x split into its three bf16 parts loses nothing: rows with
+    one nonzero term (weight 1) equal the plain version bit for bit, at
+    edge values of the split: signed zeros, the largest and smallest
+    normal float32, long runs of significand ones, and values whose last
+    part is a bf16 subnormal (|x| >= 2^-110); and a random mix of them
+    stays within the checks."""
+    f32 = np.finfo(np.float32)
+    vals = np.array([0.0, -0.0, f32.max, -f32.max, f32.tiny, -f32.tiny,
+                     1.9999999, -1.9999999, 1.0 + 2.0 ** -23,
+                     1.9999999 * 2.0 ** -100, 1.9999999 * 2.0 ** -110,
+                     2.0 ** -105 * (1 + 2.0 ** -23), 2.0 ** -108 * 1.5],
+                    dtype=np.float32)
+    m, k, n = len(vals), 64, 8
+    x = torch.zeros((m, k), dtype=torch.float32)
+    x[torch.arange(m), torch.arange(m) * 3] = torch.tensor(vals)
+    w_int = torch.ones((k, n), dtype=torch.int64)
+    scale = torch.full((n,), 0.5, dtype=torch.float32)
+    words = packbits.pack_words_plain(w_int.to(torch.int8), w=4)
+    got = quant_matmul.quant_matmul(x.to(cuda), words.to(cuda),
+                                    scale.to(cuda), w=4)
+    torch.cuda.synchronize()
+    want = quant_matmul.quant_matmul_plain(x, words, scale, w=4)
+    assert torch.equal(got.cpu(), want)
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.choice(vals[[0, 1, 6, 7, 8, 9, 11]], (8, 640)))
+    w_int = torch.tensor(rng.integers(-8, 8, (640, 64)))
+    scale = torch.tensor(rng.uniform(0.001, 0.1, 64), dtype=torch.float32)
+    words = packbits.pack_words_plain(w_int.to(torch.int8), w=4)
+    got = quant_matmul.quant_matmul(x.to(cuda), words.to(cuda),
+                                    scale.to(cuda), w=4)
+    torch.cuda.synchronize()
+    _qmm_checks(got, x, w_int, scale)
 
 
 def test_quant_matmul_dispatch_and_refusals(cuda):
