@@ -75,6 +75,13 @@ exit at the first failure:
      ``csrc/packbits.cu`` at every tinyllama projection shape, the LM
      head and a ragged shape, W2/W4/W8, and B6 at the stacked shapes
      serve_params gives it, each against its plain version bit for bit;
+     the fused B7 (unpack and dequantize, the serving path's) at every
+     tinyllama shape at W4 and, with edge scales (a subnormal column,
+     bf16 rounding ties, overflow), at W2..W8 on ragged shapes (d_out a
+     multiple of neither 32 / w nor 8, and one that trims inside a word)
+     and a stacked one, bf16 and float32 out, against its plain version
+     bit for bit, and timed per decode step beside its bound and the
+     route it replaced (int8 B7 + scale, trim and cast in torch);
      B5 (``csrc/quant_matmul.cu``) at those shapes x 8 and 128 rows x
      W4/W8 x bf16/f32 activations, against its plain version and the
      float64 product within the float32 summation bound
@@ -90,8 +97,10 @@ exit at the first failure:
      no library time);
   9. memory serve — full-width tinyllama-1.1b packed by
      ``serve_params(compute="memory", min_size=1024)`` (one B6 launch per
-     container; words == the plain pack, B7 of them == the plain
-     unpack), a 16-token prefill of 8 prompts (154 B7), 16 decode steps
+     container; words == the plain pack, int8 B7 of them == the plain
+     unpack, and each container's materialized bf16 weights (fused B7)
+     == the route it replaced), a 16-token prefill of 8 prompts (154
+     fused B7), 16 decode steps
      and ``single_batch_loop`` (155 B7 per step: 22 x 7 projections + the
      LM head; no other kernel or plain call), with ms/step, tok/s, peak
      memory and the device busy share; then every container's words
@@ -181,9 +190,12 @@ WIDE_B3_PLANS = [("dsp58", 12, 4), ("int32", 29, 1), ("fp32m", 21, 1),
 #: the kernel functions of csrc/*.cu, as the profiler names them
 PORT_KERNELS = ("sdv_gemv_kernel", "sdv_gemm_kernel", "bseg_conv2d_kernel",
                 "bseg_conv1d_kernel", "quant_matmul_kernel",
-                "pack_words_kernel", "unpack_words_kernel")
-#: the launch counters that counts() reads
-KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7")
+                "pack_words_kernel", "unpack_words_kernel",
+                "unpack_dequant_kernel")
+#: the launch counters that counts() reads: B7 is the fused
+#: unpack-and-dequantize the serving path runs, B7_int8 the int8 unpack
+#: (the TPU kernel's counterpart, on no path)
+KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B7_int8")
 #: clock cycles the card spins before each timed call (~1 ms)
 SPIN_CYCLES = 2_000_000
 
@@ -637,10 +649,12 @@ def _counters():
     return ({"B1": sdv_matvec.sdv_matvec, "B2": sdv_matmul.sdv_matmul,
              "B3": bseg_conv2d.bseg_conv2d, "B4": bseg_conv1d.bseg_conv1d,
              "B5": quant_matmul.quant_matmul, "B6": packbits.pack_words,
-             "B7": packbits.unpack_words},
+             "B7": packbits.unpack_dequant,
+             "B7_int8": packbits.unpack_words},
             (sdv_matmul.sdv_matmul_plain, bseg_conv2d.bseg_conv2d_plain,
              bseg_conv1d.bseg_conv1d_plain, quant_matmul.quant_matmul_plain,
-             packbits.pack_words_plain, packbits.unpack_words_plain))
+             packbits.pack_words_plain, packbits.unpack_words_plain,
+             packbits.unpack_dequant_plain))
 
 
 def counts():
@@ -1288,6 +1302,90 @@ def packbits_case(m, n, w, gen, flush, where):
             "B7": dict(ms=ms7, plain_ms=plain7, bound_ms=b_ms)}
 
 
+#: fused B7's ragged cases: (rows, rows_per_scale, d_out) — two groups of
+#: 37 rows with a d_out that is a multiple of neither 32 / w nor 8 (4-byte
+#: word loads, scalar stores), and one group of 64 rows with d_out 2040
+#: (16-byte word loads at most widths; at W2 and W3 the last word is
+#: trimmed inside it)
+DEQUANT_RAGGED = ((74, 37, 1001), (64, 64, 2040))
+
+
+def before_route(words, scale, *, w, d_out, rows_per_scale, dtype):
+    """What memory-mode serving ran before the fused B7: the int8 unpack
+    (B7's int8 kernel), then float32 times each group's scale row, the
+    trim and the cast, as torch ops."""
+    import torch
+    from repro_torch.kernels import packbits
+    q = packbits.unpack_words(words, w=w)
+    deq = q.to(torch.float32).reshape(-1, rows_per_scale, q.shape[1]) \
+        * scale[:, None, :]
+    return deq.reshape(q.shape)[:, :d_out].to(dtype)
+
+
+def same_bits(a, b):
+    import torch
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view))
+
+
+def dequant_case(m, nw, w, d_out, rows_per_scale, dtype, gen, flush, where,
+                 edges=False, timed=True):
+    """Fused B7 on random words [m, nw] (every field value) and scales
+    [m / rows_per_scale, nw * 32 / w]: against its plain version and the
+    route it replaced, bit for bit; with ``edges`` the first columns'
+    scales are a subnormal, two bf16 rounding ties (1 + 2^-8, 1 + 3 2^-8:
+    q = +-1, +-2, +-4 land halfway) and an overflow.  Returns its time,
+    plain time, bound and the replaced route's time (``timed``)."""
+    import torch
+    from repro_torch.kernels import packbits
+    per = 32 // w
+    words = torch.randint(-2**31, 2**31, (m, nw), generator=gen,
+                          device=gen.device, dtype=torch.int32)
+    scale = torch.rand((m // rows_per_scale, nw * per), generator=gen,
+                       device=gen.device) * 0.05 + 0.001
+    if edges:
+        for col, v in enumerate((9e-41, 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8,
+                                 3e38)):
+            scale[:, col] = v
+    kw = dict(w=w, d_out=d_out, rows_per_scale=rows_per_scale, dtype=dtype)
+
+    def run():
+        return packbits.unpack_dequant(words, scale, **kw)
+    got = run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = packbits.unpack_dequant_plain(words, scale, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(same_bits(got, want), f"fused B7 != plain at {where} W{w} {dtype}")
+    check(same_bits(got, before_route(words, scale, **kw)),
+          f"fused B7 != the int8 unpack + torch dequant at {where} W{w}")
+    vec = packbits.vector_store(w, dtype, d_out)
+    spans, slabs, rows = packbits.launch_shape(
+        m, nw, rows_per_scale,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    nbytes = words.numel() * 4 + scale.numel() * 4 \
+        + got.numel() * got.element_size()
+    b_ms, _ = bound_ms(nbytes, 0)
+    out = dict(ms=0.0, plain_ms=plain_ms, bound_ms=b_ms, before_ms=0.0)
+    line = (f"[memory] fused B7 W{w} {where} {str(dtype)[6:]} [{m}, {nw}] "
+            f"words -> [{m}, {d_out}] ({m // rows_per_scale} scale groups; "
+            f"{'16' if nw % 4 == 0 else '4'}-byte word loads, "
+            f"{packbits.store_unit(w, dtype) if vec else got.element_size()}"
+            f"-byte stores; grid {spans} x {slabs}, {rows} rows a slab): "
+            f"== plain == the replaced route, bit for bit")
+    if timed:
+        out["ms"] = event_ms(run, 10, flush)
+        out["before_ms"] = event_ms(
+            lambda: before_route(words, scale, **kw), 10, flush)
+        line += (f"; {out['ms']:.4f} ms (bound {b_ms:.4f} ms by bytes, "
+                 f"{b_ms / out['ms']:.1%}), replaced route "
+                 f"{out['before_ms']:.4f} ms, plain {plain_ms:.2f} ms")
+    print(line)
+    return out
+
+
 def quant_matmul_case(rows, k, n, w, dtype, gen, flush, where):
     """B5 on random activations [rows, k] and W-bit lane words [k, n]:
     against its plain version (within twice ``error_bound``) and the
@@ -1414,7 +1512,7 @@ def phase_memory_kernels(dev, flush):
     t_phase = time.perf_counter()
     out = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=None,
                       max_abs_err=0)
-           for name in ("B6", "B7")}
+           for name in ("B6", "B7_int8")}
     for w in PACK_WIDTHS:
         per = 32 // w
         for (k, n), mult in memory_shapes().items():
@@ -1422,7 +1520,7 @@ def phase_memory_kernels(dev, flush):
             if w == MEMORY_BITS:           # one step: 22 layers + the head
                 times = mult * n_layers if mult else 1
                 for key in ("ms", "plain_ms", "bound_ms"):
-                    out["B7"][key] += times * r["B7"][key]
+                    out["B7_int8"][key] += times * r["B7"][key]
         rows, nw = RAGGED_PACK
         packbits_case(rows, nw * per, w, gen, flush, "ragged")
     # B6 as serve_params calls it: one [L * K, N] call per stacked leaf
@@ -1432,7 +1530,29 @@ def phase_memory_kernels(dev, flush):
                           f"stacked K={k} N={n}" if mult else "LM head")
         for key in ("ms", "plain_ms", "bound_ms"):
             out["B6"][key] += max(mult, 1) * r["B6"][key]
-    for name in ("B6", "B7"):
+    # the fused B7 as materialize calls it: one [K, N / 8] W4 call per
+    # projection and the LM head, one scale row; per decode step
+    fused = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, before_ms=0.0,
+                 library_ms=None, max_abs_err=0, bound_by="bytes")
+    for dtype in (torch.bfloat16, torch.float32):
+        for (k, n), mult in memory_shapes().items():
+            r = dequant_case(k, n // (32 // MEMORY_BITS), MEMORY_BITS, n, k,
+                             dtype, gen, flush,
+                             "LM head" if not mult else f"x{mult} per layer")
+            if dtype == torch.bfloat16:
+                times = mult * n_layers if mult else 1
+                for key in ("ms", "plain_ms", "bound_ms", "before_ms"):
+                    fused[key] += times * r[key]
+        for w in range(2, 9):
+            per = 32 // w
+            for rows, rps, d_out in DEQUANT_RAGGED:
+                dequant_case(rows, -(-d_out // per), w, d_out, rps, dtype,
+                             gen, flush, "ragged", edges=True, timed=False)
+        # a stacked container: 22 layers of q/o, one scale row a layer
+        dequant_case(n_layers * 2048, 2048 // 8, MEMORY_BITS, 2048, 2048,
+                     dtype, gen, flush, "stacked", edges=True, timed=False)
+    out["B7"] = fused
+    for name in ("B6", "B7_int8"):
         out[name]["bound_by"] = "bytes"
     b5 = {rows: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
           for rows in (DECODE_ROWS, PREFILL_ROWS)}
@@ -1466,11 +1586,18 @@ def phase_memory_kernels(dev, flush):
                      prefill_library_ms=b5[PREFILL_ROWS]["library_ms"])
     print(f"[memory] B6 per serve_params (7 stacked W4 leaves + the LM "
           f"head): {out['B6']['ms']:.3f} ms (bound {out['B6']['bound_ms']:.3f}"
-          f" ms), plain {out['B6']['plain_ms']:.1f} ms; B7 per decode step "
-          f"(154 W4 projections + the LM head): {out['B7']['ms']:.3f} ms "
-          f"(bound {out['B7']['bound_ms']:.3f} ms), plain "
-          f"{out['B7']['plain_ms']:.1f} ms; no single PyTorch call packs or "
-          f"unpacks bit fields, so B6/B7 have no library time")
+          f" ms), plain {out['B6']['plain_ms']:.1f} ms; int8 B7 per decode "
+          f"step's shapes (154 W4 projections + the LM head): "
+          f"{out['B7_int8']['ms']:.3f} ms (bound "
+          f"{out['B7_int8']['bound_ms']:.3f} ms), plain "
+          f"{out['B7_int8']['plain_ms']:.1f} ms; no single PyTorch call "
+          f"packs or unpacks bit fields, so B6/B7 have no library time")
+    print(f"[memory] fused B7 per decode step (154 W4 projections + the LM "
+          f"head, bf16 out, 155 flushed calls): {fused['ms']:.3f} ms (bound "
+          f"{fused['bound_ms']:.3f} ms by bytes, "
+          f"{fused['bound_ms'] / fused['ms']:.1%}); the route it replaced "
+          f"(int8 B7 + scale, trim and cast in torch) "
+          f"{fused['before_ms']:.3f} ms; plain {fused['plain_ms']:.1f} ms")
     print(f"[memory] B5 rounding readings (|y - exact| over "
           f"quant_matmul.rounding_scale, limit "
           f"{quant_matmul.ROUNDING_LIMIT}): largest {max(readings):.3f} over "
@@ -1512,7 +1639,8 @@ def phase_memory_serve(dev, card):
     from repro_torch.launch.serve import single_batch_loop
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill_step, serve_params)
-    from repro_torch.models.quantized import count_packed, quantize_linear
+    from repro_torch.models.quantized import (count_packed, materialize,
+                                              quantize_linear)
 
     cfg = get_arch("tinyllama-1.1b")
     per_step = 7 * cfg.n_layers + 1
@@ -1543,12 +1671,21 @@ def phase_memory_serve(dev, card):
         back = packbits.unpack_words(words, w=pl.bits)
         check(torch.equal(back, packbits.unpack_words_plain(words, w=pl.bits))
               and torch.equal(back, q),
-              f"{'/'.join(path)}: B7 != the plain unpack")
+              f"{'/'.join(path)}: int8 B7 != the plain unpack")
+        dense = materialize(pl, cfg.dtype)
+        check(same_bits(dense.reshape(-1, pl.d_out), before_route(
+            words, pl.scale.reshape(-1, pl.scale.shape[-1]), w=pl.bits,
+            d_out=pl.d_out, rows_per_scale=pl.words.shape[-2],
+            dtype=cfg.dtype)),
+            f"{'/'.join(path)}: materialized weights (fused B7) != the "
+            "int8 unpack + torch dequant")
+        del dense
     del params
     print(f"[memory serve] {cfg.name}: serve_params(compute=\"memory\") in "
           f"{t_pack * 1e3:.1f} ms, launches {c_pack}; {len(leaves)} "
-          "containers: B6 words == the plain pack, B7 of them == the plain "
-          "unpack")
+          "containers: B6 words == the plain pack, int8 B7 of them == the "
+          "plain unpack, materialized bf16 weights (fused B7) == the int8 "
+          "unpack + torch dequant, bit for bit")
 
     rng = np.random.default_rng(0)
     prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
@@ -1778,13 +1915,16 @@ def main() -> int:
                ("one tinyllama serve_params(compute=\"memory\"): 7 stacked "
                 "W4 leaves of 22 layers + the LM head; no single PyTorch "
                 "call packs bit fields: no library time")),
-        "B7": ("unpack_words", "packbits.cu",
+        "B7": ("unpack_dequant", "packbits.cu",
                "src/repro/kernels/packbits.py:41",
                {"tinyllama memory prefill": mem_launches["B7 prefill"],
                 "tinyllama memory decode": mem_launches["B7 decode"]},
                ("one tinyllama memory decode step: 154 W4 projections + the "
-                "LM head; no single PyTorch call unpacks bit fields: no "
-                "library time")),
+                "LM head, unpacked and dequantized to bf16 in one pass "
+                "(unpack_dequant_kernel); before_ms: the route it replaced "
+                "(int8 B7 + scale, trim and cast in torch); int8_*: the "
+                "int8 unpack_words_kernel at the same shapes; no single "
+                "PyTorch call unpacks bit fields: no library time")),
     }
     for kname, (fn, src, replaces, paths, per) in mem_kernels.items():
         acc = memory[kname]
@@ -1805,6 +1945,11 @@ def main() -> int:
             entry.update(prefill_ms=acc["prefill_ms"],
                          prefill_bound_ms=acc["prefill_bound_ms"],
                          prefill_library_ms=acc["prefill_library_ms"])
+        if kname == "B7":
+            entry.update(before_ms=acc["before_ms"],
+                         int8_ms=memory["B7_int8"]["ms"],
+                         int8_plain_ms=memory["B7_int8"]["plain_ms"],
+                         int8_bound_ms=memory["B7_int8"]["bound_ms"])
         kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -99,6 +99,7 @@ _SIGNATURES = {
     "packbits": {
         "pack_words": ([_PTR, _PTR, _I64] + [_INT] * 3 + [_PTR], _INT),
         "unpack_words": ([_PTR, _PTR, _I64] + [_INT] * 3 + [_PTR], _INT),
+        "unpack_dequant": ([_PTR] * 3 + [_INT] * 9 + [_PTR], _INT),
         "packbits_error_string": ([_INT], ctypes.c_char_p),
     },
     "quant_matmul": {

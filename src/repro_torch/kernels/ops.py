@@ -3,7 +3,9 @@ of ``repro.kernels.ops``.
 
 ``pack_weights`` / ``unpack_weights`` are the memory-packed storage
 layout (kernels B6 / B7, ``kernels/packbits``): 32/w w-bit fields per
-int32 lane word; ``quant_matmul`` is kernel B5 on those words.
+int32 lane word; ``unpack_dequant`` is B7 fused with the scale, trim and
+cast of ``materialize`` (the serving path); ``quant_matmul`` is kernel
+B5 on those words.
 
 Dispatch table for ``packed_matmul`` (mode -> kernel -> constraints):
 
@@ -99,6 +101,18 @@ def unpack_weights(packed: torch.Tensor, *, w: int) -> torch.Tensor:
     """[m, nw] int32 lane words -> [m, nw*(32/w)] int8, sign-extended
     (kernel B7)."""
     return packbits.unpack_words(packed.contiguous(), w=w)
+
+
+def unpack_dequant(packed: torch.Tensor, scale: torch.Tensor, *, w: int,
+                   d_out: int, rows_per_scale: int,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    """[m, nw] int32 lane words and scales [..., n] (one row of n = nw *
+    (32/w) column scales per group of ``rows_per_scale`` rows) -> [m,
+    d_out] ``dtype``: sign-extended fields times their scale, trimmed
+    and cast in one pass (kernel B7 fused with the dequant)."""
+    return packbits.unpack_dequant(
+        packed.contiguous(), scale.reshape(-1, scale.shape[-1]).contiguous(),
+        w=w, d_out=d_out, rows_per_scale=rows_per_scale, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

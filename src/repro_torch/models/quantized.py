@@ -9,8 +9,9 @@ unchanged.  Two packing modes:
     projection kernel becomes a ``PackedLinear`` — w-bit symmetric
     per-output-channel quantization, 32/w values per int32 lane word
     (packed by kernel B6, ``ops.pack_weights``); the layers materialize
-    it (kernel B7, ``ops.unpack_weights``, then the scale) and multiply
-    in the activation dtype, as the reference does;
+    it (kernel B7 fused with the scale, trim and cast,
+    ``ops.unpack_dequant``) and multiply in the activation dtype, as the
+    reference does;
   * ``compute="sdv"`` (``packed_compute_sdv``): projection kernels — 2-D
     leaves and stacked layer tensors of them — become ``SDVLinear``:
     the same quantization stored as SDV words ([K, G], n output channels
@@ -259,15 +260,17 @@ def bseg_conv_apply(qc: BSEGConv, x: torch.Tensor, *,
 def materialize(pl, dtype=torch.bfloat16) -> torch.Tensor:
     """Unpack + dequantize -> [..., d_in, d_out] in ``dtype``.
 
-    A ``PackedLinear`` is unpacked by ``ops.unpack_weights`` (kernel B7,
-    one call on the [-1, nw] view of its words), then scaled in float32,
-    trimmed to ``d_out`` and cast, as the reference does."""
+    A ``PackedLinear`` is one ``ops.unpack_dequant`` call (kernel B7 fused
+    with the dequant) on the [-1, nw] view of its words, one group of
+    ``d_in`` rows per layer: each field in float32 times its column's
+    scale, trimmed to ``d_out`` and cast to ``dtype`` (bfloat16 or
+    float32), bit for bit the reference's unpack, scale, trim and cast."""
     if isinstance(pl, PackedLinear):
-        q = ops.unpack_weights(pl.words.reshape(-1, pl.words.shape[-1]),
-                               w=pl.bits)
-        q = q.reshape(pl.words.shape[:-1] + (q.shape[-1],))
-        deq = q.to(torch.float32) * pl.scale
-        return deq[..., :pl.d_out].to(dtype)
+        out = ops.unpack_dequant(pl.words.reshape(-1, pl.words.shape[-1]),
+                                 pl.scale, w=pl.bits, d_out=pl.d_out,
+                                 rows_per_scale=pl.words.shape[-2],
+                                 dtype=dtype)
+        return out.reshape(pl.words.shape[:-1] + (pl.d_out,))
     if pl.stacked:
         return torch.stack([materialize(pl.layer(i), dtype)
                             for i in range(pl.words.shape[0])])

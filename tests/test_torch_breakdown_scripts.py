@@ -38,7 +38,8 @@ print(n)
 
 @pytest.mark.parametrize("script,source", [
     ("sdv_breakdown", "sdv"), ("bseg_breakdown", "bseg"),
-    ("conv1d_breakdown", "bseg1d"), ("qmm_breakdown", "quant_matmul")])
+    ("conv1d_breakdown", "bseg1d"), ("qmm_breakdown", "quant_matmul"),
+    ("dequant_breakdown", "packbits")])
 def test_breakdown_patches_find_their_targets(script, source):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", _CHECK,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1 GEMV, B2 GEMM, B3 BSEG conv2d, B4 BSEG
-depthwise conv1d, B5 quantized matmul, B6/B7 lane pack/unpack) against
+depthwise conv1d, B5 quantized matmul, B6/B7 lane pack/unpack and the
+fused unpack-and-dequantize B7 runs as on the serving path) against
 their plain torch version and the exact result (integer, or the float64
 product within the float32 summation bound and within
 ``ROUNDING_LIMIT`` typical float32 roundings for B5).
@@ -480,6 +481,95 @@ def test_packbits_counters_and_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         packbits.unpack_words(words.t(), w=4)
 
+
+
+def _dequant_operands(m, nw, w, rows_per_scale, seed):
+    """Random words (every field value) and scales with a subnormal
+    column, two on bf16 rounding ties and one that overflows."""
+    per = 32 // w
+    rng = np.random.default_rng(seed)
+    words = torch.tensor(rng.integers(-2**31, 2**31, (m, nw)),
+                         dtype=torch.int32)
+    scale = torch.tensor(rng.uniform(0.001, 0.1,
+                                     (m // rows_per_scale, nw * per)),
+                         dtype=torch.float32)
+    for col, v in enumerate((9e-41, 1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8,
+                             3e38)[:nw * per]):
+        scale[:, col] = v
+    return words, scale
+
+
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("w", [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("m,nw", [(1, 1), (3, 37), (37, 301), (256, 1000)])
+def test_unpack_dequant_matches_plain(cuda, m, nw, w, dtype):
+    """The fused B7 against its plain version (on the CPU), bit for bit, at
+    ragged row and word counts, a d_out that trims the last word, and
+    (256 rows) four groups of 64 rows with their own scales."""
+    per = 32 // w
+    d_out = max(1, nw * per - 3)
+    rps = 64 if m == 256 else m
+    words, scale = _dequant_operands(m, nw, w, rps, seed=w * 100 + m)
+    kw = dict(w=w, d_out=d_out, rows_per_scale=rps, dtype=dtype)
+    want = packbits.unpack_dequant_plain(words, scale, **kw)
+    got = packbits.unpack_dequant(words.to(cuda), scale.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d_out", [2048, 2047, 2044, 2040, 2033])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_unpack_dequant_misaligned(cuda, d_out, offset, dtype):
+    """W4 rows of 256 words: 16-byte word loads on an aligned base, 4-byte
+    loads on a base one word off; vector stores where d_out keeps every
+    row 16 bytes aligned (2048, 2040 trimming a whole word; 2044 for
+    float32), scalar stores otherwise — all bit for bit the plain
+    version."""
+    words, scale = _dequant_operands(96, 256, 4, 32, seed=d_out + offset)
+    buf = torch.empty(words.numel() + offset, dtype=torch.int32, device=cuda)
+    dev_words = buf[offset:].view(words.shape)
+    dev_words.copy_(words)
+    kw = dict(w=4, d_out=d_out, rows_per_scale=32, dtype=dtype)
+    got = packbits.unpack_dequant(dev_words, scale.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert _same_bits(got.cpu(), packbits.unpack_dequant_plain(words, scale,
+                                                               **kw))
+
+
+def test_unpack_dequant_counters_and_refusals(cuda):
+    words, scale = _dequant_operands(8, 4, 4, 4, seed=0)
+    words, scale = words.to(cuda), scale.to(cuda)
+    fused, b7 = packbits.unpack_dequant.launches, packbits.unpack_words.launches
+    plain = packbits.unpack_dequant_plain.calls \
+        + packbits.unpack_words_plain.calls
+    out = ops.unpack_dequant(words, scale, w=4, d_out=30, rows_per_scale=4)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 30) and out.dtype == torch.bfloat16
+    assert packbits.unpack_dequant.launches == fused + 1
+    assert packbits.unpack_words.launches == b7
+    assert packbits.unpack_dequant_plain.calls \
+        + packbits.unpack_words_plain.calls == plain
+    kw = dict(w=4, d_out=30, rows_per_scale=4)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        packbits.unpack_dequant(words, scale, dtype=torch.float16, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        packbits.unpack_dequant(words.t().contiguous().t(), scale, **kw)
+    with pytest.raises(ValueError, match="scale must be float32"):
+        packbits.unpack_dequant(words, scale[:1], **kw)
+    with pytest.raises(ValueError, match="scale on"):
+        packbits.unpack_dequant(words, scale.cpu(), **kw)
+    shifted = torch.empty(scale.numel() + 1, device=cuda)[1:].view(
+        scale.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        packbits.unpack_dequant(words, shifted, **kw)
+    assert packbits.unpack_dequant.launches == fused + 1
 
 def _qmm_case(m, k, n, w, dtype, seed):
     rng = np.random.default_rng(seed)
