@@ -106,7 +106,23 @@ exit at the first failure:
      memory and the device busy share; then every container's words
      through ``packed_matmul(plan=None)`` (B5) at 8 and 8 x 16 rows;
      reduced tinyllama, mamba2-130m and recurrentgemma-2b in memory mode
-     on the card against the CPU.
+     on the card against the CPU;
+ 10. engine — full-width tinyllama-1.1b through the continuous-batching
+     engine (``repro_torch.serving.Engine``), buckets of batch 8 at
+     s_max 32 and 64, 8-token chunked prefill per slot, mid-wave joins:
+     an SDV W4A8 burst of 32 seeded requests (prompts and budgets of
+     8-24 tokens) on the plans the planner picks (``plan_policy``
+     resolves to "auto"; every layer's plan == the analytic
+     ``choose_plan``), every outcome "ok", at least one mid-wave join,
+     154 B1 per decode iteration and per prefill-slot call and nothing
+     else, and 4 requests (the first, a joiner, the longest, the last)
+     run alone again through the same engine, bit for bit; a fault run
+     of 8 that loses one wave mid-flight (``FaultPlan`` kernel_loss) and
+     gives the clean tokens; a memory-mode run of 8 (8 B6 at set-up, 155
+     B7 per decode iteration and 154 per prefill-slot call).  Each run
+     prints requests/s, tok/s, p50/p99 latency and queue wait, decode and
+     prefill ms per iteration, peak memory, and the SDV and memory runs
+     the device busy share of one decode iteration.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -173,6 +189,16 @@ PACK_WIDTHS = (2, 4, 8)
 QMM_WIDTHS = (4, 8)
 RAGGED_PACK = (37, 301)
 MEMORY_BITS = 4
+#: the engine phase: full-width tinyllama-1.1b, buckets of batch BATCH
+#: at these s_max, chunked prefill of 8 tokens, a burst of 32 requests
+#: whose prompt lengths and decode budgets are drawn in ENGINE_LENGTHS;
+#: the fault and memory runs take the first 8 of them
+ENGINE_BUCKETS = (32, 64)
+ENGINE_CHUNK = 8
+ENGINE_REQUESTS = 32
+ENGINE_LENGTHS = (8, 24)
+ENGINE_FAULT_REQUESTS = 8
+ENGINE_MEMORY_REQUESTS = 8
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -1797,6 +1823,213 @@ def phase_memory_serve(dev, card):
             "B7 prefill": c_prefill["B7"], "B7 decode": c_decode["B7"]}
 
 
+def engine_specs(vocab, n, seed=0):
+    """``n`` seeded (prompt, new_tokens) requests: prompt lengths and
+    decode budgets each drawn in ``ENGINE_LENGTHS``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lo, hi = ENGINE_LENGTHS
+    out = []
+    for _ in range(n):
+        pl = int(rng.integers(lo, hi + 1))
+        nt = int(rng.integers(lo, hi + 1))
+        out.append((tuple(int(t) for t in rng.integers(0, vocab, pl)), nt))
+    return out
+
+
+def engine_run(engine, specs):
+    """Submit every spec before the first step (a burst), drain, and
+    return (rids, {rid: Completion}, wall seconds)."""
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, nt) for p, nt in specs]
+    comps = {c.rid: c for c in engine.drain()}
+    return rids, comps, time.perf_counter() - t0
+
+
+def engine_report(label, engine, wall, card):
+    """Print one engine run's end-to-end and per-iteration numbers;
+    returns (decode iterations, prefill-slot calls, decode ms per
+    iteration)."""
+    import torch
+    snap = engine.metrics.snapshot()
+    buckets = snap["buckets"].values()
+    dec = sum(b.get("decode_steps", 0) for b in buckets)
+    pre = sum(b.get("prefill_calls", 0) for b in buckets)
+    dec_ms = sum(b.get("decode_wall_s", 0.0) for b in buckets) / max(dec, 1)
+    pre_ms = sum(b.get("prefill_wall_s", 0.0) for b in buckets) / max(pre, 1)
+    done = snap["requests_completed"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[engine] {label}: {done} requests in {wall:.3f} s "
+          f"({done / wall:.2f} requests/s, {snap['tokens_out'] / wall:.1f} "
+          f"tok/s; engine span {snap['tokens_per_s']:.1f} tok/s), "
+          f"latency p50 {snap['latency']['p50_ms']:.1f} / p99 "
+          f"{snap['latency']['p99_ms']:.1f} ms, queue wait p50 "
+          f"{snap['queue_wait']['p50_ms']:.1f} / p99 "
+          f"{snap['queue_wait']['p99_ms']:.1f} ms; {snap['waves']['count']} "
+          f"waves, {dec} decode iterations at {dec_ms * 1e3:.2f} ms, {pre} "
+          f"prefill-slot calls at {pre_ms * 1e3:.2f} ms, "
+          f"{snap['waves']['midwave_joins']} mid-wave joins, occupancy "
+          f"{snap['waves']['occupancy']:.3f}; peak memory {peak:.2f} GiB "
+          f"({card})")
+    return dec, pre, dec_ms
+
+
+def phase_engine(dev, card):
+    """Full-width tinyllama-1.1b through the continuous-batching engine
+    (``repro_torch.serving.Engine``): an SDV W4A8 run on the planner's
+    plans (``plan_policy`` resolved to "auto": the plan cache does not
+    exist), a fault run that loses one wave mid-flight, and a memory-mode
+    run.  Returns the launch counts of those runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import SDVLinear, init_params
+    from repro_torch.planner import arch_layer_specs, choose_plan
+    from repro_torch.serving import BucketShape, Engine, FaultPlan
+
+    cfg = get_arch("tinyllama-1.1b")
+    per_call = 7 * cfg.n_layers
+    params = init_params(cfg, seed=0, device=dev)
+    buckets = tuple(BucketShape(BATCH, s) for s in ENGINE_BUCKETS)
+    specs = engine_specs(cfg.vocab, ENGINE_REQUESTS)
+
+    def make(compute, faults=None):
+        with tempfile.TemporaryDirectory() as td:
+            engine = Engine(cfg, params, compute=compute, weight_bits=4,
+                            act_bits=8, plan_cache=f"{td}/absent.json",
+                            buckets=buckets, prefill_chunk=ENGINE_CHUNK,
+                            faults=faults, device=dev)
+        for b in buckets:            # kernel builds and first calls
+            engine.warmup(b, inject=False)
+        torch.cuda.synchronize()
+        return engine
+
+    # --- SDV run: a burst of 32 requests on the planner's plans ---------
+    t0 = time.perf_counter()
+    engine = make("sdv")
+    check(engine.plan_policy == "auto", engine.plan_policy)
+    print(f"[engine] {cfg.name}: SDV W4A8, plan policy "
+          f"{engine.plan_policy}, buckets {[b.key for b in buckets]}, "
+          f"prefill chunk {ENGINE_CHUNK}; engine, packing and warmup in "
+          f"{time.perf_counter() - t0:.1f} s")
+    qparams = engine._qparams(BATCH)
+    want = {spec.name: choose_plan(spec).plan for spec in arch_layer_specs(
+        cfg.name, bits=4, act_bits=8, rows=BATCH, min_size=1024)}
+    got = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            name = f"{path}/{k}" if path else k
+            if isinstance(v, dict):
+                walk(v, name)
+            elif isinstance(v, SDVLinear):
+                got[name] = v.plan
+    walk(qparams, "")
+    check(got == want and len(got) == 8,
+          f"engine plans {got} != the analytic planner's {want}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    rids, comps, wall = engine_run(engine, specs)
+    c_sdv = counts()
+    check(all(engine.outcomes[r]["outcome"] == "ok" for r in rids)
+          and sorted(comps) == sorted(rids),
+          f"SDV run outcomes {[engine.outcomes.get(r) for r in rids]}")
+    for (prompt, nt), rid in zip(specs, rids):
+        out = comps[rid].tokens
+        check(len(out) == nt and all(0 <= t < cfg.vocab for t in out),
+              f"rid {rid}: tokens {out}")
+    dec, pre, dec_ms = engine_report(
+        f"SDV burst of {len(specs)}", engine, wall, card)
+    check(engine.metrics.midwave_joins >= 1, "no mid-wave join")
+    check(engine.metrics.decode_launches == dec,
+          f"{engine.metrics.decode_launches} decode launches != {dec}")
+    check(c_sdv == expect(B1=per_call * (dec + pre)),
+          f"SDV engine launches {c_sdv}, want B1={per_call} x ({dec} "
+          f"decode iterations + {pre} prefill-slot calls)")
+    joiner = next(c.rid for c in sorted(comps.values(), key=lambda c: c.rid)
+                  if c.midwave_join)
+    spec_of = dict(zip(rids, specs))
+    longest = max(rids, key=lambda r: len(spec_of[r][0]) + spec_of[r][1])
+    alone_rids = list(dict.fromkeys([rids[0], joiner, longest, rids[-1]]))
+    for rid in alone_rids:
+        again = engine.submit(*spec_of[rid])
+        alone = {c.rid: c for c in engine.drain()}[again]
+        check(alone.tokens == comps[rid].tokens,
+              f"rid {rid} alone {alone.tokens} != in the burst "
+              f"{comps[rid].tokens}")
+    words = sorted({f"{p.spec.name} n={p.n}" for p in got.values()})
+    print(f"[engine] alone runs of rids {alone_rids} (first, a mid-wave "
+          f"joiner, the longest, the last) == their burst tokens, bit for "
+          f"bit; plans == the analytic planner's for all {len(got)} layers "
+          f"({words}); launches {c_sdv}")
+    st = engine._states[buckets[-1].key]
+    toks = torch.zeros((BATCH, 1), dtype=torch.int32, device=dev)
+    ones = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+    profile(f"engine decode iteration at batch {BATCH}",
+            lambda: engine._dec(st.qparams, dict(st.work), toks, ones),
+            steps=2, wall_ms=dec_ms * 1e3)
+    del engine, st
+
+    # --- fault run: one wave lost mid-flight, then retried ---------------
+    faults = FaultPlan(seed=0, kernel_loss_p=1.0)
+    engine = make("sdv", faults)
+    sub = specs[:ENGINE_FAULT_REQUESTS]
+    t0 = time.perf_counter()
+    f_rids = [engine.submit(p, nt) for p, nt in sub]
+    f_comps = {}
+    while engine.depth():
+        for c in engine.step(force=True):
+            f_comps[c.rid] = c
+        if faults.counts().get("kernel_loss"):
+            faults.kernel_loss_p = 0.0       # lose exactly one wave
+    wall = time.perf_counter() - t0
+    check(engine.metrics.failure_kinds == {"kernel_loss": 1},
+          f"fault run failures {engine.metrics.failure_kinds}")
+    check(all(engine.outcomes[r]["outcome"] == "ok" for r in f_rids),
+          f"fault run outcomes {[engine.outcomes.get(r) for r in f_rids]}")
+    for i, rid in enumerate(f_rids):
+        check(f_comps[rid].tokens == comps[rids[i]].tokens,
+              f"fault run rid {rid}: {f_comps[rid].tokens} != the clean "
+              f"run's {comps[rids[i]].tokens}")
+    engine_report(f"fault run of {len(sub)}, {faults.log}", engine, wall,
+                  card)
+    print(f"[engine] fault run: every outcome ok, tokens == the clean "
+          f"run's for all {len(sub)} requests")
+    del engine
+
+    # --- memory run ------------------------------------------------------
+    reset_counts()
+    engine = make("memory")
+    c_setup = counts()
+    check(c_setup["B6"] == 8, f"memory engine set-up launches {c_setup}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    sub = specs[:ENGINE_MEMORY_REQUESTS]
+    m_rids, m_comps, wall = engine_run(engine, sub)
+    c_mem = counts()
+    check(all(engine.outcomes[r]["outcome"] == "ok" for r in m_rids),
+          f"memory run outcomes {[engine.outcomes.get(r) for r in m_rids]}")
+    for (prompt, nt), rid in zip(sub, m_rids):
+        out = m_comps[rid].tokens
+        check(len(out) == nt and all(0 <= t < cfg.vocab for t in out),
+              f"memory rid {rid}: tokens {out}")
+    m_dec, m_pre, m_dec_ms = engine_report(
+        f"memory burst of {len(sub)}", engine, wall, card)
+    check(c_mem == expect(B7=(per_call + 1) * m_dec + per_call * m_pre),
+          f"memory engine launches {c_mem}, want B7 = {per_call + 1} x "
+          f"{m_dec} decode iterations + {per_call} x {m_pre} prefill calls")
+    st = engine._states[buckets[-1].key]
+    profile(f"memory engine decode iteration at batch {BATCH}",
+            lambda: engine._dec(st.qparams, dict(st.work), toks, ones),
+            steps=2, wall_ms=m_dec_ms * 1e3)
+    print(f"[engine] memory run: launches {c_mem} ({per_call + 1} B7 per "
+          f"decode iteration, {per_call} per prefill-slot call)")
+    del engine, st, params
+    return {"B1": c_sdv["B1"], "B6": c_setup["B6"], "B7": c_mem["B7"]}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -1836,6 +2069,7 @@ def main() -> int:
         memory = phase_memory_kernels(dev, flush)
         mem_launches = phase_memory_serve(dev, card)
         phase_reference(dev, "memory")
+        eng = phase_engine(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1845,7 +2079,8 @@ def main() -> int:
     by_path = {"B1": {"tinyllama decode": launches["B1"],
                       "mamba2 decode": recurrent["mamba2-130m"]["B1"],
                       "recurrentgemma decode":
-                          recurrent["recurrentgemma-2b"]["B1"]},
+                          recurrent["recurrentgemma-2b"]["B1"],
+                      "tinyllama engine": eng["B1"]},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"]}}
     kernels = []
@@ -1911,14 +2146,16 @@ def main() -> int:
                 "off")),
         "B6": ("pack_words", "packbits.cu",
                "src/repro/kernels/packbits.py:60",
-               {"tinyllama serve_params": mem_launches["B6"]},
+               {"tinyllama serve_params": mem_launches["B6"],
+                "tinyllama memory engine serve_params": eng["B6"]},
                ("one tinyllama serve_params(compute=\"memory\"): 7 stacked "
                 "W4 leaves of 22 layers + the LM head; no single PyTorch "
                 "call packs bit fields: no library time")),
         "B7": ("unpack_dequant", "packbits.cu",
                "src/repro/kernels/packbits.py:41",
                {"tinyllama memory prefill": mem_launches["B7 prefill"],
-                "tinyllama memory decode": mem_launches["B7 decode"]},
+                "tinyllama memory decode": mem_launches["B7 decode"],
+                "tinyllama memory engine": eng["B7"]},
                ("one tinyllama memory decode step: 154 W4 projections + the "
                 "LM head, unpacked and dequantized to bf16 in one pass "
                 "(unpack_dequant_kernel); before_ms: the route it replaced "

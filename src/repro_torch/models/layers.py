@@ -29,9 +29,10 @@ class Init:
     ``torch.Generator`` on ``device``) in float32 and are cast to the
     model ``dtype``; a stacked init prepends its layer axis ``lead`` to
     every shape.  The numbers are not JAX's (``convert`` carries those
-    over)."""
+    over).  With ``gen=None`` (the ``meta`` device) nothing is drawn:
+    ``normal`` gives an empty tensor of the shape and dtype."""
 
-    def __init__(self, gen: torch.Generator, device: torch.device,
+    def __init__(self, gen: Optional[torch.Generator], device: torch.device,
                  dtype: torch.dtype, lead=()):
         self.gen, self.device, self.dtype, self.lead = gen, device, dtype, \
             tuple(lead)
@@ -40,6 +41,9 @@ class Init:
         return Init(self.gen, self.device, self.dtype, (n,))
 
     def normal(self, shape, *, std: float, dtype=None):
+        if self.gen is None:
+            return torch.empty(self.lead + tuple(shape),
+                               dtype=dtype or self.dtype, device=self.device)
         v = torch.randn(self.lead + tuple(shape), generator=self.gen,
                         dtype=torch.float32, device=self.device)
         return (v * std).to(dtype or self.dtype)

@@ -25,12 +25,15 @@ unchanged.  Two packing modes:
     quantized to the unsigned ``plan.w_i``-bit domain with a zero
     point, per Eqs. 9/10).
 
-Not ported yet: the planner's ``plan_policy="auto"/"cache"``, which
-raises.
+``plan_policy`` picks the lane plans under ``compute="sdv"``: the
+uniform defaults, or per layer shape through the port's planner
+(``repro_torch.planner``; ``"cache"`` also reads and writes its JSON
+plan cache), as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -319,10 +322,16 @@ def _stacked_leading_axis(path: str) -> bool:
     return head in _STACKED_CONTAINERS or head.startswith("blocks_dense")
 
 
+#: decode micro-batch rows the planner dimensions matmul layers for
+PLANNER_DECODE_ROWS = 8
+
+
 def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
                  compute: str = "memory", act_bits: int = 8,
                  conv_bseg: Optional[bool] = None,
-                 plan_policy: str = "default") -> Any:
+                 plan_policy: str = "default",
+                 plan_cache: Optional[str] = None,
+                 rows: Optional[int] = None) -> Any:
     """Rewrite a parameter tree for quantized packed serving.
 
     Kernels named ``kernel``/``wi_gate``/``wi_up``/``wo`` with at least
@@ -330,16 +339,28 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
     ``compute="memory"`` packs each as ``PackedLinear`` (lane words,
     kernel B6); ``compute="sdv"`` packs 2-D kernels and stacked layer
     tensors of 2-D kernels (a 3-D leaf under ``blocks``, ``groups``, ...
-    packs per layer with a shared plan) as ``SDVLinear`` with
-    ``default_sdv_plan(bits, act_bits)``, keeping memory packing for
-    unstacked >2-D kernels (MoE expert banks).  ``conv_bseg`` (default:
-    on under ``compute="sdv"``, off under memory, as in the reference)
-    packs the SSM/Griffin short-conv containers as ``BSEGConv`` with
-    ``default_bseg_plan(min(bits, 4))``; off keeps the float conv dict.
-    The planner policies are not ported yet and raise.
+    packs per layer with a shared plan) as ``SDVLinear``, keeping memory
+    packing for unstacked >2-D kernels (MoE expert banks).  ``conv_bseg``
+    (default: on under ``compute="sdv"``, off under memory, as in the
+    reference) packs the SSM/Griffin short-conv containers as
+    ``BSEGConv``; off keeps the float conv dict.
+
+    ``plan_policy`` selects the lane plans under ``compute="sdv"``:
+    ``"default"`` keeps the uniform ``default_sdv_plan(bits, act_bits)``
+    / ``default_bseg_plan(min(bits, 4))``; ``"auto"`` searches per layer
+    shape through the planner (``repro_torch.planner.choose_plan``);
+    ``"cache"`` additionally reuses/persists choices in the JSON plan
+    cache at ``plan_cache`` (default ``$REPRO_PLAN_CACHE``).  A layer
+    whose chosen plan would land on the plain ref route is reported
+    once per shape via ``warnings.warn``.  ``rows`` is the decode
+    micro-batch row count the planner dimensions matmul layers for
+    (default ``PLANNER_DECODE_ROWS``); the serving engine passes each
+    bucket's batch width.
     """
     if compute not in ("memory", "sdv"):
         raise ValueError(f"unknown packed compute mode {compute!r}")
+    if rows is None:
+        rows = PLANNER_DECODE_ROWS
     if plan_policy not in ("default", "auto", "cache"):
         raise ValueError(f"unknown plan policy {plan_policy!r}")
     sdv_mode = compute == "sdv"
@@ -348,19 +369,67 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
             f"plan_policy={plan_policy!r} plans arithmetic-packing "
             f"lane plans, which only exist under compute='sdv' — "
             f"memory packing has no plan to choose")
-    if plan_policy != "default":
-        raise NotImplementedError(
-            f"plan_policy={plan_policy!r} needs the planner, which is "
-            "not ported yet")
-    plan = default_sdv_plan(bits, act_bits) if sdv_mode else None
+    # the uniform default plan is only required under the default
+    # policy: the planner can still find a (possibly wider-datapath)
+    # plan for bit configs the INT32 default cannot pack
+    plan = default_sdv_plan(bits, act_bits) \
+        if sdv_mode and plan_policy == "default" else None
     if conv_bseg is None:
         conv_bseg = sdv_mode
     conv_plan = default_bseg_plan(min(bits, 4)) if conv_bseg else None
 
+    planner_ctx = None
+    if plan_policy != "default":
+        from .. import planner as _planner
+        cache = _planner.PlanCache.load(plan_cache) \
+            if plan_policy == "cache" else None
+        planner_ctx = {"mod": _planner, "cache": cache, "memo": {},
+                       "warned": set()}
+
+    def _choose(layer):
+        ctx = planner_ctx
+        mk = layer.key()
+        if mk not in ctx["memo"]:
+            choice = None
+            if ctx["cache"] is not None:
+                choice = ctx["cache"].get_choice(layer)
+            if choice is None:
+                choice = ctx["mod"].choose_plan(layer)
+                if ctx["cache"] is not None:
+                    ctx["cache"].put_choice(choice, source="analytic")
+            ctx["memo"][mk] = choice
+        choice = ctx["memo"][mk]
+        if choice.cost.route == "ref" and mk not in ctx["warned"]:
+            ctx["warned"].add(mk)
+            warnings.warn(
+                f"serve_params: layer {layer.name!r} ({mk}) lands on "
+                f"the plain ref route — {choice.cost.reason}",
+                stacklevel=3)
+        return choice.plan
+
+    def layer_plan(name, v):
+        """The SDV plan for one (possibly stacked) 2-D kernel leaf."""
+        if planner_ctx is None:
+            return plan
+        layer = planner_ctx["mod"].matmul_spec(
+            name, rows, v.shape[-2], v.shape[-1],
+            w_bits=bits, a_bits=act_bits)
+        return _choose(layer)
+
+    def conv_layer_plan(name, w):
+        """The BSEG plan for one short-conv container."""
+        if planner_ctx is None:
+            return conv_plan
+        layer = planner_ctx["mod"].conv1d_spec(
+            name, w.shape[-2], w.shape[-1], w_bits=min(bits, 4),
+            a_bits=4, rows=rows)
+        chosen = _choose(layer)
+        return chosen if isinstance(chosen, BSEGPlan) else conv_plan
+
     def quantize(v, name):
         if sdv_mode and (v.ndim == 2 or
                          (v.ndim == 3 and _stacked_leading_axis(name))):
-            return pack_linear_sdv(v, plan)
+            return pack_linear_sdv(v, layer_plan(name, v))
         return pack_linear(v, bits)
 
     def walk(tree, name):
@@ -370,7 +439,7 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
             if k == "conv" and conv_plan is not None \
                     and isinstance(v, dict) and "w" in v \
                     and v["w"].ndim in (2, 3):
-                out[k] = pack_conv_bseg(v, conv_plan)
+                out[k] = pack_conv_bseg(v, conv_layer_plan(path, v["w"]))
             elif k in _SKIP_CONTAINERS:
                 out[k] = v
             elif isinstance(v, dict):
@@ -386,4 +455,6 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
     # the LM head is a plain tensor leaf at top level
     if "lm_head" in out and not is_packed(out["lm_head"]):
         out["lm_head"] = quantize(out["lm_head"], "lm_head")
+    if planner_ctx is not None and planner_ctx["cache"] is not None:
+        planner_ctx["cache"].save()
     return out

@@ -15,11 +15,15 @@ per-slot positions, ``decode_step`` and (dense only) chunked
 
 The recurrent families replay prompts one token per ``decode_step``, as
 in the JAX package: ``prefill_step`` and the ``advance`` mask raise for
-them.  Parameters are a plain dict tree with the JAX package's keys and
-the stacked layer axis first; the JAX package's ``lax.scan`` over layers
+them.  The serving engine's slot helpers: ``reset_slot`` clears one
+batch slot of any family's cache, ``prefill_slot`` prefills one slot of
+a dense cache.
+
+Parameters are a plain dict tree with the JAX package's keys and the
+stacked layer axis first; the JAX package's ``lax.scan`` over layers
 is a Python loop over that axis here.  The cache is updated in place.
-Not ported yet: ``forward``, ``verify_step``, the ``*_slot`` helpers and
-``rollback_slot`` (the engine slice), and the moe, encdec and vlm
+Not ported yet: ``forward``, ``verify_step``, ``verify_slot`` and
+``rollback_slot`` (speculative decoding), and the moe, encdec and vlm
 families.
 """
 from __future__ import annotations
@@ -81,11 +85,15 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     """Random parameters with the JAX package's shapes, dtypes and stds
     (``transformer.init_params`` and the block inits), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  The numbers
-    are not JAX's; ``convert.params_from_numpy`` carries JAX's over."""
+    are not JAX's; ``convert.params_from_numpy`` carries JAX's over.
+    On ``device="meta"`` the tree holds shapes and dtypes only: nothing
+    is drawn or allocated (the planner's shape walk)."""
     _require_family(cfg, "init_params")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     ini = L.Init(gen, dev, cfg.dtype)
     d = cfg.d_model
     p: Dict[str, Any] = {
@@ -314,6 +322,29 @@ def _decode_hybrid(cfg: ArchConfig, params, cache, x, index):
     return x
 
 
+def reset_slot(cache, slot: int):
+    """Zero batch slot ``slot`` across every cache leaf.
+
+    Leaves are laid out (layers, B, ...); ``index`` is the per-slot
+    position vector [B].  Clearing the position plus all per-slot state
+    (KV rows, quant scales, ring buffers, conv/SSM/RNN state) is what
+    makes a freed slot safe to hand to a new session mid-wave, as in the
+    reference.  The leaves are zeroed in place, as ``decode_step``
+    updates them; the returned dict carries a new ``index`` tensor (the
+    one passed in is left as it was).
+    """
+    out = {}
+    for name, leaf in cache.items():
+        if name == "index":
+            index = leaf.clone()
+            index[slot] = 0
+            out[name] = index
+        else:
+            leaf[:, slot] = 0
+            out[name] = leaf
+    return out
+
+
 def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                      n_valid: torch.Tensor):
     """Chunked teacher-forcing core: returns (final hidden states
@@ -350,3 +381,24 @@ def prefill_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     """
     _, new_cache = _prefill_forward(cfg, params, cache, tokens, n_valid)
     return new_cache
+
+
+def prefill_slot(cfg: ArchConfig, params, cache, slot: int,
+                 tokens: torch.Tensor, n_valid: torch.Tensor):
+    """Chunked prefill of a SINGLE batch slot.
+
+    tokens [1, C] int; n_valid [1] int.  The slot's row of every cache
+    leaf (a view: ``leaf[:, slot:slot+1]``, ``index[slot:slot+1]``) is
+    prefilled as a batch of one through ``prefill_step``, which writes
+    the K/V rows and scales through the views in place; the slot's new
+    position is written back into a copy of ``index``, which the
+    returned dict carries (the one passed in is left as it was).  As in
+    the reference, a prompt's replay runs the same [1, C] program on the
+    same single-row operands whether it opens a wave or joins one.
+    """
+    sub = {name: leaf[slot:slot + 1] if name == "index"
+           else leaf[:, slot:slot + 1] for name, leaf in cache.items()}
+    new = prefill_step(cfg, params, sub, tokens, n_valid)
+    index = cache["index"].clone()
+    index[slot:slot + 1] = new["index"]
+    return dict(cache, index=index)

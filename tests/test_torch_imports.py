@@ -41,8 +41,10 @@ def test_port_imports_without_jax_or_reference():
 
 
 def _entry_points():
+    from repro_torch import planner
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve, ultranet
+    from repro_torch.serving import Engine, loadgen
     from repro_torch.models import (init_cache, init_params, init_ultranet,
                                     packed_from_numpy, params_from_numpy,
                                     ultranet_forward,
@@ -73,6 +75,13 @@ def _entry_points():
         "ultranet_params_from_numpy": lambda: ultranet_params_from_numpy(
             [], cpu_params.head.numpy()),
         "ultranet_cli": lambda: ultranet.main(["--size", "16"]),
+        "engine": lambda: Engine(cfg, {}),
+        "serve_cli_engine": lambda: serve.main(["--engine", "on",
+                                                "--batch", "1"]),
+        "loadgen_cli": lambda: loadgen.main(["--rates", "10",
+                                             "--duration", "0.01"]),
+        "autotune_layer": lambda: planner.autotune_layer(
+            planner.matmul_spec("p", 1, 32, 16, w_bits=4, a_bits=8)),
     }
 
 
@@ -85,7 +94,9 @@ def _entry_points():
                                   "serve_cli_memory",
                                   "init_ultranet", "ultranet_forward",
                                   "ultranet_params_from_numpy",
-                                  "ultranet_cli"])
+                                  "ultranet_cli", "engine",
+                                  "serve_cli_engine", "loadgen_cli",
+                                  "autotune_layer"])
 def test_entry_points_refuse_to_fall_back_to_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")
