@@ -19,6 +19,10 @@ exit at the first failure:
      INT32 W4A8 plan and the wide DSP48E2 W4A8 (n=3, [2, K, G] limb
      planes) plan; times each kernel, its plain version and
      ``torch._int_mm`` (the library yardstick, never used by the port).
+     Then the speculative path's shapes and plans: B2 at the verify
+     wave's 32 rows (8 slots x 4 columns) on the target's dsp48e2 n=3
+     plan and B1 at 8 rows on the W4A4 draft's dsp48e2 n=4 plan, at the
+     same (K, M) shapes, each timed beside its bound and ``_int_mm``.
      Then B1 (8 rows) and B2 (128 rows) at K = 2048, M = 256 on
      operands wider than 8 bits (byte slices): the planner's W4A9 /
      W8A9 and W4A16 on each exact-wrap word and the widest w_a = w_b
@@ -122,7 +126,24 @@ exit at the first failure:
      B7 per decode iteration and 154 per prefill-slot call).  Each run
      prints requests/s, tok/s, p50/p99 latency and queue wait, decode and
      prefill ms per iteration, peak memory, and the SDV and memory runs
-     the device busy share of one decode iteration.
+     the device busy share of one decode iteration;
+ 11. spec — speculative decoding of full-width tinyllama-1.1b
+     (``Engine(speculative=True)``, k = 3, the W4A4 self-speculation
+     draft): a burst of 8 of the engine phase's requests through a plain
+     and a speculative engine on its buckets and chunk, the same token
+     stream per request, and the speculative run's launches 3 x 154 B1
+     (draft, 8 rows) + 154 B2 (verify, 32 rows) a round plus 154 B1 a
+     prefill-slot call and nothing else; every draft layer dsp48e2 W4A4
+     n=4, strictly denser than the target's n=3; at b8.s32 and b8.s64
+     one ``verify_step`` over 4 columns ``torch.equal`` to 4 sequential
+     ``decode_step``s (logits and every cache leaf); the device busy share
+     of one round; then ``calibrated_params`` at full width (the steps
+     and rate of ``SPEC_CALIBRATION``; the loss finite and falling) and
+     the same pair on that checkpoint (acceptance reported); then
+     reduced tinyllama calibrated on the card (120 steps), whose
+     speculative run must accept 2 or more tokens in some round.  Each
+     pair prints rounds, mean accepted, the acceptance histogram, the
+     draft and verify walls a round and tokens per target wave.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -199,6 +220,21 @@ ENGINE_REQUESTS = 32
 ENGINE_LENGTHS = (8, 24)
 ENGINE_FAULT_REQUESTS = 8
 ENGINE_MEMORY_REQUESTS = 8
+#: the spec phase: k drafted tokens a round, so the verify wave's GEMMs
+#: take BATCH x (k + 1) = 32 rows (B2); bursts of 8 of the engine
+#: phase's requests through a plain and a speculative engine on the
+#: engine phase's buckets and chunk; the full-width calibration run's
+#: Adam steps and rate (so the phase stays near 90 s; at lr 1e-3 the
+#: loss rose) and the reduced one's (the
+#: reference's test: 120 steps at 1e-2); a run's loss "falls" when the
+#: mean of its last LOSS_WINDOW steps is below that of its first (one
+#: step's loss on a fresh random batch is noisy)
+SPEC_K = 3
+VERIFY_ROWS = BATCH * (SPEC_K + 1)
+SPEC_REQUESTS = 8
+SPEC_CALIBRATION = {"steps": 200, "lr": 1e-4}
+SPEC_REDUCED_CALIBRATION = {"steps": 120, "lr": 1e-2}
+LOSS_WINDOW = 10
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -356,6 +392,30 @@ def phase_kernels(dev, flush):
                             acc["library_ms"] = None
                         else:
                             acc["library_ms"] += mult * r["library_ms"]
+    # the speculative path's new shapes and plans: B2 on the target's
+    # word at the verify wave's 32 rows, B1 on the W4A4 draft's plan
+    draft_plan = plan_sdv(DSP48E2, 4, 4, signed_a=True, signed_b=True,
+                          park_sign_bits=True)
+    check(draft_plan.n == 4, draft_plan)
+    spec = {"B2": ("verify", plans["dsp48e2 W4A8 n=3"], "dsp48e2 W4A8 n=3",
+                   VERIFY_ROWS),
+            "B1": ("draft", draft_plan, "dsp48e2 W4A4 n=4", DECODE_ROWS)}
+    for kname, (path, plan, pname, rows) in spec.items():
+        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+        for (k, m), mult in LAYER_SHAPES.items():
+            r = sdv_case(kname, plan, pname, k, m, rows, gen, flush)
+            max_err[kname] = max(max_err[kname], r["max_abs_err"])
+            for key in ("ms", "plain_ms", "bytes", "ops"):
+                acc[key] += mult * r[key]
+            acc["library_ms"] = None if r["library_ms"] is None \
+                or acc["library_ms"] is None \
+                else acc["library_ms"] + mult * r["library_ms"]
+        acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
+        layer[kname][path] = acc
+        print(f"[kernels] {kname} on the {path} path ({pname}, {rows} rows), "
+              f"one layer's 7 projections: {acc['ms']:.4f} ms (bound "
+              f"{acc['bound_ms']:.4f} ms by {acc['bound_by']}), _int_mm "
+              f"{acc['library_ms']} ms")
     for kname, err in wide_sdv_cases(gen, flush).items():
         max_err[kname] = max(max_err[kname], err)
     for kname, acc in layer.items():
@@ -422,8 +482,9 @@ def sdv_case(kname, plan, pname, k, m, rows, gen, flush):
 
     w = torch.randint(-8, 8, (m, k), generator=gen, device=gen.device)
     words = ops.prepare_sdv_weights(w, plan)
-    x = torch.randint(-127, 128, (rows, k), generator=gen, device=gen.device,
-                      dtype=torch.int32)
+    qmax = (1 << plan.w_b - 1) - 1          # the symmetric quantizer's
+    x = torch.randint(-qmax, qmax + 1, (rows, k), generator=gen,
+                      device=gen.device, dtype=torch.int32)
     if kname == "B1":
         xt = x.T.contiguous()
 
@@ -2030,6 +2091,218 @@ def phase_engine(dev, card):
     return {"B1": c_sdv["B1"], "B6": c_setup["B6"], "B7": c_mem["B7"]}
 
 
+def spec_exactness(cfg, qparams, dev, s_max):
+    """One ``verify_step`` over k + 1 columns against k + 1 sequential
+    ``decode_step``s on copies of one prefilled cache at batch 8: the
+    logits and every cache leaf ``torch.equal``; the verify wave is one
+    B2 launch per projection (32 rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import (decode_step, init_cache, prefill_step,
+                                    verify_step)
+
+    per_call = 7 * cfg.n_layers
+    rng = np.random.default_rng(s_max)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, ENGINE_CHUNK)),
+                          dtype=torch.int32, device=dev)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, SPEC_K + 1)),
+                        dtype=torch.int32, device=dev)
+    cache0 = prefill_step(cfg, qparams, init_cache(cfg, BATCH, s_max,
+                                                   device=dev), prompt,
+                          torch.full((BATCH,), ENGINE_CHUNK,
+                                     dtype=torch.int32, device=dev))
+    reset_counts()
+    vlogits, vcache = verify_step(
+        cfg, qparams, {k: v.clone() for k, v in cache0.items()}, toks,
+        torch.full((BATCH,), SPEC_K + 1, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    c_verify = counts()
+    check(c_verify == expect(B2=per_call),
+          f"verify_step launches {c_verify}, want B2={per_call}")
+    cache = {k: v.clone() for k, v in cache0.items()}
+    logits = []
+    for j in range(SPEC_K + 1):
+        out, cache = decode_step(cfg, qparams, cache, toks[:, j:j + 1])
+        logits.append(out)
+    logits = torch.cat(logits, dim=1)
+    check(torch.equal(vlogits, logits),
+          f"b{BATCH}.s{s_max}: verify logits != sequential decode's at "
+          f"{int((vlogits != logits).sum())} of {logits.numel()}")
+    for name in cache:
+        check(torch.equal(vcache[name], cache[name]),
+              f"b{BATCH}.s{s_max}: verify cache {name} != sequential "
+              "decode's")
+    print(f"[spec] b{BATCH}.s{s_max}: verify_step over {SPEC_K + 1} "
+          f"columns == {SPEC_K + 1} sequential decode_steps bit for bit "
+          f"(logits {list(logits.shape)}, {', '.join(cache)}); "
+          f"launches {c_verify}")
+
+
+def spec_pair(label, cfg, params, specs, dev, card):
+    """A burst of ``specs`` through a plain and a speculative engine on
+    the engine phase's buckets and chunk: every outcome "ok", the same
+    token stream per request, and the speculative run's launches are 3 x
+    154 B1 (draft) + 154 B2 (verify) a round plus 154 B1 a prefill-slot
+    call, nothing else.  Returns (the speculative engine, its launch
+    counts, ms per round)."""
+    import tempfile
+
+    import torch
+    from repro_torch.serving import BucketShape, Engine
+
+    per_call = 7 * cfg.n_layers
+    buckets = tuple(BucketShape(BATCH, s) for s in ENGINE_BUCKETS)
+    runs = {}
+    for speculative in (False, True):
+        with tempfile.TemporaryDirectory() as td:
+            engine = Engine(cfg, params, compute="sdv", weight_bits=4,
+                            act_bits=8, plan_cache=f"{td}/absent.json",
+                            buckets=buckets, prefill_chunk=ENGINE_CHUNK,
+                            speculative=speculative, spec_k=SPEC_K,
+                            device=dev)
+        for b in buckets:            # kernel builds and first calls
+            engine.warmup(b, inject=False)
+        torch.cuda.synchronize()
+        reset_counts()
+        rids, comps, wall = engine_run(engine, specs)
+        c = counts()
+        check(all(engine.outcomes[r]["outcome"] == "ok" for r in rids),
+              f"{label}: outcomes {[engine.outcomes.get(r) for r in rids]}")
+        runs[speculative] = (engine, [comps[r].tokens for r in rids], c,
+                             wall)
+    (plain, p_toks, _, p_wall), (engine, s_toks, c, wall) = \
+        runs[False], runs[True]
+    for i, (a, b) in enumerate(zip(p_toks, s_toks)):
+        check(a == b, f"{label}: request {i} speculative {b} != plain {a}")
+    snap = engine.metrics.snapshot()
+    sp = snap["speculative"]
+    buckets_snap = snap["buckets"].values()
+    pre = sum(b.get("prefill_calls", 0) for b in buckets_snap)
+    dec = sum(b.get("decode_steps", 0) for b in buckets_snap)
+    rounds = sp["rounds"]
+    check(sp["degraded_buckets"] == 0 and dec == 0 and rounds > 0,
+          f"{label}: {sp}, {dec} plain decode iterations")
+    check(all(st.spec_on for key, st in engine._states.items()
+              if key != "fallback"), f"{label}: speculation off")
+    check(c == expect(B1=per_call * (SPEC_K * rounds + pre),
+                      B2=per_call * rounds),
+          f"{label}: launches {c}, want B1 = {per_call} x ({SPEC_K} x "
+          f"{rounds} rounds + {pre} prefill-slot calls), B2 = {per_call} x "
+          f"{rounds}")
+    round_ms = 1e3 * (sp["draft_wall_s"] + sp["verify_wall_s"]) / rounds
+    p_snap = plain.metrics.snapshot()
+    p_dec = sum(b.get("decode_steps", 0) for b in p_snap["buckets"].values())
+    p_ms = 1e3 * sum(b.get("decode_wall_s", 0.0) for b in
+                     p_snap["buckets"].values()) / max(p_dec, 1)
+    print(f"[spec] {label}: {len(specs)} requests, the speculative token "
+          f"streams == the plain ones; speculative {wall:.3f} s "
+          f"({snap['tokens_out'] / wall:.1f} tok/s) against plain "
+          f"{p_wall:.3f} s ({p_snap['tokens_out'] / p_wall:.1f} tok/s); "
+          f"{rounds} rounds, mean accepted {sp['mean_accepted']:.3f}, "
+          f"acceptance histogram {sp['acceptance_hist']}, draft "
+          f"{1e3 * sp['draft_wall_s'] / rounds:.2f} ms + verify "
+          f"{1e3 * sp['verify_wall_s'] / rounds:.2f} ms a round (plain "
+          f"decode iteration {p_ms:.2f} ms, {p_dec} of them), tokens per "
+          f"target wave {sp['tokens_per_target_wave']:.3f} (plain "
+          f"{p_snap['speculative']['tokens_per_target_wave']:.3f}), "
+          f"{pre} prefill-slot calls; launches {c} ({card})")
+    del plain
+    return engine, c, round_ms, sp
+
+
+def phase_spec(dev, card):
+    """Speculative decoding of full-width tinyllama-1.1b: verify ==
+    sequential decode bit for bit at the engine's buckets; the plain and
+    speculative engines' bursts on random and on calibrated weights
+    (same tokens); the device busy share of one round; reduced tinyllama
+    calibrated on the card must accept two or more tokens in some round.
+    Returns the launch counts of the random-weights speculative burst."""
+    import math
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.datapath import DSP48E2, plan_sdv
+    from repro_torch.models import SDVLinear, init_params
+    from repro_torch.serving.spec import calibrated_params
+
+    cfg = get_arch("tinyllama-1.1b")
+    specs = engine_specs(cfg.vocab, SPEC_REQUESTS)
+    params = init_params(cfg, seed=0, device=dev)
+    t0 = time.perf_counter()
+    engine, c_spec, round_ms, _ = spec_pair(
+        f"{cfg.name} random weights", cfg, params, specs, dev, card)
+    for s_max in ENGINE_BUCKETS:
+        spec_exactness(cfg, engine._qparams(BATCH), dev, s_max)
+    draft = plan_sdv(DSP48E2, 4, 4, signed_a=True, signed_b=True,
+                     park_sign_bits=True)
+
+    def plans(tree):
+        out = []
+        for v in tree.values():
+            out += plans(v) if isinstance(v, dict) else \
+                [v.plan] if isinstance(v, SDVLinear) else []
+        return out
+    got = plans(engine.spec.draft_qparams(BATCH))
+    check(len(got) == 8 and all(p == draft for p in got),
+          f"draft plans {got} != dsp48e2 W4A4 n=4")
+    report = engine.spec_report()
+    check(all(l["draft_denser"] for r in report.values()
+              for l in r["layers"]), f"spec_report {report}")
+    st = engine._states[f"b{BATCH}.s{ENGINE_BUCKETS[-1]}"]
+    dqp = engine.spec.draft_qparams(BATCH)
+    pend = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+    ones = torch.ones((BATCH,), dtype=torch.int32, device=dev)
+    rem = torch.full((BATCH,), SPEC_K + 1, dtype=torch.int32, device=dev)
+
+    def one_round():
+        props = engine.spec.draft(dqp, dict(st.work), pend, ones,
+                                  st.draft_work)
+        engine.spec.verify(st.qparams, dict(st.work), pend, props, ones, rem)
+    profile(f"speculative round ({SPEC_K} draft steps + verify) at batch "
+            f"{BATCH}", one_round, steps=2, wall_ms=round_ms)
+    print(f"[spec] random weights: {time.perf_counter() - t0:.1f} s; "
+          f"every draft layer dsp48e2 W4A4 n=4 (target n=3), strictly "
+          f"denser")
+    del engine, st, dqp, params
+
+    # --- a calibrated checkpoint at full width (reported, not gated) ---
+    losses = []
+    t0 = time.perf_counter()
+    cparams = calibrated_params(cfg, seed=0, device=dev, losses=losses,
+                                **SPEC_CALIBRATION)
+    train_s = time.perf_counter() - t0
+    first = sum(losses[:LOSS_WINDOW]) / LOSS_WINDOW
+    last = sum(losses[-LOSS_WINDOW:]) / LOSS_WINDOW
+    check(all(math.isfinite(x) for x in losses) and last < first,
+          f"calibration losses {losses}")
+    print(f"[spec] calibrated_params({cfg.name}, steps="
+          f"{SPEC_CALIBRATION['steps']}, lr={SPEC_CALIBRATION['lr']}): loss "
+          f"{losses[0]:.4f} at the first step, {losses[-1]:.4f} at the last; "
+          f"mean of the first {LOSS_WINDOW} {first:.4f}, of the last "
+          f"{last:.4f}; {train_s:.1f} s")
+    engine, _, _, _ = spec_pair(f"{cfg.name} calibrated", cfg, cparams,
+                                specs, dev, card)
+    del engine, cparams
+
+    # --- reduced tinyllama calibrated on the card: acceptance >= 2 -------
+    rcfg = cfg.reduced()
+    losses = []
+    rparams = calibrated_params(rcfg, seed=0, device=dev, losses=losses,
+                                **SPEC_REDUCED_CALIBRATION)
+    print(f"[spec] calibrated_params({rcfg.name}, steps="
+          f"{SPEC_REDUCED_CALIBRATION['steps']}, lr="
+          f"{SPEC_REDUCED_CALIBRATION['lr']}): loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    engine, _, _, sp = spec_pair(f"{rcfg.name} calibrated", rcfg, rparams,
+                                 engine_specs(rcfg.vocab, SPEC_REQUESTS),
+                                 dev, card)
+    check(any(int(k) >= 2 for k in sp["acceptance_hist"]),
+          f"reduced calibrated: no round accepted 2 or more "
+          f"({sp['acceptance_hist']})")
+    del engine, rparams
+    return c_spec
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -2070,6 +2343,7 @@ def main() -> int:
         mem_launches = phase_memory_serve(dev, card)
         phase_reference(dev, "memory")
         eng = phase_engine(dev, card)
+        spec = phase_spec(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2080,9 +2354,11 @@ def main() -> int:
                       "mamba2 decode": recurrent["mamba2-130m"]["B1"],
                       "recurrentgemma decode":
                           recurrent["recurrentgemma-2b"]["B1"],
-                      "tinyllama engine": eng["B1"]},
+                      "tinyllama engine": eng["B1"],
+                      "tinyllama spec engine": spec["B1"]},
                "B2": {"tinyllama prefill": launches["B2"],
-                      "ultranet int32": ultra["int32"]["B2"]}}
+                      "ultranet int32": ultra["int32"]["B2"],
+                      "tinyllama spec engine": spec["B2"]}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -2099,8 +2375,15 @@ def main() -> int:
             "library_ms": acc["library_ms"],
             "per": (f"one tinyllama layer's 7 projections at "
                     f"{DECODE_ROWS if kname == 'B1' else PREFILL_ROWS} rows, "
-                    "int32 W4A8 plan"),
+                    "int32 W4A8 plan; " + (
+                        f"draft_*: at {DECODE_ROWS} rows on the W4A4 draft's "
+                        "dsp48e2 n=4 plan" if kname == "B1" else
+                        f"verify_*: at {VERIFY_ROWS} rows on the target's "
+                        "dsp48e2 n=3 plan")),
         })
+        path = "draft" if kname == "B1" else "verify"
+        kernels[-1].update({f"{path}_{key}": acc[path][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     kernels[1]["ultranet_head_ms"] = head_ms
     b3_paths = {f"ultranet {name}": c["B3"] for name, c in ultra.items()}
     kernels.append({

@@ -17,10 +17,16 @@ the BSEG datapath (kernel B4) unless ``--conv-datapath float``.  Under
 ``--packed-compute memory`` every projection is stored as W-bit lane
 words (packed by kernel B6), unpacked by kernel B7 and dequantized at
 every step, and multiplied in bf16; the short convs stay in float.
-The reference's ``--speculative`` engine is not ported yet.
+``--speculative`` (engine, dense archs) serves through speculative
+decoding: a W``--draft-bits``A``--draft-act-bits`` self-speculation
+draft of the same weights proposes ``--spec-k`` tokens a round (kernel
+B1) and the target verifies them in one chunked wave (kernel B2 above
+8 rows); the tokens equal plain decode's.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --no-smoke --engine on --batch 8 --requests 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --no-smoke --engine on --speculative --batch 8 --requests 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
@@ -139,10 +145,16 @@ def run_engine(cfg, args, params, device):
                                   for s in s_maxes),
                     breaker_threshold=2 if args.chaos else 3,
                     breaker_cooldown_s=0.2 if args.chaos else 2.0,
+                    speculative=args.speculative, spec_k=args.spec_k,
+                    draft_bits=args.draft_bits,
+                    draft_act_bits=args.draft_act_bits,
                     faults=faults, device=device)
+    spec_note = (f", speculative k={args.spec_k} "
+                 f"(draft W{args.draft_bits}A{args.draft_act_bits})"
+                 if args.speculative else "")
     print(f"{cfg.name}: engine, {args.packed_compute} compute, "
           f"plan policy {engine.plan_policy}, buckets "
-          f"{[b.key for b in engine.buckets]} ({device})"
+          f"{[b.key for b in engine.buckets]}{spec_note} ({device})"
           + (f", chaos seed {args.chaos_seed}" if args.chaos else ""))
     # kernel builds are set-up time; under --chaos the buckets stay cold
     # (injected compile failures land in their first warmup) and only
@@ -198,6 +210,17 @@ def run_engine(cfg, args, params, device):
         print(f"bucket {key}: {util['kernel_routed_layers']}/"
               f"{util['packed_layers']} packed layers on kernel routes, "
               f"density {util['density_achieved']:.2f} MACs/multiply")
+    if args.speculative:
+        sp = snap["speculative"]
+        print(f"speculative: {sp['rounds']} rounds, "
+              f"mean accepted {sp['mean_accepted']:.2f}, "
+              f"tok/target-wave {sp['tokens_per_target_wave']:.2f}, "
+              f"acceptance hist {sp['acceptance_hist']}")
+        for key, rep in engine.spec_report().items():
+            denser = sum(1 for l in rep["layers"] if l["draft_denser"])
+            print(f"bucket {key}: spec_on={rep['spec_on']}, "
+                  f"{denser}/{len(rep['layers'])} draft layers "
+                  f"strictly denser")
     if comps:
         print("sample:", list(comps[0].tokens)[:12])
     return engine
@@ -227,6 +250,15 @@ def main(argv=None):
                          "schedule (FaultPlan.chaos) and print the "
                          "health/fault summary")
     ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--speculative", action="store_true",
+                    help="engine: self-speculation draft + single-wave "
+                         "verification (greedy-exact, DESIGN.md §5.2)")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="drafted tokens per verification wave")
+    ap.add_argument("--draft-bits", type=int, default=4,
+                    help="draft weight bits")
+    ap.add_argument("--draft-act-bits", type=int, default=4,
+                    help="draft activation bits (the density knob)")
     ap.add_argument("--plan-policy", choices=("default", "auto", "cache"),
                     default=None,
                     help="engine lane-plan selection (default: cache when "

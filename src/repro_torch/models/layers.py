@@ -1,9 +1,12 @@
 """Layer library of the decoders — torch port of the dense parts of
 ``repro.models.layers``: RMSNorm, projections, rotary embedding, decode
-and chunked-prefill attention against an int8 KV cache, gated MLP; and
-the sliding-window decode attention of the hybrid (Griffin) family
-against a bf16 ring buffer (the JAX package's
-``transformer._decode_attn_ring``).
+and chunked-prefill attention against an int8 KV cache, gated MLP; the
+sliding-window decode attention of the hybrid (Griffin) family against
+a bf16 ring buffer (the JAX package's ``transformer._decode_attn_ring``);
+and the full-sequence self-attention of ``transformer.forward``
+(``attention_apply``: the chunked online softmax of the JAX package's
+``_stream_attend`` / ``_stream_attend_diff``, differentiable by
+autograd).
 
 Layouts and dtypes follow the JAX package: activations [B, S, d] in the
 model dtype, int8 KV caches [B, S_max, KV, hd] with per-(position, head)
@@ -164,6 +167,110 @@ class AttnConfig:
     n_kv: int
     head_dim: int
     rope_theta: float = 10000.0
+
+
+def _stream_step(qf, kch, vch, carry, *, qpos, kpos, sk: int,
+                 causal: bool, window: Optional[int], scalef: float,
+                 p_dtype):
+    """One KV chunk of the streaming softmax: scores, mask, running max,
+    rescaled sum and accumulator (``_stream_attend``'s ``inner``).  The
+    products accumulate in float32; ``p_dtype`` is the dtype the
+    probabilities are rounded to before the value product."""
+    m, l, acc = carry
+    s = torch.einsum("bqgrd,bkgd->bqgrk", qf, kch) * scalef
+    mask = (kpos < sk)[None, None, None, None, :]
+    if causal:
+        mask = mask & (kpos[None, None, None, None, :]
+                       <= qpos[None, :, None, None, None])
+    if window is not None:
+        mask = mask & (kpos[None, None, None, None, :]
+                       > qpos[None, :, None, None, None] - window)
+    s = torch.where(mask, s, -1e30)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bqgrk,bkgd->bqgrd", p.to(p_dtype).to(torch.float32),
+                      vch)
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _stream_attend_impl(q, k, v, *, q_start: int, causal: bool,
+                        window: Optional[int], chunk: int, p_dtype):
+    """The chunked online softmax of both streaming variants: q [B, Sq,
+    KV, R, D] at positions q_start.., k/v [B, Sk, KV, D] at 0..; each
+    query chunk walks only the KV chunks it can see (causal upper bound,
+    sliding-window lower bound).  Returns [B, Sq, KV, R, D] in q's
+    dtype."""
+    b, sq, kvh, r, d = q.shape
+    sk = k.shape[1]
+    scalef = 1.0 / math.sqrt(d)
+    nkv = -(-sk // chunk)
+    nq = -(-sq // chunk)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nkv * chunk - sk))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nkv * chunk - sk))
+    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, 0, 0, nq * chunk - sq))
+    ar = torch.arange(chunk, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qf = qp[:, qi * chunk:(qi + 1) * chunk].to(torch.float32)
+        qpos = q_start + qi * chunk + ar
+        hi = min(nkv, -(-(q_start + (qi + 1) * chunk) // chunk)) \
+            if causal else nkv
+        lo = max(0, (q_start + qi * chunk - window) // chunk) \
+            if window is not None else 0
+        carry = (torch.full((b, chunk, kvh, r), -1e30, device=q.device),
+                 torch.zeros((b, chunk, kvh, r), device=q.device),
+                 torch.zeros((b, chunk, kvh, r, d), device=q.device))
+        for ci in range(lo, max(hi, lo + 1)):
+            sl = slice(ci * chunk, (ci + 1) * chunk)
+            carry = _stream_step(
+                qf, kp[:, sl].to(torch.float32), vp[:, sl].to(torch.float32),
+                carry, qpos=qpos, kpos=ci * chunk + ar, sk=sk, causal=causal,
+                window=window, scalef=scalef, p_dtype=p_dtype)
+        _, l, acc = carry
+        outs.append((acc / torch.clamp_min(l, 1e-30)[..., None])
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+def _stream_attend(q, k, v, *, q_start: int, causal: bool,
+                   window: Optional[int], chunk: int):
+    """Two-level streaming softmax attention with float32 operands (the
+    JAX package's ``_stream_attend``: a scan over query chunks, a loop
+    with dynamic bounds over the visible KV chunks; Python loops here).
+    q [B, Sq, KV, R, D], k/v [B, Sk, KV, D]; returns [B, Sq, KV, R, D]."""
+    return _stream_attend_impl(q, k, v, q_start=q_start, causal=causal,
+                               window=window, chunk=chunk,
+                               p_dtype=torch.float32)
+
+
+def _stream_attend_diff(q, k, v, *, q_start: int, causal: bool,
+                        window: Optional[int], chunk: int):
+    """The differentiable variant (the JAX package's
+    ``_stream_attend_diff``): the same walk, with the operands kept in
+    q's dtype (bf16) and float32 accumulation — a bf16 product is exact
+    in float32, so the operands are widened before each einsum, and the
+    probabilities are rounded to q's dtype before the value product.
+    torch's autograd differentiates the loops as they are."""
+    return _stream_attend_impl(q, k, v, q_start=q_start, causal=causal,
+                               window=window, chunk=chunk, p_dtype=q.dtype)
+
+
+def attention_apply(params, cfg: AttnConfig, x, *, positions,
+                    chunk: int = 1024, differentiable: bool = True,
+                    window: Optional[int] = None):
+    """Full-sequence causal self-attention with RoPE (the JAX package's
+    ``attention_apply`` as ``forward`` calls it: ``kv=None``, causal,
+    queries from position 0).  x [B, S, d]; positions [B, S]; returns
+    ([B, S, d], (k, v))."""
+    b, s, _ = x.shape
+    h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q, k, v = _qkv(params, cfg, x, positions)
+    attend = _stream_attend_diff if differentiable else _stream_attend
+    out = attend(q.reshape(b, s, g, h // g, hd), k, v, q_start=0,
+                 causal=True, window=window, chunk=min(chunk, max(s, 16)))
+    return dense_apply(params["wo"], out.reshape(b, s, h * hd)), (k, v)
 
 
 def _quantize_kv(t):

@@ -17,13 +17,19 @@ The recurrent families replay prompts one token per ``decode_step``, as
 in the JAX package: ``prefill_step`` and the ``advance`` mask raise for
 them.  The serving engine's slot helpers: ``reset_slot`` clears one
 batch slot of any family's cache, ``prefill_slot`` prefills one slot of
-a dense cache.
+a dense cache.  Speculative decoding's entry points (dense only):
+``verify_step`` / ``verify_slot`` score a chunk of tokens with the
+logits of every column, bit for bit those of sequential
+``decode_step``s, and ``rollback_slot`` rewinds one slot's position.
+``forward`` (dense only) is the full-sequence forward of training, with
+the streaming attention of ``layers.attention_apply``, differentiable
+by autograd.
 
 Parameters are a plain dict tree with the JAX package's keys and the
 stacked layer axis first; the JAX package's ``lax.scan`` over layers
-is a Python loop over that axis here.  The cache is updated in place.
-Not ported yet: ``forward``, ``verify_step``, ``verify_slot`` and
-``rollback_slot`` (speculative decoding), and the moe, encdec and vlm
+is a Python loop over that axis here (and ``forward`` does not
+rematerialize: the JAX package's ``remat`` only trades memory).  The
+cache is updated in place.  Not ported yet: the moe, encdec and vlm
 families.
 """
 from __future__ import annotations
@@ -153,15 +159,61 @@ def _embed(cfg: ArchConfig, params, tokens):
     return x.to(cfg.dtype)
 
 
-def _unembed(cfg: ArchConfig, params, x):
-    x = L.rmsnorm_apply(params["ln_f"], x)
+def unembed_hidden(cfg: ArchConfig, params, h):
+    """Project already-normed hidden states to float32 logits.  The LM
+    head is materialized and multiplied in bf16, as in the JAX package:
+    a plain product, not a packed-kernel call."""
     if cfg.tie_embeddings:
-        logits = x @ params["embed"].to(x.dtype).T
+        logits = h @ params["embed"].to(h.dtype).T
     else:
-        # the LM head is materialized and multiplied in bf16, as in the
-        # JAX package: a plain product, not a packed-kernel call
-        logits = x @ L.mat(params["lm_head"], x.dtype)
+        logits = h @ L.mat(params["lm_head"], h.dtype)
     return logits.to(torch.float32)
+
+
+def _unembed(cfg: ArchConfig, params, x):
+    return unembed_hidden(cfg, params, L.rmsnorm_apply(params["ln_f"], x))
+
+
+# ---------------------------------------------------------------------------
+# full forward (training)
+# ---------------------------------------------------------------------------
+
+def _finish(cfg: ArchConfig, params, x, mode: str):
+    if mode == "hidden":
+        return L.rmsnorm_apply(params["ln_f"], x)
+    if mode == "last_logits":
+        return _unembed(cfg, params, x[:, -1:, :])
+    if mode == "logits":
+        return _unembed(cfg, params, x)
+    raise ValueError(f"unknown forward mode {mode!r}")
+
+
+def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
+            diff: bool = True, mode: str = "logits"):
+    """Full-sequence forward of the dense family.  batch: {"tokens":
+    [B, S]}.  mode: "logits" (full [B, S, V] float32), "hidden" (the
+    post-``ln_f`` states, for a chunked loss) or "last_logits" (only the
+    next-token logits).  Attention is ``layers.attention_apply`` over
+    positions 0..S-1 (causal, chunked at ``cfg.attn_chunk``); ``diff``
+    picks its differentiable variant (bf16 operands, float32
+    accumulation), else float32 operands."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"forward: family {cfg.family!r} is not ported yet (ported: "
+            "dense; ROADMAP, not-ported list)")
+    x = _embed(cfg, params, batch["tokens"])
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device).expand(b, s)
+    acfg = _attn_cfg(cfg)
+    for i in range(cfg.n_layers):
+        bp = layer_params(params["blocks"], i)
+        h, _ = L.attention_apply(
+            bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
+            positions=positions, chunk=cfg.attn_chunk, differentiable=diff,
+            window=cfg.window)
+        x = _mlp_residual(cfg, bp, x + h)
+    return _finish(cfg, params, x, mode)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +400,8 @@ def reset_slot(cache, slot: int):
 def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                      n_valid: torch.Tensor):
     """Chunked teacher-forcing core: returns (final hidden states
-    [B, C, d], cache)."""
+    [B, C, d], cache).  ``prefill_step`` drops the hidden states,
+    ``verify_step`` unembeds them."""
     if cfg.family not in ("dense", "moe", "vlm"):
         # as in the JAX package: the recurrent families replay prompts
         # one token per decode_step
@@ -383,22 +436,85 @@ def prefill_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     return new_cache
 
 
+def _slot_view(cache, slot: int):
+    """The slot's row of every cache leaf, as views
+    (``leaf[:, slot:slot+1]``, ``index[slot:slot+1]``)."""
+    return {name: leaf[slot:slot + 1] if name == "index"
+            else leaf[:, slot:slot + 1] for name, leaf in cache.items()}
+
+
+def _slot_merge(cache, slot: int, new):
+    """``cache`` with the slot's new position written into a copy of
+    ``index`` (the leaves were written through the views in place)."""
+    index = cache["index"].clone()
+    index[slot:slot + 1] = new["index"]
+    return dict(cache, index=index)
+
+
 def prefill_slot(cfg: ArchConfig, params, cache, slot: int,
                  tokens: torch.Tensor, n_valid: torch.Tensor):
     """Chunked prefill of a SINGLE batch slot.
 
     tokens [1, C] int; n_valid [1] int.  The slot's row of every cache
-    leaf (a view: ``leaf[:, slot:slot+1]``, ``index[slot:slot+1]``) is
-    prefilled as a batch of one through ``prefill_step``, which writes
-    the K/V rows and scales through the views in place; the slot's new
-    position is written back into a copy of ``index``, which the
-    returned dict carries (the one passed in is left as it was).  As in
-    the reference, a prompt's replay runs the same [1, C] program on the
-    same single-row operands whether it opens a wave or joins one.
+    leaf (a view) is prefilled as a batch of one through
+    ``prefill_step``, which writes the K/V rows and scales through the
+    views in place; the slot's new position is written back into a copy
+    of ``index``, which the returned dict carries (the one passed in is
+    left as it was).  As in the reference, a prompt's replay runs the
+    same [1, C] program on the same single-row operands whether it
+    opens a wave or joins one.
     """
-    sub = {name: leaf[slot:slot + 1] if name == "index"
-           else leaf[:, slot:slot + 1] for name, leaf in cache.items()}
-    new = prefill_step(cfg, params, sub, tokens, n_valid)
+    new = prefill_step(cfg, params, _slot_view(cache, slot), tokens, n_valid)
+    return _slot_merge(cache, slot, new)
+
+
+def verify_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
+                n_valid: torch.Tensor):
+    """The speculative verification wave: chunked teacher forcing with
+    the logits of every column.
+
+    tokens [B, C] int — per slot, the pending token and the draft's
+    proposals; n_valid [B] int in [0, C] (0 freezes a slot, as in
+    ``prefill_step``).  Returns (logits [B, C, V] float32, cache):
+    column j holds the next-token logits after tokens[:, :j+1].
+
+    It runs the layer stack chunked prefill runs (prefill attention
+    writes K/V at ``index + j`` and attends ``kpos <= index + j``: the
+    decode step's causal rule per column), so column j's logits and the
+    K/V writes are bit for bit those of j+1 sequential ``decode_step``s
+    over the same tokens.  The B x C rows of every projection go
+    through one packed GEMM (kernel B2 above 8 rows), exact at any row
+    count; the float ops (norms, attention products, the bf16 LM head)
+    gave the decode step's bits at these shapes on the CPU and on the
+    H100 (``scripts/verify_vs_decode.py``).  Columns at or past a slot's
+    ``n_valid`` give garbage logits (their K/V is not written); callers
+    read only accepted prefixes.
+    """
+    x, new_cache = _prefill_forward(cfg, params, cache, tokens, n_valid)
+    return _unembed(cfg, params, x), new_cache
+
+
+def verify_slot(cfg: ArchConfig, params, cache, slot: int,
+                tokens: torch.Tensor, n_valid: torch.Tensor):
+    """``verify_step`` over a SINGLE batch slot, on views of its rows as
+    ``prefill_slot`` does.  tokens [1, C]; n_valid [1].  Returns (logits
+    [1, C, V], cache with only ``slot``'s rows and position changed)."""
+    logits, new = verify_step(cfg, params, _slot_view(cache, slot), tokens,
+                              n_valid)
+    return logits, _slot_merge(cache, slot, new)
+
+
+def rollback_slot(cache, slot, n):
+    """Rewind batch slot ``slot`` by ``n`` positions, clamped at 0.
+
+    The whole rejection path of speculative decoding: a copy of the
+    position vector ``index`` is decremented and nothing else is
+    touched.  K/V entries past the new position hold rejected drafts,
+    but attention reads only positions <= index and every position is
+    written before it becomes readable again (the argument that makes
+    ``reset_slot`` and slot reuse sound).  ``slot`` and ``n`` may be
+    Python ints or device scalars.
+    """
     index = cache["index"].clone()
-    index[slot:slot + 1] = new["index"]
+    index[slot] = torch.clamp_min(index[slot] - n, 0)
     return dict(cache, index=index)

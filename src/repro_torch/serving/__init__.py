@@ -23,15 +23,17 @@ packed kernels execute at high occupancy":
     counters, and packed-multiply utilization (achieved
     MACs/wide-multiply via the existing density accounting), exported
     as a JSON snapshot (written atomically);
+  * ``spec``    — speculative decoding: the self-speculation draft
+    (the same weights at W4A4, denser lanes on the same word), the
+    draft and verify programs, and ``calibrated_params`` (a briefly
+    trained checkpoint, so the draft has something to agree with);
   * ``loadgen`` — Poisson / closed-loop drivers with backpressure
     retry + the client-side outcome ledger, the serving sweep, the
-    chaos sweep and the continuous-batching sweep (``python -m
-    repro_torch.serving.loadgen [--chaos|--continuous]``).
+    chaos sweep, the continuous-batching sweep and the speculative
+    sweep (``python -m repro_torch.serving.loadgen
+    [--chaos|--continuous|--speculative]``).
 
-Not ported yet: speculative decoding (the reference's ``spec``;
-``Engine(speculative=True)`` and ``loadgen --speculative`` raise
-``NotImplementedError``).  ``launch/serve.py --engine on`` is the thin
-CLI over this package.
+``launch/serve.py --engine on`` is the thin CLI over this package.
 """
 from .queue import (Backpressure, BucketShape, BucketUnavailable,
                     ContinuousBatcher, DeadlineInfeasible, Request,

@@ -91,8 +91,12 @@ What differs from the reference, and why:
     from ``cache0``, and warmup runs on that working cache too;
   * each iteration copies ``logits[:, -1, :vocab]`` to the host once
     and takes the greedy argmax there, as the reference does;
-  * speculative decoding (``serving/spec.py``) is not ported yet:
-    ``speculative=True`` raises ``NotImplementedError``.
+  * speculative decoding (``speculative=True``, ``serving/spec.py``):
+    the reference's jitted draft and verify programs are plain methods
+    of ``SpecDecoder``, and the draft's fork of the target cache is a
+    per-bucket working cache (``draft_work``) that every round
+    overwrites from the target's, so the draft never writes the
+    target's cache; ``_warm_spec`` runs on the working caches.
 """
 from __future__ import annotations
 
@@ -238,6 +242,10 @@ class _WaveState:
     decode_steps: int = 0
     prefill_wall_s: float = 0.0
     decode_wall_s: float = 0.0
+    spec_rounds: int = 0            # speculative draft+verify rounds
+    spec_tokens: int = 0            # tokens those rounds emitted
+    draft_wall_s: float = 0.0
+    verify_wall_s: float = 0.0
     busy_slot_steps: int = 0        # occupied slots summed over iters
     requests: int = 0               # admitted incl. mid-wave joiners
 
@@ -257,6 +265,10 @@ class _BucketState:
     quarantined_until: float = 0.0  # cooldown expiry (engine clock)
     cache: Any = None               # live cache of the active wave
     wave: Optional[_WaveState] = None
+    # -- speculative decoding (engine speculative=True, DESIGN.md §5.2)
+    spec_on: bool = False           # draft+verify warmed and healthy
+    accept_ema: float = 0.0         # EMA of tokens emitted per round
+    draft_work: Any = None          # the draft's fork of the cache
 
 
 class Engine:
@@ -285,13 +297,11 @@ class Engine:
                  prefill_chunk: int = 8,
                  wave_quantum: int = 1,
                  speculative: bool = False,
+                 spec_k: int = 3,
+                 draft_bits: int = 4,
+                 draft_act_bits: int = 4,
                  min_size: int = 1024, pad_token: int = 0,
                  device="cuda"):
-        if speculative:
-            raise NotImplementedError(
-                "speculative decoding (serving/spec.py) is not ported yet "
-                "(ROADMAP Queue A, item 2: verify_step, verify_slot and "
-                "rollback_slot, then serving/spec.py)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -338,6 +348,21 @@ class Engine:
         #: mixed prefill+decode, warmup, fallback), so per-request
         #: results cannot depend on wave makeup
         self._use_adv = cfg.family in ("dense", "moe", "vlm")
+        # speculative decoding: a W-low/A-low self-speculation draft of
+        # the SAME checkpoint proposes spec_k tokens per round and the
+        # target verifies them in one chunked wave — greedy acceptance
+        # is exact, so completions stay bit-identical to plain decode
+        self.speculative = bool(speculative)
+        self.spec = None
+        if self.speculative:
+            from .spec import SpecConfig, SpecDecoder
+            self.spec = SpecDecoder(
+                cfg, params,
+                SpecConfig(k=spec_k, draft_bits=draft_bits,
+                           draft_act_bits=draft_act_bits),
+                compute=compute, min_size=min_size,
+                conv_datapath=conv_datapath,
+                plan_policy=self.plan_policy, plan_cache=plan_cache)
 
     # -- the model calls (the reference's three jit seams) -----------------
 
@@ -492,18 +517,58 @@ class Engine:
             bucket.key, {k: v for k, v in util.items() if k != "layers"})
         return st
 
-    def _compile_aux(self, st: _BucketState) -> None:
+    def _compile_aux(self, st: _BucketState, *, spec: bool = True
+                     ) -> None:
         """Run the per-slot prefill and the slot reset once during
         warmup, on the working cache (``cache0`` stays pristine): a
         mid-wave join must never pay a kernel build in the middle of
-        live traffic."""
-        if self.prefill_chunk > 1:
+        live traffic.  With ``speculative=True`` the draft and verify
+        programs run here too (``spec`` is False only for the fallback
+        state — the degraded batch-1 path never speculates)."""
+        if self.prefill_chunk > 1 or self.speculative:
+            # spec mode replays EVERY teacher-forced prompt token
+            # through the prefill path, so the [1, C] call is needed
+            # even at chunk 1
             ptoks = self._tensor(np.full((1, self.prefill_chunk),
                                          self.pad_token, np.int32))
             self._pre(st.qparams, dict(st.work), 0, ptoks,
                       self._tensor(np.ones((1,), np.int32)))
         self._reset(dict(st.work), 0)
         self._sync()
+        if spec and self.speculative:
+            st.spec_on = self._warm_spec(st)
+
+    def _warm_spec(self, st: _BucketState) -> bool:
+        """Resolve the draft's plans and run the draft round and the
+        verify wave once for this bucket shape, on the working caches.
+        ANY failure — draft plan resolution, a kernel build, a launch —
+        degrades the bucket to plain decode on the spot (returns False)
+        instead of quarantining it or re-routing to the batch-1
+        fallback: the target path is intact and correctness never
+        depended on the draft."""
+        b = st.bucket.batch
+        try:
+            dqp = self.spec.draft_qparams(b)
+            if st.draft_work is None:
+                st.draft_work = {k: torch.empty_like(v)
+                                 for k, v in st.cache0.items()}
+            pend = self._tensor(np.full((b,), self.pad_token, np.int32))
+            ones = self._tensor(np.ones((b,), np.int32))
+            props = self.spec.draft(dqp, dict(st.work), pend, ones,
+                                    st.draft_work)
+            self._sync()
+            k1 = self.spec.config.k + 1
+            self.spec.verify(st.qparams, dict(st.work), pend, props, ones,
+                             self._tensor(np.full((b,), k1, np.int32)))
+            self._sync()
+        except Exception as e:
+            warnings.warn(
+                f"speculative decode disabled for bucket "
+                f"{st.bucket.key}: {e!r}; degrading to plain decode",
+                stacklevel=2)
+            self.metrics.record_spec_degraded(st.bucket.key)
+            return False
+        return True
 
     def prewarm_fallback(self) -> None:
         """Build and run the degraded fallback path ahead of traffic.
@@ -521,6 +586,21 @@ class Engine:
         return {key: packed_utilization(st.qparams, st.bucket.batch)
                 for key, st in sorted(self._states.items())
                 if key != FALLBACK_KEY and st.qparams is not None}
+
+    def spec_report(self) -> Dict[str, Any]:
+        """Per warmed bucket: speculation health + the per-layer
+        target-vs-draft plan table (the acceptance gate is every draft
+        GEMM strictly denser on the same datapath)."""
+        if not self.speculative:
+            return {}
+        return {key: {
+                    "spec_on": st.spec_on,
+                    "accept_ema": st.accept_ema,
+                    "layers": self.spec.plan_comparison(
+                        st.qparams, st.bucket.batch),
+                }
+                for key, st in sorted(self._states.items())
+                if key != FALLBACK_KEY and st.warmed}
 
     def bucket_health(self) -> Dict[str, str]:
         """Circuit-breaker state per warmed/known bucket."""
@@ -553,8 +633,13 @@ class Engine:
         return max(self._bucket_est_s(st) for st in warmed)
 
     def _bucket_est_s(self, st: _BucketState) -> float:
-        """One bucket's estimated wave wall clock."""
-        return st.decode_s * (st.bucket.s_max - 1)
+        """One bucket's estimated wave wall clock.  When the bucket
+        speculates, its decode EMA prices a *round* (draft + verify)
+        that emits ``accept_ema`` tokens, not one."""
+        est = st.decode_s * (st.bucket.s_max - 1)
+        if self.speculative and st.spec_on and st.accept_ema > 0.0:
+            est /= max(st.accept_ema, 1.0)
+        return est
 
     # -- request admission -------------------------------------------------
 
@@ -849,8 +934,14 @@ class Engine:
         b, vocab = bucket.batch, self.cfg.vocab
         active = table.active()
         c = self.prefill_chunk
+        # spec mode forces the chunked-prefill path for teacher-forced
+        # positions even at chunk 1: a speculative round must never run
+        # on a slot that still has prompt left, so decoding slots always
+        # have fed >= prompt_len - 1
+        use_spec = self.speculative and st.spec_on
         prefilling = [(slot, s) for slot, s in active
-                      if c > 1 and s.fed < s.prompt_len - 1]
+                      if (c > 1 or use_spec)
+                      and s.fed < s.prompt_len - 1]
         pref_slots = {slot for slot, _ in prefilling}
         decoding = [(slot, s) for slot, s in active
                     if slot not in pref_slots]
@@ -875,6 +966,20 @@ class Engine:
             w.busy_slot_steps += len(prefilling)
         if not decoding:
             return []
+        if use_spec:
+            try:
+                return self._spec_iteration(st, decoding)
+            except InjectedFault:
+                raise                       # chaos events keep the
+            except Exception as e:          # normal breaker path
+                # draft/verify runtime failure: degrade THIS bucket to
+                # plain decode in place (never the batch-1 fallback —
+                # the target path is intact) and serve the iteration
+                # below.  st.cache was not reassigned and the draft
+                # writes only its fork, so the pending tokens are still
+                # unconsumed (a failed verify may have written K/V past
+                # the index, which is never read before it is rewritten)
+                self._degrade_spec(st, e)
         t0 = self.clock()
         toks = np.full((b, 1), self.pad_token, np.int32)
         for slot, s in decoding:
@@ -924,6 +1029,96 @@ class Engine:
         self.metrics.record_decode_launch(emitted)
         return completions
 
+    def _degrade_spec(self, st: _BucketState, error: Exception) -> None:
+        """Turn off speculation for one bucket after a draft-side
+        failure.  DESIGN.md §5.2: the degradation target is plain
+        decode on the SAME bucket — never quarantine, never the
+        batch-1 fallback — because target-path correctness was never
+        in the draft's hands."""
+        warnings.warn(
+            f"speculative decode disabled for bucket {st.bucket.key}: "
+            f"{error!r}; degrading to plain decode", stacklevel=3)
+        self.metrics.record_spec_degraded(st.bucket.key)
+        st.spec_on = False
+
+    def _spec_iteration(self, st: _BucketState,
+                        decoding: List[Tuple[int, Session]]
+                        ) -> List[Completion]:
+        """One speculative round for the wave's decoding slots: k draft
+        steps on the packed low-bit draft over the bucket's fork of the
+        target's cache, then one chunked verification wave on the
+        target scoring all k + 1 positions, with longest-prefix greedy
+        acceptance and the rejected tail's rollback on the device.
+
+        The emitted tokens are always the *target's* argmax choices, so
+        output is bit-identical to plain decode — the draft only sets
+        the tokens-per-round rate.  Slots mid-prefill ride along frozen
+        (draft advance 0, verify n_valid 0: no K/V write, no index
+        move).  The proposals stay on the device; the host reads back
+        only (greedy [B, k+1], accepted [B]).  May raise; the caller
+        degrades the bucket to plain decode."""
+        w, bucket, table = st.wave, st.bucket, st.sessions
+        b = bucket.batch
+        dqp = self.spec.draft_qparams(b)
+        pend = np.full((b,), self.pad_token, np.int32)
+        adv = np.zeros((b,), np.int32)
+        rem = np.zeros((b,), np.int32)
+        for slot, s in decoding:
+            # the one unconsumed token per decoding slot: the final
+            # prompt token right after prefill, else the last accepted
+            pend[slot] = s.request.prompt[s.fed] \
+                if s.fed < s.prompt_len else s.tokens[-1]
+            adv[slot] = 1
+            rem[slot] = s.request.new_tokens - len(s.tokens)
+        pend_t, adv_t = self._tensor(pend), self._tensor(adv)
+        t0 = self.clock()
+        props = self.spec.draft(dqp, st.cache, pend_t, adv_t, st.draft_work)
+        self._sync()                            # draft wall = device too
+        t1 = self.clock()
+        # acceptance on device: t = min(matched prefix + 1, remaining)
+        # per slot — m accepted proposals PLUS the target's correction
+        # at the first mismatch, capped by what the request still wants
+        greedy, acc, cache = self.spec.verify(st.qparams, st.cache, pend_t,
+                                              props, adv_t,
+                                              self._tensor(rem))
+        greedy = greedy.cpu().numpy()                         # [B, k+1]
+        acc = acc.cpu().numpy()                               # [B]
+        t2 = self.clock()
+        st.cache = cache                        # already rolled back
+        draft_s = max(t1 - t0, 1e-9)
+        verify_s = max(t2 - t1, 1e-9)
+        w.spec_rounds += 1
+        w.draft_wall_s += draft_s
+        w.verify_wall_s += verify_s
+        w.busy_slot_steps += len(decoding)
+        finish_t = self.clock()
+        completions: List[Completion] = []
+        accepted: List[int] = []
+        for slot, s in decoding:
+            t = int(acc[slot])
+            if s.fed < s.prompt_len:
+                s.fed += 1                      # consumed: last prompt tok
+            s.tokens.extend(int(g) for g in greedy[slot, :t])
+            accepted.append(t)
+            w.spec_tokens += t
+            if s.done():
+                table.leave(slot)
+                comp = Completion(
+                    rid=s.request.rid, tokens=tuple(s.tokens),
+                    prompt_len=s.prompt_len, bucket_key=bucket.key,
+                    submit_t=s.request.submit_t,
+                    start_t=s.start_t, finish_t=finish_t,
+                    deadline=s.request.deadline, midwave_join=s.midwave)
+                completions.append(comp)
+                self._set_outcome(comp.rid, "ok", bucket.key)
+                self.metrics.record_completion(
+                    submit_t=comp.submit_t, start_t=comp.start_t,
+                    finish_t=comp.finish_t, n_tokens=len(comp.tokens))
+        self.metrics.record_spec_round(bucket.key, accepted=accepted,
+                                       draft_s=draft_s,
+                                       verify_s=verify_s)
+        return completions
+
     def _end_wave(self, st: _BucketState) -> None:
         """Successful wave end: fold this wave's walls into the
         *separate* prefill/decode EMAs and record occupancy."""
@@ -933,13 +1128,25 @@ class Engine:
         if w.decode_steps:
             per = (w.decode_wall_s + w.skew_s) / w.decode_steps
             st.decode_s = 0.5 * st.decode_s + 0.5 * per
+        elif w.spec_rounds:
+            # a purely speculative wave: the decode EMA prices one
+            # ROUND (draft + verify) — accept_ema below converts that
+            # back to per-token for admission (``_bucket_est_s``)
+            per = (w.draft_wall_s + w.verify_wall_s + w.skew_s) \
+                / w.spec_rounds
+            st.decode_s = 0.5 * st.decode_s + 0.5 * per
         if w.prefill_steps:
             per = w.prefill_wall_s / w.prefill_steps
             st.prefill_s = per if st.prefill_s == 0.0 \
                 else 0.5 * st.prefill_s + 0.5 * per
+        if w.spec_rounds:
+            per_tok = w.spec_tokens / w.spec_rounds
+            st.accept_ema = per_tok if st.accept_ema == 0.0 \
+                else 0.5 * st.accept_ema + 0.5 * per_tok
         self.metrics.record_wave(
             st.bucket.key, steps=w.iters,
-            wall_s=w.prefill_wall_s + w.decode_wall_s + w.skew_s,
+            wall_s=(w.prefill_wall_s + w.decode_wall_s + w.draft_wall_s
+                    + w.verify_wall_s + w.skew_s),
             requests=w.requests, busy_slot_steps=w.busy_slot_steps,
             slot_steps=w.iters * st.bucket.batch,
             decode_steps=w.decode_steps, decode_wall_s=w.decode_wall_s,
@@ -1029,5 +1236,5 @@ class Engine:
 
     def _warm_state(self, st: _BucketState) -> None:
         self._warm_decode(st)
-        self._compile_aux(st)
+        self._compile_aux(st, spec=False)
         st.warmed = True

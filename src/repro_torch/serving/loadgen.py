@@ -43,9 +43,12 @@ and emits, per rate, wave occupancy (busy-slot-steps / slot-steps),
 p99, join counts, and a per-request bit-exactness audit of every
 completion (joiners included) against alone-runs of the same specs.
 
-Speculative mode (``--speculative``) is not ported yet: it needs the
-engine's speculative decoding and a briefly trained checkpoint
-(ROADMAP Queue A), and raises ``NotImplementedError``.
+Speculative mode (``--speculative``) first trains a checkpoint briefly
+(``spec.calibrated_params``, ``--train-steps`` Adam steps on the device:
+acceptance is a property of the checkpoint), then drives identical
+seeded traffic through two engines — speculation off vs on — and emits,
+per rate, p99, tokens per target wave, the acceptance histogram and a
+per-request bit-exactness audit of both curves against plain alone-runs.
 
 Closed loop (``--mode closed``): ``--users`` concurrent clients, each
 submitting its next request the moment the previous one completes —
@@ -55,6 +58,8 @@ the throughput-saturation view.
       --arch tinyllama-1.1b --smoke --rates 30,90 --duration 1.0
   PYTHONPATH=src python -m repro_torch.serving.loadgen \
       --arch tinyllama-1.1b --smoke --chaos --device cpu
+  PYTHONPATH=src python -m repro_torch.serving.loadgen \
+      --arch tinyllama-1.1b --smoke --speculative --rates 60 --device cpu
 """
 from __future__ import annotations
 
@@ -553,6 +558,173 @@ def bench_continuous(arch: str, *, smoke: bool = True,
     }
 
 
+# ---------------------------------------------------------------------------
+# the BENCH_10 speculative-decoding sweep
+# ---------------------------------------------------------------------------
+
+def bench_speculative(arch: str, *, smoke: bool = True,
+                      rates: Sequence[float] = (60.0, 120.0, 200.0),
+                      duration_s: float = 1.0, prompt_len: int = 8,
+                      new_tokens: int = 12, batch: int = 4,
+                      s_maxes: Sequence[int] = (24, 48),
+                      weight_bits: int = 4, act_bits: int = 8,
+                      spec_k: int = 3, draft_bits: int = 4,
+                      draft_act_bits: int = 4, prefill_chunk: int = 4,
+                      train_steps: int = 350, seed: int = 0,
+                      verify: bool = True, trials: int = 1,
+                      device="cuda") -> Dict[str, Any]:
+    """Identical seeded Poisson traffic through two engines —
+    speculation off vs on — at every rate (BENCH_10-shaped).
+
+    The checkpoint is *briefly trained* first
+    (``spec.calibrated_params`` on ``device``): acceptance is a
+    checkpoint property, and a random-init model's near-tied logits mean
+    the low-bit draft almost never agrees with the target.  Each point
+    records p99, effective tokens per target wave (every verify round
+    and every plain decode launch counts as one target wave), the
+    acceptance-length histogram, and — with ``verify`` — a per-request
+    alone-run bit-exactness audit of every ok completion on BOTH curves
+    against a fresh non-speculative engine (mismatches must be 0).  The
+    payload also carries the per-layer target-vs-draft plan table.
+
+    ``trials`` > 1 repeats every rate point as PAIRED trials (plain then
+    spec back to back on the identical trace); the representative pair
+    is the one with the median spec/plain p99 ratio, and the audits are
+    pooled across trials."""
+    from ..configs.registry import get_arch
+    from ..device import resolve_device
+    from .spec import calibrated_params
+
+    dev = resolve_device(device)
+    cfg = get_arch(arch)
+    if smoke:
+        cfg = cfg.reduced()
+    params = calibrated_params(cfg, steps=train_steps, seed=seed,
+                               device=dev)
+    buckets = tuple(BucketShape(batch, s) for s in s_maxes)
+
+    verify_engine: Optional[Engine] = None
+    alone_cache: Dict[Any, Optional[tuple]] = {}
+
+    def alone_tokens(prompt, nt):
+        nonlocal verify_engine
+        key = (prompt, nt)
+        if key in alone_cache:
+            return alone_cache[key]
+        if verify_engine is None:
+            # the reference is always NON-speculative: both curves
+            # audit against plain decode
+            verify_engine = Engine(
+                cfg, params, compute="sdv", weight_bits=weight_bits,
+                act_bits=act_bits, buckets=buckets,
+                midwave_joins=False, prefill_chunk=prefill_chunk,
+                device=dev)
+            for b in buckets:
+                verify_engine.warmup(b)
+        rid = verify_engine.submit(prompt, nt)
+        verify_engine.drain()
+        toks = next((tuple(c.tokens) for c in verify_engine.completions
+                     if c.rid == rid), None)
+        alone_cache[key] = toks
+        return toks
+
+    points: List[Dict[str, Any]] = []
+    plan_table: Dict[str, Any] = {}
+    for ri, rate in enumerate(rates):
+        trace_rng = np.random.default_rng(seed + ri)
+        arrivals = poisson_arrivals(rate, duration_s, trace_rng)
+        specs = _request_specs(len(arrivals), cfg.vocab, prompt_len,
+                               new_tokens, trace_rng)
+        pairs: List[Dict[bool, Dict[str, Any]]] = []
+        audit = {False: [0, 0], True: [0, 0]}  # checked, mismatches
+        for _ in range(max(trials, 1)):
+            pair: Dict[bool, Dict[str, Any]] = {}
+            for speculative in (False, True):
+                engine = Engine(cfg, params, compute="sdv",
+                                weight_bits=weight_bits,
+                                act_bits=act_bits, buckets=buckets,
+                                prefill_chunk=prefill_chunk,
+                                speculative=speculative, spec_k=spec_k,
+                                draft_bits=draft_bits,
+                                draft_act_bits=draft_act_bits, device=dev)
+                for b in buckets:    # steady state: kernel builds are
+                    engine.warmup(b)  # not charged to early requests
+                admitted: Dict[int, int] = {}
+                snap = run_poisson(engine, rate=rate,
+                                   duration_s=duration_s,
+                                   prompt_len=prompt_len,
+                                   new_tokens=new_tokens,
+                                   rng=np.random.default_rng(seed + ri),
+                                   admitted_out=admitted)
+                if verify:
+                    by_rid = {c.rid: c for c in engine.completions}
+                    for idx, rid in sorted(admitted.items()):
+                        o = engine.outcomes.get(rid)
+                        if o is None or o["outcome"] != "ok":
+                            continue
+                        comp = by_rid.get(rid)
+                        audit[speculative][0] += 1
+                        if comp is None:
+                            audit[speculative][1] += 1
+                            continue
+                        ref = alone_tokens(*specs[idx])
+                        if ref is None or tuple(comp.tokens) != ref:
+                            audit[speculative][1] += 1
+                if speculative and not plan_table:
+                    plan_table = engine.spec_report()
+                pair[speculative] = snap
+            pairs.append(pair)
+
+        def _ratio(p: Dict[bool, Dict[str, Any]]) -> float:
+            off = max(p[False]["latency"]["p99_ms"], 1e-9)
+            return p[True]["latency"]["p99_ms"] / off
+        order = sorted(pairs, key=_ratio)
+        rep = order[(len(order) - 1) // 2]
+        for speculative in (False, True):
+            snap = rep[speculative]
+            sp = snap["speculative"]
+            points.append({
+                **snap,
+                # the metrics snapshot's "speculative" sub-dict stays
+                # under that key; this level's flag names the curve
+                "speculative": speculative,
+                "spec_counters": sp,
+                "rate_per_s": rate,
+                "p99_ms": snap["latency"]["p99_ms"],
+                "p99_ms_trials": [p[speculative]["latency"]["p99_ms"]
+                                  for p in pairs],
+                "tokens_per_s": snap["tokens_per_s"],
+                "tokens_per_target_wave": sp["tokens_per_target_wave"],
+                "mean_accepted": sp["mean_accepted"],
+                "acceptance_hist": sp["acceptance_hist"],
+                "spec_degraded": sp["degraded_buckets"],
+                "bit_exact_checked": audit[speculative][0],
+                "bit_exact_mismatches": audit[speculative][1],
+            })
+
+    return {
+        "bench": "speculative_decoding",
+        "arch": cfg.name,
+        "smoke": smoke,
+        "backend": dev.type,
+        "buckets": [{"batch": b.batch, "s_max": b.s_max} for b in buckets],
+        "rates_per_s": list(rates),
+        "duration_s": duration_s,
+        "prompt_len": prompt_len,
+        "new_tokens": new_tokens,
+        "prefill_chunk": prefill_chunk,
+        "spec_k": spec_k,
+        "target_bits": {"w": weight_bits, "a": act_bits},
+        "draft_bits": {"w": draft_bits, "a": draft_act_bits},
+        "calibration_steps": train_steps,
+        "trials": max(trials, 1),
+        "seed": seed,
+        "bit_exact_verified": verify,
+        "plan_table": plan_table,
+        "points": points,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -598,11 +770,29 @@ def main(argv=None):
                     help="teacher-forced prompt tokens per prefill "
                          "iteration (continuous sweep)")
     ap.add_argument("--speculative", action="store_true",
-                    help="speculative-decoding sweep (not ported yet: "
-                         "raises)")
+                    help="speculative-decoding sweep: identical traffic "
+                         "with speculation off vs on (BENCH_10); the "
+                         "checkpoint is briefly trained first so the "
+                         "draft has something to agree with")
+    ap.add_argument("--spec-k", type=int, default=3,
+                    help="drafted tokens per verification wave")
+    ap.add_argument("--draft-bits", type=int, default=4,
+                    help="draft weight bits (self-speculation)")
+    ap.add_argument("--draft-act-bits", type=int, default=4,
+                    help="draft activation bits — the knob that buys "
+                         "packing density (see serving.spec)")
+    ap.add_argument("--train-steps", type=int, default=350,
+                    help="calibration Adam steps before the "
+                         "speculative sweep")
+    ap.add_argument("--trials", type=int, default=1,
+                    help="paired repeats per speculative-sweep rate: "
+                         "each trial runs plain+spec back to back; "
+                         "the median-p99-ratio pair represents the "
+                         "point (audits are pooled)")
     ap.add_argument("--no-verify", dest="verify", action="store_false",
                     help="skip the per-request alone-run bit-exactness "
-                         "check in the continuous sweep")
+                         "check in the continuous and speculative "
+                         "sweeps")
     ap.add_argument("--fault-classes", default=",".join(FAULT_CLASSES),
                     help="comma-separated chaos fault classes")
     ap.add_argument("--seed", type=int, default=0)
@@ -614,12 +804,35 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.speculative:
-        raise NotImplementedError(
-            "loadgen --speculative needs speculative decoding "
-            "(serving/spec.py), which is not ported yet (ROADMAP Queue A, "
-            "item 2), and the training loop its calibrated checkpoint "
-            "comes from (Queue A, item 7)")
-    if args.continuous:
+        payload = bench_speculative(
+            args.arch, smoke=args.smoke,
+            rates=[float(r) for r in args.rates.split(",") if r],
+            duration_s=args.duration,
+            prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+            batch=args.batch,
+            s_maxes=[int(s) for s in args.buckets.split(",") if s],
+            weight_bits=args.weight_bits, act_bits=args.act_bits,
+            spec_k=args.spec_k, draft_bits=args.draft_bits,
+            draft_act_bits=args.draft_act_bits,
+            prefill_chunk=args.prefill_chunk,
+            train_steps=args.train_steps, seed=args.seed,
+            verify=args.verify, trials=args.trials, device=args.device)
+        for p in payload["points"]:
+            tag = "spec  " if p["speculative"] else "plain "
+            print(f"{tag}@ {p['rate_per_s']:6.1f} req/s: "
+                  f"{p['requests_completed']} done, "
+                  f"tok/target-wave {p['tokens_per_target_wave']:.2f}, "
+                  f"mean accepted {p['mean_accepted']:.2f}, "
+                  f"p99 {p['p99_ms']:.1f} ms, "
+                  f"{p['tokens_per_s']:.1f} tok/s, "
+                  f"bit-exact {p['bit_exact_checked']} checked / "
+                  f"{p['bit_exact_mismatches']} mismatches")
+        for key, rep in payload["plan_table"].items():
+            denser = sum(1 for l in rep["layers"] if l["draft_denser"])
+            print(f"bucket {key}: spec_on={rep['spec_on']}, "
+                  f"{denser}/{len(rep['layers'])} draft layers "
+                  f"strictly denser")
+    elif args.continuous:
         payload = bench_continuous(
             args.arch, smoke=args.smoke,
             rates=[float(r) for r in args.rates.split(",") if r],

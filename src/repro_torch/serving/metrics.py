@@ -179,9 +179,8 @@ class EngineMetrics:
     tokens_out: int = 0
     # -- target-wave accounting (speculative decoding, DESIGN.md §5.2):
     # a "target wave" is one launch of the target model — either a
-    # plain decode step or one spec verify wave.  Speculative decoding
-    # is not ported yet, so the spec counters stay 0 here; the snapshot
-    # keeps the reference's layout.
+    # plain decode step or one spec verify wave.  tokens emitted per
+    # target wave is the speedup currency of the speculative sweep.
     decode_launches: int = 0        # plain decode programs dispatched
     decode_tokens: int = 0          # tokens those launches emitted
     spec_iters: int = 0             # draft+verify rounds completed
@@ -251,6 +250,34 @@ class EngineMetrics:
         emit nothing)."""
         self.decode_launches += 1
         self.decode_tokens += tokens_emitted
+
+    def record_spec_round(self, bucket_key: str, *,
+                          accepted: List[int], draft_s: float,
+                          verify_s: float) -> None:
+        """One speculative round: per speculating slot, the number of
+        tokens it emitted (1 = bonus only, k+1 = everything accepted),
+        plus the round's draft and verify wall clocks."""
+        self.spec_iters += 1
+        self.spec_draft_wall_s += draft_s
+        self.spec_verify_wall_s += verify_s
+        for n in accepted:
+            self.spec_tokens += n
+            self.spec_accept_hist[n] = self.spec_accept_hist.get(n, 0) + 1
+        b = self.per_bucket.setdefault(
+            bucket_key, {"waves": 0, "steps": 0, "wall_s": 0.0,
+                         "requests": 0})
+        b["spec_iters"] = b.get("spec_iters", 0) + 1
+        b["spec_tokens"] = b.get("spec_tokens", 0) + sum(accepted)
+
+    def record_spec_degraded(self, bucket_key: str) -> None:
+        """A bucket's speculative path failed (draft resolution, build
+        or runtime): it degraded to plain decode on the SAME bucket —
+        never to the batch-1 fallback."""
+        self.spec_degraded += 1
+        b = self.per_bucket.setdefault(
+            bucket_key, {"waves": 0, "steps": 0, "wall_s": 0.0,
+                         "requests": 0})
+        b["spec_degraded"] = b.get("spec_degraded", 0) + 1
 
     def record_rejection(self, infeasible: bool = False) -> None:
         self.rejected += 1

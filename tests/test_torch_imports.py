@@ -44,7 +44,7 @@ def _entry_points():
     from repro_torch import planner
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve, ultranet
-    from repro_torch.serving import Engine, loadgen
+    from repro_torch.serving import Engine, loadgen, spec
     from repro_torch.models import (init_cache, init_params, init_ultranet,
                                     packed_from_numpy, params_from_numpy,
                                     ultranet_forward,
@@ -76,10 +76,16 @@ def _entry_points():
             [], cpu_params.head.numpy()),
         "ultranet_cli": lambda: ultranet.main(["--size", "16"]),
         "engine": lambda: Engine(cfg, {}),
+        "engine_speculative": lambda: Engine(cfg, {}, speculative=True),
+        "calibrated_params": lambda: spec.calibrated_params(cfg, steps=1),
         "serve_cli_engine": lambda: serve.main(["--engine", "on",
                                                 "--batch", "1"]),
         "loadgen_cli": lambda: loadgen.main(["--rates", "10",
                                              "--duration", "0.01"]),
+        "loadgen_cli_speculative": lambda: loadgen.main(
+            ["--speculative", "--train-steps", "1"]),
+        "serve_cli_speculative": lambda: serve.main(
+            ["--engine", "on", "--speculative", "--batch", "1"]),
         "autotune_layer": lambda: planner.autotune_layer(
             planner.matmul_spec("p", 1, 32, 16, w_bits=4, a_bits=8)),
     }
@@ -95,7 +101,10 @@ def _entry_points():
                                   "init_ultranet", "ultranet_forward",
                                   "ultranet_params_from_numpy",
                                   "ultranet_cli", "engine",
+                                  "engine_speculative", "calibrated_params",
                                   "serve_cli_engine", "loadgen_cli",
+                                  "loadgen_cli_speculative",
+                                  "serve_cli_speculative",
                                   "autotune_layer"])
 def test_entry_points_refuse_to_fall_back_to_cpu(name):
     if torch.cuda.is_available():

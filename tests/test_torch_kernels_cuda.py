@@ -168,6 +168,62 @@ def test_unsigned_elements_on_gemm(cuda):
     assert (got.cpu().reshape(20, -1)[:, :40].numpy() == x @ w.T).all()
 
 
+#: tinyllama-1.1b's projection shapes (K, M): q/o, k/v, gate/up, down
+_TINYLLAMA_SHAPES = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048)]
+
+
+@pytest.mark.parametrize("k,m", _TINYLLAMA_SHAPES)
+@pytest.mark.parametrize("path,wb,rows", [("verify", 8, 32), ("draft", 4, 8)])
+def test_speculative_path_shapes(cuda, k, m, path, wb, rows):
+    """The speculative path's kernels at full width: B2 at the verify
+    wave's 32 rows (8 slots x 4 columns) on the target's dsp48e2 W4A8
+    n=3 plan, and B1 at 8 rows on the W4A4 draft's dsp48e2 n=4 plan,
+    against the plain version (on the card) and the exact product."""
+    plan, w, x, words = _case("dsp48e2", 4, wb, True, m, k, rows, k + m)
+    assert plan.n == (3 if path == "verify" else 4)
+    xd, wd = torch.tensor(x, dtype=torch.int32).to(cuda), words.to(cuda)
+    if path == "verify":
+        got = sdv_matmul.sdv_matmul(xd, wd, plan=plan)
+    else:
+        got = sdv_matvec.sdv_matvec(xd.T.contiguous(), wd, plan=plan)
+    want = sdv_matmul.sdv_matmul_plain(xd, wd, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got.reshape(rows, -1)[:, :m].cpu().numpy() == x @ w.T).all()
+
+
+def test_verify_wave_launches_only_b2_and_equals_decode(cuda):
+    """Reduced tinyllama on the card: one ``verify_step`` over 4 columns
+    of 8 slots is one B2 launch per projection and no plain call, and
+    gives the logits and caches of 4 ``decode_step``s (8 rows: B1)."""
+    import repro_torch.models as tm
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    qp = tm.serve_params(tm.init_params(cfg, seed=0, device=cuda), bits=4,
+                         min_size=1024, compute="sdv", act_bits=8,
+                         plan_policy="auto", rows=8)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                          (8, 4)),
+                        dtype=torch.int32, device=cuda)
+    cache0 = tm.init_cache(cfg, 8, 16, device=cuda)
+    b1, b2 = sdv_matvec.sdv_matvec.launches, sdv_matmul.sdv_matmul.launches
+    plain = sdv_matmul.sdv_matmul_plain.calls
+    vl, vc = tm.verify_step(cfg, qp, {k: v.clone() for k, v in
+                                      cache0.items()}, toks,
+                            torch.full((8,), 4, dtype=torch.int32,
+                                       device=cuda))
+    torch.cuda.synchronize()
+    assert sdv_matmul.sdv_matmul.launches == b2 + 7 * cfg.n_layers
+    assert sdv_matvec.sdv_matvec.launches == b1
+    assert sdv_matmul.sdv_matmul_plain.calls == plain
+    cache, logits = cache0, []
+    for j in range(4):
+        out, cache = tm.decode_step(cfg, qp, cache, toks[:, j:j + 1])
+        logits.append(out)
+    assert torch.equal(vl, torch.cat(logits, dim=1))
+    assert all(torch.equal(vc[k], cache[k]) for k in cache)
+
+
 def test_launch_counters_and_dispatch(cuda):
     plan, w, x, words = _case("int32", 4, 8, True, 64, 128, 12, 1)
     xd, wd = torch.tensor(x).to(cuda), words.to(cuda)

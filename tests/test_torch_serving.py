@@ -666,16 +666,8 @@ def test_cache0_stays_pristine(tiny, after):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and the CLIs
+# the CLIs
 # ---------------------------------------------------------------------------
-
-def test_speculative_is_not_ported(tiny):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tiny["tcfg"], tiny["tparams"], device="cpu",
-               speculative=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_loadgen.main(["--speculative", "--device", "cpu"])
-
 
 def test_serve_cli_engine_on_cpu(capsys):
     from repro_torch.launch.serve import main
