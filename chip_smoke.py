@@ -143,7 +143,26 @@ exit at the first failure:
      reduced tinyllama calibrated on the card (120 steps), whose
      speculative run must accept 2 or more tokens in some round.  Each
      pair prints rounds, mean accepted, the acceptance histogram, the
-     draft and verify walls a round and tokens per target wave.
+     draft and verify walls a round and tokens per target wave;
+ 12. train — packed QAT (``repro_torch.train.qat``): B2 at 512 rows (a
+     microbatch of 4 x 128 tokens) on the dsp48e2 W4A8 n=3 plan at every
+     tinyllama projection shape and the LM head's, against its plain
+     version and the exact product, timed beside its bound and
+     ``_int_mm``; ``ste_dense`` on that plan == ``ste_dense(plan=None)``
+     bitwise at those shapes, its backward's float32 products within a
+     float32 bound of float64 (TF32 would fail it); ``ste_conv2d`` on
+     the W4A4 BSEG plan (B3) == ``plan=None`` at UltraNet's 64 -> 64 3x3
+     stage; then ``run_qat`` on full-width tinyllama-1.1b with the
+     launcher's ``--qat`` defaults (W4A8, plan_policy "auto", batch 8 x
+     128 in 2 microbatches) for 2 steps, saving its checkpoint, and step
+     3 from memory: finite losses, every wrapped leaf on the planner's
+     plan, 310 B2 a step and 155 an eval batch and nothing else, step
+     walls, peak memory and one profiled step split into B2, the cuBLAS
+     GEMMs, ``prepare_sdv_weights`` (CUDA events) and the rest; the
+     checkpoint restored bit for bit and step 3 run from it with the
+     same loss; the step-3 parameters exported by ``export_for_serving``
+     evaluate within 0.1 of the QAT eval (154 B2) and decode through
+     ``single_batch_loop`` (154 B1 a step).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -235,6 +254,20 @@ SPEC_REQUESTS = 8
 SPEC_CALIBRATION = {"steps": 200, "lr": 1e-4}
 SPEC_REDUCED_CALIBRATION = {"steps": 120, "lr": 1e-2}
 LOSS_WINDOW = 10
+#: the train phase: packed QAT of full-width tinyllama-1.1b as the
+#: launcher runs it by default (``python -m repro_torch.launch.train
+#: --qat``: W4A8, plan_policy "auto", a global batch of 8 x 128 tokens
+#: in 2 microbatches, so every STE forward GEMM takes 4 x 128 = 512 rows
+#: (B2) and the eval batch 8 x 128 = 1024), QAT_STEPS steps with a
+#: checkpoint at QAT_CKPT_STEP that a second run resumes from; the
+#: exported model decodes QAT_DECODE = (prompt, new) tokens at batch 8
+QAT_STEPS, QAT_BATCH, QAT_SEQ, QAT_MICRO = 3, 8, 128, 2
+QAT_ROWS = QAT_BATCH // QAT_MICRO * QAT_SEQ
+QAT_CKPT_STEP = 2
+QAT_DECODE = (4, 4)
+#: the served (SDV-packed) eval against the QAT eval, the reference's
+#: contract (``tests/test_qat.py::test_qat_export_serves``)
+EXPORT_ATOL = 0.1
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -866,7 +899,8 @@ def profile(label, fn, steps, wall_ms):
     ``wall_ms``, the unprofiled wall time per call, and the kernels that
     take it.  Only device events count (kernels, copies, memsets): an
     aten op's own device time is that of the kernels it launched, which
-    appear as device events too."""
+    appear as device events too.  Returns (busy ms, {device event: ms})
+    per call, or None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -883,7 +917,7 @@ def profile(label, fn, steps, wall_ms):
     if busy_ms == 0.0:
         print(f"[profile] {label}: the profiler saw no device time; "
               "device busy share not measured")
-        return
+        return None
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     # each event goes to the longest port kernel name in it
     # (pack_words_kernel is a substring of unpack_words_kernel)
@@ -899,6 +933,7 @@ def profile(label, fn, steps, wall_ms):
           + f", the rest {busy_ms - sum(ours.values()):.3f} ms; top device "
           "time per call: "
           + "; ".join(f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
+    return busy_ms, {k: v / 1e3 / steps for k, v in dev_us.items()}
 
 
 def phase_reference(dev, compute="sdv"):
@@ -1409,11 +1444,17 @@ def before_route(words, scale, *, w, d_out, rows_per_scale, dtype):
     return deq.reshape(q.shape)[:, :d_out].to(dtype)
 
 
-def same_bits(a, b):
+def same_bits(a, b) -> bool:
+    """Tensors equal bit for bit (-0.0 != 0.0, NaN == NaN)."""
     import torch
-    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
-    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
-        a.contiguous().view(view), b.contiguous().view(view))
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
 
 
 def dequant_case(m, nw, w, d_out, rows_per_scale, dtype, gen, flush, where,
@@ -2303,6 +2344,336 @@ def phase_spec(dev, card):
     return c_spec
 
 
+def _sub_counts(a, b):
+    return {k: a[k] - b[k] for k in a}
+
+
+def qat_b2_cases(flush):
+    """B2 at the QAT shapes: 512 rows on the dsp48e2 W4A8 n=3 plan the
+    planner picks for every tinyllama projection, at each projection
+    shape and the LM head's (2048 -> 32000), against its plain version
+    and the exact product; timed beside its bound and ``_int_mm``.
+    Returns one layer's sums (7 projections) and the head's times."""
+    import torch
+    from repro_torch.core.datapath import DSP48E2, plan_sdv
+    plan = plan_sdv(DSP48E2, 4, 8, signed_a=True, signed_b=True,
+                    park_sign_bits=True)
+    check(plan.n == 3, plan)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0)
+    err = 0
+    for (k, m), mult in LAYER_SHAPES.items():
+        r = sdv_case("B2", plan, "dsp48e2 W4A8 n=3 (QAT)", k, m, QAT_ROWS,
+                     gen, flush)
+        err = max(err, r["max_abs_err"])
+        for key in ("ms", "plain_ms", "bytes", "ops"):
+            acc[key] += mult * r[key]
+        acc["library_ms"] = None if r["library_ms"] is None \
+            or acc["library_ms"] is None \
+            else acc["library_ms"] + mult * r["library_ms"]
+    acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
+    head = sdv_case("B2", plan, "dsp48e2 W4A8 n=3 (QAT LM head)",
+                    *LM_HEAD_SHAPE, QAT_ROWS, gen, flush)
+    acc["max_abs_err"] = max(err, head["max_abs_err"])
+    acc["head_ms"], acc["head_plain_ms"] = head["ms"], head["plain_ms"]
+    acc["head_bound_ms"], acc["head_bound_by"] = bound_ms(head["bytes"],
+                                                          head["ops"])
+    acc["head_library_ms"] = head["library_ms"]
+    print(f"[train] B2 at {QAT_ROWS} rows on dsp48e2 n=3, one layer's 7 "
+          f"projections: {acc['ms']:.4f} ms (bound {acc['bound_ms']:.4f} ms "
+          f"by {acc['bound_by']}, {acc['bound_ms'] / acc['ms']:.1%}), "
+          f"_int_mm {acc['library_ms']} ms; LM head {acc['head_ms']:.4f} ms "
+          f"(bound {acc['head_bound_ms']:.4f}, _int_mm "
+          f"{acc['head_library_ms']})")
+    return acc, plan
+
+
+def ste_card_checks(dev, plan):
+    """``ste_dense`` on the plan (B2) == ``ste_dense`` with ``plan=None``
+    (the exact float64 product) bitwise on the card at the QAT shapes,
+    its backward's float32 products against float64; ``ste_conv2d`` on
+    the W4A4 BSEG plan (B3) == ``plan=None`` at UltraNet's first 64 -> 64
+    3x3 stage, forward and backward one launch.  Both layers are called
+    without ``use_kernel``: its default (the input is on the card) must
+    launch the kernel.  Returns the B3 launches of the conv layer's
+    step."""
+    import torch
+    from repro_torch.models.quantized import default_bseg_plan
+    from repro_torch.models.ultranet import ultranet_layer_shapes
+    from repro_torch.train.qat import ste
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    for k, m in ((2048, 5632), (5632, 2048), LM_HEAD_SHAPE):
+        x = torch.randn((QAT_ROWS, k), generator=gen, device=dev) \
+            .to(torch.bfloat16).requires_grad_(True)
+        w = (torch.randn((k, m), generator=gen, device=dev) * 0.02) \
+            .to(torch.bfloat16).requires_grad_(True)
+        reset_counts()
+        y = ste.ste_dense(x, w, 4, 8, plan)
+        check(counts() == expect(B2=1), f"ste_dense launches {counts()}")
+        y0 = ste.ste_dense(x, w, 4, 8, None)
+        check(same_bits(y, y0), f"ste_dense packed != plan=None at "
+              f"{QAT_ROWS}x{k}->{m}")
+        g = torch.randn(y.shape, generator=gen, device=dev)
+        gx, = torch.autograd.grad(y.float(), x, g)
+        qw, sw = ste.quantize_weights(w.detach(), 4)
+        w_fq = qw.double() * sw.double()
+        # the backward's float32 product (of the bf16-rounded output
+        # gradient) before its bf16 cast, rebuilt
+        gb = g.to(torch.bfloat16).float()
+        want = gb.double() @ w_fq.T
+        got = (gb @ (qw.float() * sw[None, :]).T).double()
+        # float32 summation over m terms: eps_32 x m x max|g| max|w|;
+        # a TF32 product (10-bit mantissa) would exceed it
+        bound = 2.0 ** -23 * m * float(g.abs().max()) \
+            * float(w_fq.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= bound, f"STE backward product err {err} > {bound}")
+        check(torch.equal(gx, got.to(torch.float32).to(torch.bfloat16)),
+              "STE backward gx != its float32 product")
+        print(f"[train] ste_dense {QAT_ROWS}x{k}->{m}: packed == plan=None "
+              f"bitwise (1 B2); backward float32 product within "
+              f"{err:.3g} of float64 (bound {bound:.3g})")
+    s = next(s for s in ultranet_layer_shapes(ULTRA_SIZE, ULTRA_SIZE)
+             if s["cin"] == 64 and s["k"] == 3)
+    x = torch.randn((ULTRA_BATCH, s["h"], s["w"], s["cin"]), generator=gen,
+                    device=dev).requires_grad_(True)
+    w = torch.randn((s["cout"], s["cin"], 3, 3), generator=gen,
+                    device=dev).requires_grad_(True)
+    cplan = default_bseg_plan(4)
+    reset_counts()
+    y = ste.ste_conv2d(x, w, 4, 4, cplan)
+    y.sum().backward()
+    c_conv = counts()
+    check(c_conv == expect(B3=1), f"ste_conv2d step launches {c_conv}")
+    y0 = ste.ste_conv2d(x.detach(), w.detach(), 4, 4, None)
+    check(same_bits(y.detach(), y0), "ste_conv2d packed != plan=None")
+    check(bool(torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()),
+          "ste_conv2d gradients not finite")
+    print(f"[train] ste_conv2d {ULTRA_BATCH}x{s['h']}x{s['w']}x{s['cin']} "
+          f"-> {s['cout']} (3x3, {cplan.spec.name} W4A4): packed == "
+          f"plan=None bitwise; forward + backward {c_conv['B3']} B3")
+    return c_conv["B3"]
+
+
+def time_prepare(cfg, plan):
+    """Device ms of ``ops.prepare_sdv_weights`` over one microbatch's 155
+    STE projections (every layer's 7 kernel shapes and the LM head), as
+    ``ste_dense`` calls it (on the transposed int32 weights); CUDA
+    events, median of 3."""
+    import torch
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    total = 0.0
+    for (k, m), mult in list(LAYER_SHAPES.items()) + [(LM_HEAD_SHAPE, 0)]:
+        qw = torch.randint(-7, 8, (k, m), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        ms = event_ms(lambda: ops.prepare_sdv_weights(qw.T, plan), reps=3)
+        total += ms * (mult * cfg.n_layers if mult else 1)
+    return total
+
+
+def phase_train(dev, flush):
+    """Packed QAT of full-width tinyllama-1.1b: ``run_qat`` with the
+    launcher's ``--qat`` defaults for QAT_CKPT_STEP steps, saving its
+    checkpoint; the checkpoint restored bit for bit; step QAT_STEPS run
+    both from the state in memory and from the restored one (the same
+    loss); the export decoded on B1.  Returns the phase's kernel
+    numbers and launch counts."""
+    import math
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import init_cache
+    from repro_torch.models.quantized import PLANNER_DECODE_ROWS
+    from repro_torch.planner import choose_plan, matmul_spec
+    from repro_torch.train import checkpoint, loop
+    from repro_torch.train.qat import (QATRunConfig, count_qat_layers,
+                                       evaluate, export_for_serving, is_qat,
+                                       run_qat)
+
+    t_phase = time.perf_counter()
+    b2, plan = qat_b2_cases(flush)
+    b3 = ste_card_checks(dev, plan)
+    print(f"[train] kernel checks {time.perf_counter() - t_phase:.1f} s")
+
+    ckpt = ROOT / "build" / "qat_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    qcfg = QATRunConfig(arch="tinyllama-1.1b", smoke=False,
+                        steps=QAT_CKPT_STEP, global_batch=QAT_BATCH,
+                        seq=QAT_SEQ, microbatches=QAT_MICRO,
+                        plan_policy="auto", ckpt_dir=str(ckpt),
+                        eval_batches=1, device=str(dev))
+    snaps = []
+
+    def sync(_):
+        torch.cuda.synchronize(dev)
+        snaps.append(counts())
+
+    def log(msg):
+        print(f"[train] {msg}")
+
+    try:
+        # --- the main path: run_qat, then its step 3 from memory ---------
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_qat(qcfg, sync=sync, log=log)
+        wall_qat = time.perf_counter() - t0
+        c_run = counts()
+        cfg, ocfg, data = res["cfg"], res["ocfg"], res["data"]
+        losses = list(res["losses"])
+        step_ms = [t * 1e3 for t in res["step_times"]]
+
+        def on_step(s, p, o, m, dt, mon):
+            losses.append(float(m["loss"]))
+            step_ms.append(dt * 1e3)
+        params, _, _, _ = loop.run_training(
+            cfg, ocfg, res["params"], res["opt"], data, steps=QAT_STEPS,
+            start=QAT_CKPT_STEP, microbatches=QAT_MICRO, sync=sync,
+            on_step=on_step)
+        c_total = counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        per_mb = 7 * cfg.n_layers + 1
+        check(len(losses) == QAT_STEPS
+              and all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(math.isfinite(res["qat_eval"]), res["qat_eval"])
+        zero = dict.fromkeys(c_total, 0)
+        c_eval = _sub_counts(c_run, snaps[QAT_CKPT_STEP - 1])
+        steps_c = [_sub_counts(b, a) for a, b in zip(
+            [zero] + snaps[:QAT_CKPT_STEP - 1] + [c_run], snaps)]
+        for i, c in enumerate(steps_c):
+            check(c == expect(B2=QAT_MICRO * per_mb),
+                  f"step {i + 1} launches {c}, want B2="
+                  f"{QAT_MICRO * per_mb}")
+        check(c_eval == expect(B2=per_mb), f"eval launches {c_eval}")
+        wrapped = {}
+
+        def walk(t, path):
+            if is_qat(t):
+                wrapped[path] = t
+            elif isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{path}/{k}" if path else k)
+        walk(params, "")
+        check(len(wrapped) == count_qat_layers(params) == res["qat_layers"]
+              == 8, sorted(wrapped))
+        for path, c in wrapped.items():
+            want = choose_plan(matmul_spec(
+                path, PLANNER_DECODE_ROWS, c.kernel.shape[-2],
+                c.kernel.shape[-1], w_bits=4, a_bits=8)).plan
+            check(c.plan == want and c.plan == plan and c.use_kernel,
+                  f"{path}: plan {c.plan}, planner {want}")
+        print(f"[train] run_qat({cfg.name}, {QAT_CKPT_STEP} steps, batch "
+              f"{QAT_BATCH}x{QAT_SEQ} in {QAT_MICRO} microbatches of "
+              f"{QAT_ROWS} rows, W4A8 on {plan.spec.name} n={plan.n} for all "
+              f"{len(wrapped)} wrapped leaves = {per_mb} projections) "
+              f"{wall_qat:.1f} s with its checkpoint save and evals, then "
+              f"step {QAT_STEPS} from memory: losses "
+              f"{[round(x, 4) for x in losses]}, qat eval "
+              f"{res['qat_eval']:.4f} (float init "
+              f"{res['float_eval_at_init']:.4f}); step walls "
+              f"{[round(t, 1) for t in step_ms]} ms; launches per step "
+              f"{steps_c[0]}, eval {c_eval}; peak memory {peak:.2f} GiB")
+
+        # --- one step profiled: B2, the float GEMMs, prepare, the rest ---
+        step_fn = loop.make_train_step(cfg, ocfg, microbatches=QAT_MICRO)
+        batch = data.device_batch(QAT_STEPS, dev)
+        wall = statistics.median(step_ms[1:])
+        prof = profile(f"QAT train step ({QAT_MICRO} x {QAT_ROWS} rows)",
+                       lambda: step_fn(params, res["opt"], batch), steps=1,
+                       wall_ms=wall)
+        split = None
+        if prof is not None:
+            busy, ev = prof
+            b2_ms = sum(v for k, v in ev.items() if "sdv_gemm_kernel" in k)
+            gemm_ms = sum(v for k, v in ev.items()
+                          if "gemm" in k.lower() and "sdv_" not in k)
+            prep_ms = QAT_MICRO * time_prepare(cfg, plan)
+            split = dict(wall_ms=wall, busy_ms=busy, b2_ms=b2_ms,
+                         gemm_ms=gemm_ms, prepare_ms=prep_ms,
+                         rest_ms=busy - b2_ms - gemm_ms - prep_ms)
+            print(f"[train] step device split: B2 {b2_ms:.3f} ms, cuBLAS "
+                  f"GEMMs (the STE backward products, attention) "
+                  f"{gemm_ms:.3f} ms, prepare_sdv_weights {prep_ms:.3f} ms "
+                  f"(CUDA events, {QAT_MICRO} x {per_mb} calls), the rest "
+                  f"{split['rest_ms']:.3f} ms of {busy:.3f} busy")
+
+        # --- checkpoint: restored bit for bit; step 3 from it ------------
+        check(checkpoint.latest_step(str(ckpt)) == QAT_CKPT_STEP,
+              sorted(p.name for p in ckpt.iterdir()))
+        t0 = time.perf_counter()
+        (p_r, o_r), _ = checkpoint.restore(str(ckpt), QAT_CKPT_STEP,
+                                           (res["params"], res["opt"]))
+        t_restore = time.perf_counter() - t0
+        saved = tree.leaves((res["params"], res["opt"]))
+        check(all(same_bits(a, b) for a, b in
+                  zip(saved, tree.leaves((p_r, o_r)))),
+              "restored checkpoint != the saved state")
+        del res["opt"]
+        resumed = []
+        reset_counts()
+        p_b, _, _, _ = loop.run_training(
+            cfg, ocfg, p_r, o_r, data, steps=QAT_STEPS, start=QAT_CKPT_STEP,
+            microbatches=QAT_MICRO, on_step=lambda s, p, o, m, dt, mon:
+            resumed.append(float(m["loss"])))
+        c_b = counts()
+        del o_r
+        check(c_b == expect(B2=(QAT_STEPS - QAT_CKPT_STEP) * QAT_MICRO
+                            * per_mb), f"resumed launches {c_b}")
+        check(resumed == losses[QAT_CKPT_STEP:], f"step {QAT_STEPS} loss "
+              f"resumed {resumed} != from memory {losses[QAT_CKPT_STEP:]}")
+        pa, pb = tree.leaves(params), tree.leaves(p_b)
+        n_same = sum(same_bits(a, b) for a, b in zip(pa, pb))
+        print(f"[train] checkpoint of step {QAT_CKPT_STEP}: {len(saved)} "
+              f"leaves restored bit for bit ({t_restore:.1f} s); step "
+              f"{QAT_STEPS} from it: loss {resumed[0]!r} == from memory "
+              f"{losses[QAT_CKPT_STEP]!r}; {n_same} of {len(pa)} parameter "
+              f"leaves bit-equal after it; launches {c_b}")
+        del p_b, p_r
+
+        # --- export: SDV serving on the planner's plans, eval, decode ---
+        served = export_for_serving(qcfg, params)
+        reset_counts()
+        served_eval = evaluate(cfg, served, data, batches=1,
+                               offset=qcfg.eval_offset)
+        c_serve = counts()
+        qat_eval = evaluate(cfg, params, data, batches=1,
+                            offset=qcfg.eval_offset)
+        check(c_serve == expect(B2=per_mb - 1), f"served eval {c_serve}")
+        check(abs(served_eval - qat_eval) < EXPORT_ATOL,
+              f"served eval {served_eval} vs qat eval {qat_eval}")
+        p_len, n_new = QAT_DECODE
+        prompts = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (BATCH, p_len)), dtype=torch.int32, device=dev)
+        reset_counts()
+        toks, _ = single_batch_loop(cfg, served, init_cache(
+            cfg, BATCH, p_len + n_new, device=dev), prompts, n_new)
+        c_dec = counts()
+        check(c_dec == expect(B1=(p_len + n_new - 1) * (per_mb - 1)),
+              f"exported decode launches {c_dec}")
+        check(toks.shape == (BATCH, n_new), toks.shape)
+        print(f"[train] step-{QAT_STEPS} params exported to SDV serving: "
+              f"eval {served_eval:.4f} vs QAT {qat_eval:.4f} (|diff| "
+              f"{abs(served_eval - qat_eval):.4f} < {EXPORT_ATOL}), "
+              f"{c_serve['B2']} B2; single_batch_loop {p_len}+{n_new} tokens "
+              f"at batch {BATCH}: {c_dec['B1']} B1, sample {toks[0].tolist()}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(b2=b2, split=split, step_ms=step_ms, peak=peak,
+                launches={"B2 train": c_total["B2"], "B2 resume": c_b["B2"],
+                          "B2 export eval": c_serve["B2"],
+                          "B1 export decode": c_dec["B1"], "B3 conv": b3})
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -2344,6 +2715,7 @@ def main() -> int:
         phase_reference(dev, "memory")
         eng = phase_engine(dev, card)
         spec = phase_spec(dev, card)
+        train = phase_train(dev, flush)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2355,10 +2727,16 @@ def main() -> int:
                       "recurrentgemma decode":
                           recurrent["recurrentgemma-2b"]["B1"],
                       "tinyllama engine": eng["B1"],
-                      "tinyllama spec engine": spec["B1"]},
+                      "tinyllama spec engine": spec["B1"],
+                      "tinyllama QAT export decode":
+                          train["launches"]["B1 export decode"]},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"],
-                      "tinyllama spec engine": spec["B2"]}}
+                      "tinyllama spec engine": spec["B2"],
+                      "tinyllama QAT train": train["launches"]["B2 train"],
+                      "tinyllama QAT resume": train["launches"]["B2 resume"],
+                      "tinyllama QAT export eval":
+                          train["launches"]["B2 export eval"]}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -2379,13 +2757,23 @@ def main() -> int:
                         f"draft_*: at {DECODE_ROWS} rows on the W4A4 draft's "
                         "dsp48e2 n=4 plan" if kname == "B1" else
                         f"verify_*: at {VERIFY_ROWS} rows on the target's "
-                        "dsp48e2 n=3 plan")),
+                        f"dsp48e2 n=3 plan; qat_*: at {QAT_ROWS} rows on "
+                        "the same plan (the STE forward), qat_head_*: the "
+                        "LM head (2048 -> 32000) at those rows")),
         })
         path = "draft" if kname == "B1" else "verify"
         kernels[-1].update({f"{path}_{key}": acc[path][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     kernels[1]["ultranet_head_ms"] = head_ms
+    qat = train["b2"]
+    kernels[1].update({f"qat_{key}": qat[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "head_ms",
+        "head_plain_ms", "head_bound_ms", "head_bound_by",
+        "head_library_ms")})
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
+                                    qat["max_abs_err"])
     b3_paths = {f"ultranet {name}": c["B3"] for name, c in ultra.items()}
+    b3_paths["ste_conv2d QAT layer step"] = train["launches"]["B3 conv"]
     kernels.append({
         "name": "B3 bseg_conv2d",
         "route": "cuda",

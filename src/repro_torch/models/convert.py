@@ -11,6 +11,12 @@ compute="memory"))``), whose ``PackedLinear`` leaves cross with their
 words and scales as they are, so both packages run the same words.
 ``ultranet_params_from_numpy`` does the same for UltraNet's conv weights
 (``[np.asarray(w) for w in params.convs]``, ``params.head``).
+``opt_state_from_numpy`` does the same for the JAX package's AdamW
+state (``jax.tree_util.tree_map(np.asarray, opt_state)``): its 8-bit
+``Q8`` moments become the port's ``train.optimizer.Q8``, and a moment
+held in a QAT container (the reference's moment tree keeps
+``QATLinear`` nodes) becomes its bare kernel, whose leaves sit in the
+same place of the leaf order.
 """
 from __future__ import annotations
 
@@ -38,6 +44,23 @@ def params_from_numpy(tree, device="cuda"):
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+def opt_state_from_numpy(tree, device="cuda"):
+    """The JAX package's optimizer state as numpy -> the port's."""
+    from ..train.optimizer import Q8
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if hasattr(node, "_fields") and set(node._fields) == {"q", "scale"}:
+            return Q8(q=_tensor(node.q, dev), scale=_tensor(node.scale, dev))
+        if hasattr(node, "qat_apply"):
+            return walk(node.kernel)
         return _tensor(node, dev)
 
     return walk(tree)

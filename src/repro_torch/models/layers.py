@@ -137,6 +137,11 @@ def dense_apply(params, x):
         # arithmetic packing: the GEMM runs on the SDV datapath through
         # the packed_matmul dispatch (never materialized)
         y = sdv_matmul_apply(w, x)
+    elif hasattr(w, "qat_apply"):
+        # QAT container (train/qat/ste.QATLinear): STE fake-quant
+        # forward, optionally through the packed dispatch — duck-typed
+        # so the model library never imports the training stack
+        y = w.qat_apply(x)
     else:
         y = x @ mat(w, x.dtype)
     if "bias" in params:

@@ -41,6 +41,7 @@ import torch
 from ..core.datapath import INT32, BSEGPlan, SDVPlan, plan_bseg, plan_sdv
 from ..kernels import bseg_common, ops, ref
 from ..quant import quantizer
+from ..tree import register_container
 
 
 @dataclasses.dataclass
@@ -62,6 +63,9 @@ class PackedLinear:
     def layer(self, i: int) -> "PackedLinear":
         return PackedLinear(words=self.words[i], scale=self.scale[i],
                             bits=self.bits, d_out=self.d_out)
+
+
+register_container(PackedLinear, ("words", "scale"))
 
 
 def quantize_linear(kernel: torch.Tensor, bits: int):
@@ -113,6 +117,9 @@ class SDVLinear:
     def layer(self, i: int) -> "SDVLinear":
         return SDVLinear(words=self.words[i], scale=self.scale[i],
                          plan=self.plan, d_out=self.d_out)
+
+
+register_container(SDVLinear, ("words", "scale"))
 
 
 def default_sdv_plan(bits: int, act_bits: int = 8) -> SDVPlan:
@@ -188,6 +195,9 @@ class BSEGConv:
         return BSEGConv(kappa=self.kappa[i], tap_sum=self.tap_sum[i],
                         scale=self.scale[i], bias=self.bias[i],
                         plan=self.plan, taps=self.taps)
+
+
+register_container(BSEGConv, ("kappa", "tap_sum", "scale", "bias"))
 
 
 def default_bseg_plan(bits: int, act_bits: int = 4) -> BSEGPlan:

@@ -140,10 +140,13 @@ def init_params(cfg: ArchConfig, seed: int = 0,
 
 
 def layer_params(stacked, i: int):
-    """Slice layer ``i`` off a stacked parameter tree."""
+    """Slice layer ``i`` off a stacked parameter tree.  A container
+    (``PackedLinear``, ``SDVLinear``, ``BSEGConv``, the QAT
+    ``QATLinear``) slices itself with ``layer(i)``."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
-    if isinstance(stacked, (PackedLinear, SDVLinear, BSEGConv)):
+    if isinstance(stacked, (PackedLinear, SDVLinear, BSEGConv)) \
+            or hasattr(stacked, "qat_apply"):
         return stacked.layer(i)
     return stacked[i]
 
@@ -162,9 +165,12 @@ def _embed(cfg: ArchConfig, params, tokens):
 def unembed_hidden(cfg: ArchConfig, params, h):
     """Project already-normed hidden states to float32 logits.  The LM
     head is materialized and multiplied in bf16, as in the JAX package:
-    a plain product, not a packed-kernel call."""
+    a plain product, not a packed-kernel call.  Under QAT the head is a
+    ``QATLinear`` and runs its STE forward (the packed dispatch)."""
     if cfg.tie_embeddings:
         logits = h @ params["embed"].to(h.dtype).T
+    elif hasattr(params["lm_head"], "qat_apply"):
+        logits = params["lm_head"].qat_apply(h)   # QAT STE (train/qat)
     else:
         logits = h @ L.mat(params["lm_head"], h.dtype)
     return logits.to(torch.float32)

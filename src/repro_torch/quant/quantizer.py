@@ -10,6 +10,10 @@ Torch port of the rule in ``repro.quant.quantizer``:
     domain): ``levels = 2^bits - 1``, ``scale = max(hi-lo, 1e-6) /
     levels``, zero point ``2^(bits-1)``.
 
+``QuantizedTensor`` (int8 values + scale), ``quantize_symmetric``,
+``dequantize`` and ``fake_quant`` (the straight-through form QAT uses)
+are built on that rule.
+
 ``torch.round`` rounds half to even like ``jnp.round``, and the float32
 division comes before the clip in both, so the two packages produce
 the same integers from the same float32 inputs — on the card too: a
@@ -20,9 +24,13 @@ the integers quantized with it).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 
 from ..device import constant
+from ..tree import register_container
 
 
 def div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -73,3 +81,46 @@ def asymmetric_qvalues(x: torch.Tensor, lo: torch.Tensor,
     """Round-and-clip into the unsigned [0, 2^bits) domain."""
     return torch.clamp(torch.round((x - lo) / scale), 0,
                        asymmetric_levels(bits))
+
+
+# ---------------------------------------------------------------------------
+# containers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """Integer values + dequantization scale (axis: per leading channel)."""
+    values: torch.Tensor         # int8 container, values within `bits`
+    scale: torch.Tensor          # f32, broadcastable against values
+    bits: int
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return (self.values.to(torch.float32) * self.scale).to(dtype)
+
+
+register_container(QuantizedTensor, ("values", "scale"))
+
+
+def quantize_symmetric(x: torch.Tensor, bits: int, *,
+                       axis: Optional[int] = -1) -> QuantizedTensor:
+    """Per-channel symmetric quantization along ``axis`` (None: per-tensor)."""
+    if axis is None:
+        amax = x.abs().amax()
+    else:
+        amax = x.abs().amax(dim=axis, keepdim=True)
+    scale = symmetric_scale(amax, bits)
+    q = symmetric_qvalues(x, scale, bits).to(torch.int8)
+    return QuantizedTensor(values=q, scale=scale.to(torch.float32),
+                           bits=bits)
+
+
+def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    return qt.dequantize(dtype)
+
+
+def fake_quant(x: torch.Tensor, bits: int, *, axis: Optional[int] = -1):
+    """Straight-through fake quantization (QAT): the dequantized value
+    forward, the identity's gradient backward."""
+    qt = quantize_symmetric(x, bits, axis=axis)
+    xq = qt.dequantize(x.dtype)
+    return x + (xq - x).detach()

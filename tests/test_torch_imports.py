@@ -43,11 +43,14 @@ def test_port_imports_without_jax_or_reference():
 def _entry_points():
     from repro_torch import planner
     from repro_torch.configs.registry import get_arch
-    from repro_torch.launch import serve, ultranet
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import serve, train, ultranet
+    from repro_torch.train import loop
+    from repro_torch.train.qat import QATRunConfig, run_qat
     from repro_torch.serving import Engine, loadgen, spec
     from repro_torch.models import (init_cache, init_params, init_ultranet,
-                                    packed_from_numpy, params_from_numpy,
-                                    ultranet_forward,
+                                    opt_state_from_numpy, packed_from_numpy,
+                                    params_from_numpy, ultranet_forward,
                                     ultranet_params_from_numpy)
     cfg = get_arch("tinyllama-1.1b").reduced()
     ssm = get_arch("mamba2-130m").reduced()
@@ -88,6 +91,14 @@ def _entry_points():
             ["--engine", "on", "--speculative", "--batch", "1"]),
         "autotune_layer": lambda: planner.autotune_layer(
             planner.matmul_spec("p", 1, 32, 16, w_bits=4, a_bits=8)),
+        "opt_state_from_numpy": lambda: opt_state_from_numpy({}),
+        "device_batch": lambda: SyntheticLMData(
+            vocab=8, seq_len=4, global_batch=1).device_batch(0),
+        "init_run": lambda: loop.init_run("tinyllama-1.1b", smoke=True),
+        "run_qat": lambda: run_qat(QATRunConfig(steps=1)),
+        "train_cli": lambda: train.main(["--smoke", "--steps", "1"]),
+        "train_cli_qat": lambda: train.main(["--smoke", "--steps", "1",
+                                             "--qat"]),
     }
 
 
@@ -105,7 +116,9 @@ def _entry_points():
                                   "serve_cli_engine", "loadgen_cli",
                                   "loadgen_cli_speculative",
                                   "serve_cli_speculative",
-                                  "autotune_layer"])
+                                  "autotune_layer", "opt_state_from_numpy",
+                                  "device_batch", "init_run", "run_qat",
+                                  "train_cli", "train_cli_qat"])
 def test_entry_points_refuse_to_fall_back_to_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")

@@ -801,3 +801,71 @@ def test_quant_matmul_dispatch_and_refusals(cuda):
         quant_matmul.quant_matmul(xd, wd, sd[:5], w=4)
     with pytest.raises(ValueError, match="operands on"):
         quant_matmul.quant_matmul(xd, words, sd, w=4)
+
+
+def test_qat_ste_defaults_launch_on_card(cuda):
+    """Without ``use_kernel`` the STE layers and ``QATLinear`` resolve
+    it from the input's device: on the card each call launches its
+    kernel (B2 for the dense layer, B3 for the conv); an explicit False
+    takes the plain route and launches none."""
+    from repro_torch.models.quantized import default_bseg_plan
+    from repro_torch.train.qat import ste
+    plan = plan_sdv(DATAPATHS["dsp48e2"], 4, 8, signed_a=True,
+                    signed_b=True, park_sign_bits=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    x = torch.randn((64, 256), generator=gen, device=cuda)
+    w = torch.randn((256, 96), generator=gen, device=cuda)
+    before = sdv_matmul.sdv_matmul.launches
+    y = ste.ste_dense(x, w, 4, 8, plan)
+    assert sdv_matmul.sdv_matmul.launches == before + 1
+    y_lin = ste.QATLinear(kernel=w, w_bits=4, a_bits=8,
+                          plan=plan).qat_apply(x)
+    assert sdv_matmul.sdv_matmul.launches == before + 2
+    y_plain = ste.ste_dense(x, w, 4, 8, plan, False)
+    assert sdv_matmul.sdv_matmul.launches == before + 2
+    assert torch.equal(y, y_lin) and torch.equal(y, y_plain)
+    xc = torch.randn((2, 12, 12, 16), generator=gen, device=cuda)
+    wc = torch.randn((8, 16, 3, 3), generator=gen, device=cuda)
+    before = bseg_conv2d.bseg_conv2d.launches
+    yc = ste.ste_conv2d(xc, wc, 4, 4, default_bseg_plan(4))
+    assert bseg_conv2d.bseg_conv2d.launches == before + 1
+    assert torch.equal(yc, ste.ste_conv2d(xc, wc, 4, 4, default_bseg_plan(4),
+                                          False))
+    assert bseg_conv2d.bseg_conv2d.launches == before + 1
+
+
+def test_qat_ste_layers_on_card(cuda):
+    """Packed QAT on the card: ``ste_dense`` on a dsp48e2 W4A8 plan (B2)
+    == ``plan=None`` bitwise, ``ste_conv2d`` on the W4A4 BSEG plan (B3)
+    == ``plan=None``, and two steps of reduced tinyllama QAT through
+    ``run_qat`` with 15 B2 launches per microbatch (2 layers x 7 + the
+    LM head) and finite losses."""
+    from repro_torch.models.quantized import default_bseg_plan
+    from repro_torch.train.qat import QATRunConfig, run_qat, ste
+    plan = plan_sdv(DATAPATHS["dsp48e2"], 4, 8, signed_a=True,
+                    signed_b=True, park_sign_bits=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn((64, 256), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    w = torch.randn((256, 96), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    before = sdv_matmul.sdv_matmul.launches
+    y = ste.ste_dense(x, w, 4, 8, plan, True)
+    assert sdv_matmul.sdv_matmul.launches == before + 1
+    assert torch.equal(y.view(torch.int16), ste.ste_dense(
+        x, w, 4, 8, None, True).view(torch.int16))
+    xc = torch.randn((2, 12, 12, 16), generator=gen, device=cuda)
+    wc = torch.randn((8, 16, 3, 3), generator=gen, device=cuda)
+    before = bseg_conv2d.bseg_conv2d.launches
+    yc = ste.ste_conv2d(xc, wc, 4, 4, default_bseg_plan(4), True)
+    assert bseg_conv2d.bseg_conv2d.launches == before + 1
+    assert torch.equal(yc.view(torch.int32), ste.ste_conv2d(
+        xc, wc, 4, 4, None, True).view(torch.int32))
+    before = sdv_matmul.sdv_matmul.launches
+    res = run_qat(QATRunConfig(steps=2, global_batch=4, seq=32,
+                               microbatches=2, eval_batches=1,
+                               device="cuda"), log=lambda *_: None)
+    assert np.isfinite(res["losses"]).all() and len(res["losses"]) == 2
+    assert sdv_matmul.sdv_matmul.launches - before == 2 * 2 * 15 + 15
