@@ -162,7 +162,29 @@ exit at the first failure:
      checkpoint restored bit for bit and step 3 run from it with the
      same loss; the step-3 parameters exported by ``export_for_serving``
      evaluate within 0.1 of the QAT eval (154 B2) and decode through
-     ``single_batch_loop`` (154 B1 a step).
+     ``single_batch_loop`` (154 B1 a step);
+ 13. moe — the MoE family at full-width phi3.5-moe-42b-a6.6b (32 layers,
+     16 experts top-2, d_ff 6400; 84 GB in bf16, so it is drawn and
+     packed one layer at a time by ``launch.serve.packed_params_layerwise``
+     after the earlier phases' memory is freed): B7 at both expert-bank
+     shapes (W4 words [16 x 4096, 800] and [16 x 6400, 512], 16 scale
+     groups) against its plain version and the replaced route bit for
+     bit, launched twice, timed beside its bound; B1 (8 rows) and B2 (128
+     rows) at the attention shapes (K, M in 4096 and 1024) on the INT32
+     W4A8 plan against the plain version and the exact product, beside
+     their bound and ``_int_mm``; reduced phi3.5-moe and llama4-maverick
+     (``moe_every`` 2, a shared expert) in SDV and memory modes on the
+     card against the CPU, prefill + 8 decode steps: logits within
+     ``LOGIT_ATOL``, the routing and the int8 caches bit for bit; then
+     full width in SDV mode (``count_packed``: 96 memory containers,
+     the banks, and 129 SDV; 96 B6 to build; a 16-token prefill of 8
+     prompts 128 B2 + 96 B7, each of 16 greedy decode steps at batch 8
+     128 B1 + 96 B7, ``single_batch_loop`` as the CLI runs it, nothing
+     else and no plain call) and in memory mode (225 memory containers
+     and 225 B6; 224 B7 a prefill, 225 a decode step), each with
+     ms/step, tok/s, peak memory and one decode step's device busy share
+     split into B7, B1, the expert GEMMs (``aten::bmm`` on a bank) and
+     the rest.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -172,6 +194,8 @@ before them.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -268,6 +292,17 @@ QAT_DECODE = (4, 4)
 #: the served (SDV-packed) eval against the QAT eval, the reference's
 #: contract (``tests/test_qat.py::test_qat_export_serves``)
 EXPORT_ATOL = 0.1
+#: the moe phase: full-width phi3.5-moe-42b-a6.6b (84 GB in bf16, so
+#: drawn and packed one layer at a time), and the reduced MoE models held
+#: on the card against the CPU over a prefill and MOE_REFERENCE_STEPS
+#: decode steps (phi3.5-moe; llama4-maverick for moe_every = 2 and the
+#: shared expert)
+MOE_ARCH = "phi3.5-moe"
+MOE_REFERENCE_ARCHS = ("phi3.5-moe", "llama4-maverick")
+MOE_REFERENCE_STEPS = 8
+#: reduced MoE caches, card vs CPU: the K/V scales (the amax of a bf16
+#: K or V row / 127) within one bf16 rounding
+CACHE_SCALE_RTOL = 2.0 ** -7
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -1458,13 +1493,14 @@ def same_bits(a, b) -> bool:
 
 
 def dequant_case(m, nw, w, d_out, rows_per_scale, dtype, gen, flush, where,
-                 edges=False, timed=True):
+                 edges=False, timed=True, twice=False):
     """Fused B7 on random words [m, nw] (every field value) and scales
     [m / rows_per_scale, nw * 32 / w]: against its plain version and the
     route it replaced, bit for bit; with ``edges`` the first columns'
     scales are a subnormal, two bf16 rounding ties (1 + 2^-8, 1 + 3 2^-8:
     q = +-1, +-2, +-4 land halfway) and an overflow.  Returns its time,
-    plain time, bound and the replaced route's time (``timed``)."""
+    plain time, bound and the replaced route's time (``timed``).
+    ``twice``: a second launch must give the first one's bits."""
     import torch
     from repro_torch.kernels import packbits
     per = 32 // w
@@ -1489,6 +1525,9 @@ def dequant_case(m, nw, w, d_out, rows_per_scale, dtype, gen, flush, where,
     check(same_bits(got, want), f"fused B7 != plain at {where} W{w} {dtype}")
     check(same_bits(got, before_route(words, scale, **kw)),
           f"fused B7 != the int8 unpack + torch dequant at {where} W{w}")
+    if twice:
+        check(same_bits(run(), got), f"fused B7 at {where}: a second launch "
+                                     "differs from the first")
     vec = packbits.vector_store(w, dtype, d_out)
     spans, slabs, rows = packbits.launch_shape(
         m, nw, rows_per_scale,
@@ -2673,6 +2712,343 @@ def phase_train(dev, flush):
                           "B2 export eval": c_serve["B2"],
                           "B1 export decode": c_dec["B1"], "B3 conv": b3})
 
+def moe_bank_shapes(cfg):
+    """The two B7 calls of one expert bank at ``cfg``'s width, W4: (rows
+    [E * d_in], words, d_out, rows per scale) of ``wi_gate``/``wi_up`` and
+    of ``wo``."""
+    per = 32 // MEMORY_BITS
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {"wi_gate/wi_up": (e * d, f // per, f, d),
+            "wo": (e * f, d // per, d, f)}
+
+
+def moe_kernels(cfg, dev, flush, card):
+    """B7 at both bank shapes (W4, bf16 out) against its plain version
+    and the replaced route bit for bit, twice; B1 (8 rows) and B2 (128
+    rows) at the attention's (K, M) on the INT32 W4A8 plan against the
+    plain version and the exact product.  Returns the per-step sums:
+    B7 over 3 banks x n_layers, B1/B2 over one layer's 4 projections."""
+    import torch
+    from repro_torch.models.quantized import default_sdv_plan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    b7 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, before_ms=0.0)
+    for name, (m, nw, d_out, rps) in moe_bank_shapes(cfg).items():
+        r = dequant_case(m, nw, MEMORY_BITS, d_out, rps, torch.bfloat16, gen,
+                         flush, f"{cfg.name} bank {name}", twice=True)
+        times = cfg.n_layers * (2 if name == "wi_gate/wi_up" else 1)
+        for key in ("ms", "plain_ms", "bound_ms", "before_ms"):
+            b7[key] += times * r[key]
+        b7[name] = r
+    print(f"[moe] B7 per {cfg.name} decode step's banks ({3 * cfg.n_layers} "
+          f"calls, flushed): {b7['ms']:.3f} ms (bound {b7['bound_ms']:.3f} ms "
+          f"by bytes, {b7['bound_ms'] / b7['ms']:.1%}); the replaced route "
+          f"{b7['before_ms']:.3f} ms; plain {b7['plain_ms']:.1f} ms ({card})")
+    plan = default_sdv_plan(4, 8)
+    d, kv = cfg.d_model, cfg.n_kv * cfg.hd
+    attn = {(d, cfg.n_heads * cfg.hd): 1, (d, kv): 2,
+            (cfg.n_heads * cfg.hd, d): 1}
+    out = {"B7": b7}
+    for kname, rows in (("B1", DECODE_ROWS), ("B2", PREFILL_ROWS)):
+        acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0,
+                   max_abs_err=0)
+        for (k, m), mult in attn.items():
+            r = sdv_case(kname, plan, "int32 W4A8 n=2", k, m, rows, gen, flush)
+            for key in ("ms", "plain_ms", "bytes", "ops"):
+                acc[key] += mult * r[key]
+            acc["library_ms"] = None if r["library_ms"] is None \
+                or acc["library_ms"] is None \
+                else acc["library_ms"] + mult * r["library_ms"]
+            acc["max_abs_err"] = max(acc["max_abs_err"], r["max_abs_err"])
+        acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
+        out[kname] = acc
+        print(f"[moe] {kname} per {cfg.name} layer's 4 attention projections "
+              f"at {rows} rows (int32 W4A8): {acc['ms']:.4f} ms (bound "
+              f"{acc['bound_ms']:.4f} ms by {acc['bound_by']}), _int_mm "
+              f"{acc['library_ms']} ms ({card})")
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routes(out):
+    """Record (expert ids, slots, kept) of every ``layers.moe_route`` call
+    in ``out``, on the CPU, in call order."""
+    from repro_torch.models import layers
+    orig = layers.moe_route
+
+    def spy(params, cfg, xt):
+        r = orig(params, cfg, xt)
+        out.append(tuple(t.cpu() for t in (r[0], r[2], r[3])))
+        return r
+    layers.moe_route = spy
+    try:
+        yield
+    finally:
+        layers.moe_route = orig
+
+
+def moe_card_vs_cpu(dev):
+    """Reduced phi3.5-moe and llama4-maverick (``moe_every`` 2, a shared
+    expert) in SDV and memory modes on the card against the same models
+    on the CPU (plain kernel versions): a 5-token prefill and
+    ``MOE_REFERENCE_STEPS`` decode steps.  Logits within
+    ``LOGIT_ATOL``; the routing (expert ids, slots, kept choices of every
+    MoE call) and ``index`` bit for bit; the int8 K/V within one
+    quantization step and their scales within one bf16 rounding
+    (``CACHE_SCALE_RTOL``) of the CPU's: cuBLAS sums the bf16 expert
+    products in another order than the CPU, so a few K/V values after a
+    MoE layer move by a bf16 ulp, which can cross a quantization step
+    (measured: the first layer's entries, and all of reduced
+    llama4-maverick's, unscaled and truncated, come out bit for bit).
+    The entries that differ are counted and printed by layer."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, serve_params)
+    cpu = torch.device("cpu")
+    for arch in MOE_REFERENCE_ARCHS:
+        cfg = get_arch(arch).reduced()
+        params = init_params(cfg, seed=1, device=cpu)
+        rng = np.random.default_rng(1)
+        prompt = rng.integers(0, cfg.vocab, (3, 5))
+        tokens = rng.integers(0, cfg.vocab, (MOE_REFERENCE_STEPS, 3, 1))
+        for compute in ("sdv", "memory"):
+            outs, caches, routes = {}, {}, {}
+            for d in (cpu, dev):
+                q = serve_params(_to(params, d), bits=4, min_size=1024,
+                                 compute=compute)
+                routes[d.type] = []
+                with recorded_routes(routes[d.type]):
+                    cache = init_cache(cfg, 3, 16, device=d)
+                    cache = prefill_step(
+                        cfg, q, cache,
+                        torch.tensor(prompt, dtype=torch.int32, device=d),
+                        torch.tensor([5, 3, 0], dtype=torch.int32, device=d))
+                    logits = []
+                    for t in tokens:
+                        out, cache = decode_step(cfg, q, cache, torch.tensor(
+                            t, dtype=torch.int32, device=d))
+                        logits.append(out.cpu())
+                outs[d.type] = torch.stack(logits)
+                caches[d.type] = {k: v.cpu() for k, v in cache.items()}
+            err = float((outs["cuda"] - outs["cpu"]).abs().max())
+            check(err <= LOGIT_ATOL, f"reduced {cfg.name} ({compute}) card vs "
+                                     f"CPU logits differ by {err}")
+            check(len(routes["cuda"]) == len(routes["cpu"]) > 0
+                  and all(all(torch.equal(a, b) for a, b in zip(rc, rh))
+                          for rc, rh in zip(routes["cuda"], routes["cpu"])),
+                  f"reduced {cfg.name} ({compute}): routing differs between "
+                  "the card and the CPU")
+            card, host = caches["cuda"], caches["cpu"]
+            steps = {k: int((card[k].int() - host[k].int()).abs().max())
+                     for k in ("k", "v")}
+            rel = {k: float(((card[k] - host[k]).abs()
+                             / host[k].abs().clamp_min(1e-30)).max())
+                   for k in ("k_scale", "v_scale")}
+            check(torch.equal(card["index"], host["index"])
+                  and max(steps.values()) <= 1
+                  and max(rel.values()) <= CACHE_SCALE_RTOL,
+                  f"reduced {cfg.name} ({compute}): caches card vs CPU: "
+                  f"int8 steps {steps}, scale rel {rel}")
+            differ = {k: (int((card[k] != host[k]).sum()), host[k].numel(),
+                          sorted({int(i) for i in (card[k] != host[k])
+                                  .nonzero()[:, 0]}))
+                      for k in ("k", "v", "k_scale", "v_scale")}
+            print(f"[moe] reduced {cfg.name} ({compute}), prefill + "
+                  f"{MOE_REFERENCE_STEPS} decode steps, card vs CPU: max "
+                  f"|dlogit| {err:.4g} (tolerance {LOGIT_ATOL}); routing of "
+                  f"{len(routes['cpu'])} MoE calls and index bit for bit; "
+                  "cache entries that differ (of all, in layers): "
+                  + ", ".join(f"{k} {n} of {m} {ls}"
+                              for k, (n, m, ls) in differ.items())
+                  + f"; int8 steps {steps}, scales within "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+                  + f" relative; k_scale sum "
+                  f"{float(host['k_scale'].sum()):.4g}")
+
+
+def moe_step_split(label, fn, wall_ms, banks, card):
+    """One profiled call of ``fn``: device busy ms and its split into B7,
+    B1, B2 (the port's kernels, by name), the expert GEMMs (the device
+    time of the ``aten::bmm`` calls whose second operand is a bank) and
+    the rest.  Returns the split, or None when the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ms = {e.key: e.self_device_time_total / 1e3
+              for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    busy = sum(dev_ms.values())
+    if busy == 0.0:
+        print(f"[moe] {label}: the profiler saw no device time; split not "
+              "measured")
+        return None
+    split = {"B7": "unpack_dequant_kernel", "B1": "sdv_gemv_kernel",
+             "B2": "sdv_gemm_kernel"}
+    split = {k: sum(v for n, v in dev_ms.items() if name in n)
+             for k, name in split.items()}
+    split["expert GEMMs"] = sum(
+        e.device_time_total / 1e3
+        for e in prof.key_averages(group_by_input_shape=True)
+        if e.key == "aten::bmm" and len(e.input_shapes) > 1
+        and list(e.input_shapes[1]) in banks)
+    split["rest"] = busy - sum(split.values())
+    print(f"[moe] {label}: unprofiled wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / wall_ms:.1%}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f" ({card})")
+    return dict(split, busy_ms=busy, wall_ms=wall_ms)
+
+
+def moe_serve(cfg, dev, card, compute):
+    """Full-width ``cfg`` built layer by layer
+    (``packed_params_layerwise(compute=compute, min_size=1024)``): its
+    B6 launches and ``count_packed``; a 16-token prefill of 8 prompts, 16
+    greedy decode steps at batch 8 and the serve CLI's
+    ``single_batch_loop``, each with exactly the expected launches and
+    no plain call; ms/step, tok/s, peak memory, one decode step's busy
+    share and split."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import (packed_params_layerwise,
+                                          single_batch_loop)
+    from repro_torch.models import decode_step, init_cache, prefill_step
+    from repro_torch.models.quantized import count_packed
+
+    n = cfg.n_layers
+    banks, attn = 3 * n, 4 * n
+    if compute == "sdv":
+        want_pack, want_count = dict(B6=banks), {"memory": banks,
+                                                 "sdv": attn + 1, "bseg": 0}
+        want_prefill, want_step = dict(B2=attn, B7=banks), dict(B1=attn,
+                                                                 B7=banks)
+    else:
+        want_pack = dict(B6=banks + attn + 1)
+        want_count = {"memory": banks + attn + 1, "sdv": 0, "bseg": 0}
+        want_prefill, want_step = dict(B7=banks + attn), dict(
+            B7=banks + attn + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    qparams = packed_params_layerwise(cfg, seed=0, device=dev, bits=4,
+                                      min_size=1024, compute=compute)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    c_pack = counts()
+    check(c_pack == expect(**want_pack),
+          f"{compute} layer-wise build launches {c_pack}, want {want_pack}")
+    check(count_packed(qparams) == want_count,
+          f"{compute} count_packed {count_packed(qparams)}, want {want_count}")
+    peak_build = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"[moe] {cfg.name} ({compute}): {n} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, d_ff "
+          f"{cfg.d_ff}; built layer by layer in {t_build:.1f} s, launches "
+          f"{c_pack}, count_packed {count_packed(qparams)}; the packed tree "
+          f"holds {held:.2f} GiB, build peak {peak_build:.2f} GiB ({card})")
+
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                           dtype=torch.int32, device=dev)
+    n_prompt = torch.full((BATCH,), PROMPT - 1, dtype=torch.int32,
+                          device=dev)
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    decode_step(cfg, qparams, cache, prompts[:, -1:])          # warm-up
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    c_prefill = counts()
+    check(c_prefill == expect(**want_prefill),
+          f"{compute} prefill launches {c_prefill}, want {want_prefill}")
+    reset_counts()
+    tok = prompts[:, -1:]
+    gen = []
+    t0 = time.perf_counter()
+    for _ in range(NEW):
+        logits, cache = decode_step(cfg, qparams, cache, tok)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    c_decode = counts()
+    check(c_decode == expect(**{k: NEW * v for k, v in want_step.items()}),
+          f"{compute} decode launches {c_decode}, want {NEW} x {want_step}")
+    check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()), f"{compute} decode logits")
+    check(cache["index"].tolist() == [PROMPT - 1 + NEW] * BATCH,
+          cache["index"].tolist())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = t_decode / NEW * 1e3
+    print(f"[moe] {compute} prefill {BATCH}x{PROMPT}: "
+          f"{t_prefill * 1e3:.1f} ms ({BATCH * PROMPT / t_prefill:.1f} tok/s),"
+          f" launches {c_prefill} ({card})")
+    print(f"[moe] {compute} decode {NEW} steps at batch {BATCH}: "
+          f"{step_ms:.1f} ms/step, {BATCH * NEW / t_decode:.1f} tok/s, "
+          f"launches {c_decode}, peak memory {peak:.2f} GiB, sample "
+          f"{torch.cat(gen, 1)[0].tolist()[:8]} ({card})")
+    state = {"cache": {k: v.clone() for k, v in cache.items()}}
+
+    def step():
+        _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
+    bank_shapes = [[cfg.n_experts, cfg.d_model, cfg.d_ff],
+                   [cfg.n_experts, cfg.d_ff, cfg.d_model]]
+    split = moe_step_split(f"{compute} decode step at batch {BATCH}", step,
+                           step_ms, bank_shapes, card)
+    del state
+
+    reset_counts()
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
+    c_loop = counts()
+    steps = PROMPT + NEW - 1
+    check(c_loop == expect(**{k: steps * v for k, v in want_step.items()}),
+          f"{compute} single_batch_loop launches {c_loop}")
+    check(toks.shape == (BATCH, NEW) and (toks >= 0).all()
+          and (toks < cfg.vocab).all(), toks.shape)
+    print(f"[moe] {compute} single_batch_loop: {dt / steps * 1e3:.1f} "
+          f"ms/step, {BATCH * steps / dt:.1f} tok/s ({steps} steps), "
+          f"launches {c_loop} ({card})")
+    del qparams, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"pack": c_pack, "prefill": c_prefill, "decode": c_decode,
+            "loop": c_loop, "step_ms": step_ms, "peak_gib": peak,
+            "split": split}
+
+
+def phase_moe(dev, card, flush):
+    """Phase 13: the MoE family.  Frees what earlier phases left on the
+    card, then runs ``moe_kernels`` at full-width phi3.5-moe's shapes,
+    ``moe_card_vs_cpu`` and ``moe_serve`` in SDV and memory modes."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    cfg = get_arch(MOE_ARCH)
+    kern = moe_kernels(cfg, dev, flush, card)
+    moe_card_vs_cpu(dev)
+    runs = {compute: moe_serve(cfg, dev, card, compute)
+            for compute in ("sdv", "memory")}
+    print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": kern, "runs": runs}
+
 
 def _to(v, d):
     if isinstance(v, dict):
@@ -2716,6 +3092,7 @@ def main() -> int:
         eng = phase_engine(dev, card)
         spec = phase_spec(dev, card)
         train = phase_train(dev, flush)
+        moe = phase_moe(dev, card, flush)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2729,14 +3106,18 @@ def main() -> int:
                       "tinyllama engine": eng["B1"],
                       "tinyllama spec engine": spec["B1"],
                       "tinyllama QAT export decode":
-                          train["launches"]["B1 export decode"]},
+                          train["launches"]["B1 export decode"],
+                      "phi3.5-moe SDV decode":
+                          moe["runs"]["sdv"]["decode"]["B1"]},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"],
                       "tinyllama spec engine": spec["B2"],
                       "tinyllama QAT train": train["launches"]["B2 train"],
                       "tinyllama QAT resume": train["launches"]["B2 resume"],
                       "tinyllama QAT export eval":
-                          train["launches"]["B2 export eval"]}}
+                          train["launches"]["B2 export eval"],
+                      "phi3.5-moe SDV prefill":
+                          moe["runs"]["sdv"]["prefill"]["B2"]}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -2772,6 +3153,15 @@ def main() -> int:
         "head_library_ms")})
     kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"],
                                     qat["max_abs_err"])
+    for i, kname in enumerate(("B1", "B2")):
+        acc = moe["kernels"][kname]
+        kernels[i].update({f"moe_attn_{key}": acc[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        kernels[i]["max_abs_err"] = max(kernels[i]["max_abs_err"],
+                                        acc["max_abs_err"])
+        kernels[i]["per"] += (f"; moe_attn_*: one {MOE_ARCH} layer's 4 "
+                              f"attention projections (K, M in 4096, 1024) "
+                              "on the int32 W4A8 plan")
     b3_paths = {f"ultranet {name}": c["B3"] for name, c in ultra.items()}
     b3_paths["ste_conv2d QAT layer step"] = train["launches"]["B3 conv"]
     kernels.append({
@@ -2818,7 +3208,11 @@ def main() -> int:
         "B6": ("pack_words", "packbits.cu",
                "src/repro/kernels/packbits.py:60",
                {"tinyllama serve_params": mem_launches["B6"],
-                "tinyllama memory engine serve_params": eng["B6"]},
+                "tinyllama memory engine serve_params": eng["B6"],
+                "phi3.5-moe SDV layer-wise build":
+                    moe["runs"]["sdv"]["pack"]["B6"],
+                "phi3.5-moe memory layer-wise build":
+                    moe["runs"]["memory"]["pack"]["B6"]},
                ("one tinyllama serve_params(compute=\"memory\"): 7 stacked "
                 "W4 leaves of 22 layers + the LM head; no single PyTorch "
                 "call packs bit fields: no library time")),
@@ -2826,13 +3220,19 @@ def main() -> int:
                "src/repro/kernels/packbits.py:41",
                {"tinyllama memory prefill": mem_launches["B7 prefill"],
                 "tinyllama memory decode": mem_launches["B7 decode"],
-                "tinyllama memory engine": eng["B7"]},
+                "tinyllama memory engine": eng["B7"],
+                **{f"phi3.5-moe {c} {path}": moe["runs"][c][path]["B7"]
+                   for c in ("sdv", "memory")
+                   for path in ("prefill", "decode")}},
                ("one tinyllama memory decode step: 154 W4 projections + the "
                 "LM head, unpacked and dequantized to bf16 in one pass "
                 "(unpack_dequant_kernel); before_ms: the route it replaced "
                 "(int8 B7 + scale, trim and cast in torch); int8_*: the "
                 "int8 unpack_words_kernel at the same shapes; no single "
-                "PyTorch call unpacks bit fields: no library time")),
+                "PyTorch call unpacks bit fields: no library time; moe_*: "
+                f"the {MOE_ARCH} expert banks of one decode step, "
+                "3 x 32 calls on [16 * 4096, 800] and [16 * 6400, 512] "
+                "words")),
     }
     for kname, (fn, src, replaces, paths, per) in mem_kernels.items():
         acc = memory[kname]
@@ -2854,6 +3254,9 @@ def main() -> int:
                          prefill_bound_ms=acc["prefill_bound_ms"],
                          prefill_library_ms=acc["prefill_library_ms"])
         if kname == "B7":
+            bank = moe["kernels"]["B7"]
+            entry.update({f"moe_{key}": bank[key] for key in (
+                "ms", "plain_ms", "bound_ms", "before_ms")})
             entry.update(before_ms=acc["before_ms"],
                          int8_ms=memory["B7_int8"]["ms"],
                          int8_plain_ms=memory["B7_int8"]["plain_ms"],

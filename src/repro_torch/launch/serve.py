@@ -22,6 +22,12 @@ decoding: a W``--draft-bits``A``--draft-act-bits`` self-speculation
 draft of the same weights proposes ``--spec-k`` tokens a round (kernel
 B1) and the target verifies them in one chunked wave (kernel B2 above
 8 rows); the tokens equal plain decode's.
+A full-width moe arch (``--arch phi3.5-moe --no-smoke``) is drawn and
+packed one layer group at a time (``packed_params_layerwise``): its
+bf16 tree (84 GB for phi3.5-moe) would not fit the card, its packed one
+does.  In both compute modes its expert banks are memory-packed and
+unpacked by kernel B7 at every step.  It runs through the single-batch
+loop (the engine packs float weights per bucket).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --no-smoke --engine on --batch 8 --requests 32
@@ -33,6 +39,8 @@ B1) and the target verifies them in one chunked wave (kernel B2 above
       --no-smoke --packed-compute memory
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe \\
+      --no-smoke --packed-compute memory
 """
 from __future__ import annotations
 
@@ -82,14 +90,50 @@ def cache_note(cache) -> str:
     return "recurrent-state cache (no KV)"
 
 
-def run_single_batch(cfg, args, params, device):
-    from repro_torch.models import init_cache, serve_params
+def packed_params_layerwise(cfg, *, seed: int = 0, device="cuda",
+                            min_size: int = 1 << 16, **serve_kw):
+    """The serve tree of a dense or moe model, drawn and packed one layer
+    group at a time: ``serve_params(init_top_params(cfg, seed))`` for the
+    leaves outside the layer stacks, then for each group g
+    ``serve_params(init_group_params(cfg, g, seed))`` (a layer axis of
+    1, so the expert banks stay banks), copied into stacks preallocated
+    after the first group.  The result is bit for bit ``serve_params`` of
+    the whole tree those draws make (``min_size`` compares a leaf's
+    whole stack, as there); the card holds the packed tree and one
+    group's float draw, never the float tree.  ``serve_kw`` go to
+    ``serve_params``."""
+    from repro_torch import tree
+    from repro_torch.models import serve_params
+    from repro_torch.models.transformer import (init_group_params,
+                                                init_top_params, n_groups)
+    n = n_groups(cfg)
+    out = serve_params(init_top_params(cfg, seed, device),
+                       min_size=min_size, **serve_kw)
+    stacks = None
+    for g in range(n):
+        part = serve_params(init_group_params(cfg, g, seed, device),
+                            min_size=-(-min_size // n), **serve_kw)
+        if stacks is None:
+            stacks = tree.tree_map(
+                lambda a: a.new_empty((n,) + tuple(a.shape[1:])), part)
+        for dst, src in zip(tree.leaves(stacks), tree.leaves(part)):
+            dst[g] = src[0]
+        del part
+    out.update(stacks)
+    return out
+
+
+def serve_kwargs(args) -> dict:
+    """The ``serve_params`` arguments of the single-batch loop."""
+    return dict(bits=args.weight_bits, min_size=1024,
+                compute=args.packed_compute, act_bits=args.act_bits,
+                conv_bseg=(args.packed_compute == "sdv"
+                           and args.conv_datapath == "bseg"))
+
+
+def run_single_batch(cfg, args, qparams, device):
+    from repro_torch.models import init_cache
     from repro_torch.models.quantized import count_packed
-    qparams = serve_params(params, bits=args.weight_bits, min_size=1024,
-                           compute=args.packed_compute,
-                           act_bits=args.act_bits,
-                           conv_bseg=(args.packed_compute == "sdv"
-                                      and args.conv_datapath == "bseg"))
     smax = args.prompt_len + args.new_tokens
     cache = init_cache(cfg, args.batch, smax, device=device)
     compute_note = (f"SDV W{args.weight_bits}A{args.act_bits} datapath "
@@ -291,17 +335,28 @@ def main(argv=None):
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.device import resolve_device
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, serve_params
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    params = init_params(cfg, seed=args.seed, device=device)
+    layerwise = cfg.family == "moe" and not args.smoke
+    if layerwise and args.engine == "on":
+        raise SystemExit(f"{cfg.name}: the engine packs float weights per "
+                         "bucket and the float tree does not fit the card; "
+                         "serve it with --engine off")
     if args.engine == "on":
-        run_engine(cfg, args, params, device)
+        run_engine(cfg, args, init_params(cfg, seed=args.seed,
+                                          device=device), device)
+    elif layerwise:
+        run_single_batch(cfg, args, packed_params_layerwise(
+            cfg, seed=args.seed, device=device, **serve_kwargs(args)),
+            device)
     else:
-        run_single_batch(cfg, args, params, device)
+        run_single_batch(cfg, args, serve_params(
+            init_params(cfg, seed=args.seed, device=device),
+            **serve_kwargs(args)), device)
     return 0
 
 

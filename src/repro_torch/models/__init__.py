@@ -1,5 +1,6 @@
-"""Model library of the torch port: the quantized dense decoder, the
-Mamba2 (ssm) and Griffin (hybrid) decoders, and UltraNet-INT4."""
+"""Model library of the torch port: the quantized dense and
+mixture-of-experts decoders, the Mamba2 (ssm) and Griffin (hybrid)
+decoders, and UltraNet-INT4."""
 from .convert import (opt_state_from_numpy, packed_from_numpy,
                       params_from_numpy, ultranet_params_from_numpy)
 from .quantized import (BSEGConv, PackedLinear, SDVLinear, bseg_conv_apply,

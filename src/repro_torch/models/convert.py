@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .quantized import PackedLinear
+from .quantized import PackedLinear, _stacked_leading_axis
 from .ultranet import UltraNetParams
 
 
@@ -70,20 +70,25 @@ def packed_from_numpy(tree, device="cuda"):
     """A memory-packed serve tree as numpy -> the port's: nested dicts of
     arrays, whose lane-packed leaves (any object with ``words``,
     ``scale``, ``bits`` and ``d_out``, as the JAX package's
-    ``PackedLinear`` has) become the port's ``PackedLinear``."""
+    ``PackedLinear`` has) become the port's ``PackedLinear``, stacked
+    where they sit under a layer-stack container (``blocks``,
+    ``blocks_dense{j}``, ...: the MoE expert banks too)."""
     dev = resolve_device(device)
 
-    def walk(node):
+    def walk(node, path):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
         if all(hasattr(node, f) for f in ("words", "scale", "bits",
                                            "d_out")):
-            return PackedLinear(words=_tensor(node.words, dev),
-                                scale=_tensor(node.scale, dev),
-                                bits=int(node.bits), d_out=int(node.d_out))
+            words = _tensor(node.words, dev)
+            return PackedLinear(
+                words=words, scale=_tensor(node.scale, dev),
+                bits=int(node.bits), d_out=int(node.d_out),
+                stacked=_stacked_leading_axis(path) and words.ndim > 2)
         return _tensor(node, dev)
 
-    return walk(tree)
+    return walk(tree, "")
 
 
 def ultranet_params_from_numpy(convs, head, device="cuda") -> UltraNetParams:

@@ -1,6 +1,8 @@
-"""Layer library of the decoders — torch port of the dense parts of
-``repro.models.layers``: RMSNorm, projections, rotary embedding, decode
-and chunked-prefill attention against an int8 KV cache, gated MLP; the
+"""Layer library of the decoders — torch port of the dense and MoE parts
+of ``repro.models.layers``: RMSNorm, projections, rotary embedding,
+decode and chunked-prefill attention against an int8 KV cache, gated
+MLP, the mixture-of-experts FFN (token-choice top-k routing with the
+reference's capacity drop); the
 sliding-window decode attention of the hybrid (Griffin) family against
 a bf16 ring buffer (the JAX package's ``transformer._decode_attn_ring``);
 and the full-sequence self-attention of ``transformer.forward``
@@ -324,10 +326,22 @@ def _qkv(params, cfg: AttnConfig, x, pos):
 
 def _write_kv(cache, k, v, rows, src, dest):
     """Quantize k/v [B, S, G, hd] and write the selected entries: cache
-    position ``dest[j]`` of row ``rows[j]`` takes entry ``src[j]``."""
+    position ``dest[j]`` of row ``rows[j]`` takes entry ``src[j]``.
+
+    Without scales (``k_scale is None``) k/v are cast to int8 as XLA
+    casts (truncated toward zero, saturating) and read back unscaled, as
+    the JAX package's attention does when it is called without
+    ``cache_k_scale``: the moe family's ``moe_every > 1`` layers call it
+    so, and the scales stay zero (ROADMAP Queue C, reference property
+    (e))."""
+    cache_k, cache_v, k_scale, v_scale = cache
+    if k_scale is None:
+        for c, t in ((cache_k, k), (cache_v, v)):
+            c[rows, dest] = torch.clamp(t[rows, src].to(torch.float32),
+                                        -128, 127).to(torch.int8)
+        return cache_k.to(torch.float32), cache_v.to(torch.float32)
     kq, ks = _quantize_kv(k)
     vq, vs = _quantize_kv(v)
-    cache_k, cache_v, k_scale, v_scale = cache
     cache_k[rows, dest] = kq[rows, src]
     cache_v[rows, dest] = vq[rows, src]
     k_scale[rows, dest] = ks[rows, src]
@@ -349,7 +363,8 @@ def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     """Single-token decode against an int8 KV cache.
 
     x [B, 1, d]; ``cache`` = (k, v, k_scale, v_scale) of one layer,
-    [B, S_max, KV, hd] / [B, S_max, KV]; cache_index [B] int32: each
+    [B, S_max, KV, hd] / [B, S_max, KV] (scales None: written and read
+    unscaled, ``_write_kv``); cache_index [B] int32: each
     slot's count of valid entries (the new token goes to that slot's
     position); ``writes`` = ``decode_writes(...)``: the rows that write.
     Returns y [B, 1, d]; the cache is updated in place.
@@ -435,3 +450,108 @@ def mlp_apply(params, x, *, act: str = "swiglu"):
     else:
         raise ValueError(act)
     return dense_apply(params["wo"], a * up)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (token-choice top-k, capacity dispatch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    shared_expert: bool = False      # llama4-style always-on expert
+    act: str = "swiglu"
+
+
+def moe_init(ini: Init, cfg: MoEConfig):
+    """The router ([d, E], std 0.01), the expert banks ``wi_gate`` /
+    ``wi_up`` [E, d, f] and ``wo`` [E, f, d], and the shared expert's
+    MLP where the config has one."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": dense_init(ini, d, e, std=0.01),
+        "wi_gate": ini.normal((e, d, f), std=1.0 / math.sqrt(d)),
+        "wi_up": ini.normal((e, d, f), std=1.0 / math.sqrt(d)),
+        "wo": ini.normal((e, f, d), std=1.0 / math.sqrt(f)),
+    }
+    if cfg.shared_expert:
+        p["shared"] = mlp_init(ini, d, f)
+    return p
+
+
+def _softmax(logits):
+    """jax.nn.softmax's arithmetic: exp(x - max) / sum."""
+    un = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return un / un.sum(dim=-1, keepdim=True)
+
+
+def moe_route(params, cfg: MoEConfig, xt):
+    """Token-choice routing of xt [T, d]: (top_e [T, k] expert ids,
+    top_p [T, k] float32 weights renormalized over the k choices, slot
+    [T*k] each choice's position in its expert's queue, keep [T*k]
+    slot < capacity, cap).  The slot is the running count of earlier
+    choices of the same expert in token-major order, so the tokens past
+    an expert's capacity are dropped exactly as in the JAX package."""
+    t = xt.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(1, int(math.ceil(t * k * cfg.capacity_factor / e)))
+    probs = _softmax(dense_apply(params["router"], xt.to(torch.float32)))
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+    flat_e = top_e.reshape(-1)
+    onehot = torch.nn.functional.one_hot(flat_e, e).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1   # [T*k, E]
+    slot = pos.gather(1, flat_e[:, None])[:, 0]
+    return top_e, top_p, slot, slot < cap, cap
+
+
+def moe_apply(params, cfg: MoEConfig, x):
+    """x [B, S, d] -> [B, S, d]: capacity-dropped token-choice routing
+    (``moe_route``), dispatch into an [E, cap, d] buffer, the expert
+    FFNs as batched products in x's dtype on each bank (``mat``: a
+    memory-packed bank is one kernel-B7 call), combine weighted by the
+    routing probabilities, plus the shared expert.  The capacity counts
+    every token of the call, so a token's output depends on the other
+    tokens of the batch (ROADMAP Queue C, reference property (f))."""
+    b, s, d = x.shape
+    t, k = b * s, cfg.top_k
+    xt = x.reshape(t, d)
+    top_e, top_p, slot, keep, cap = moe_route(params, cfg, xt)
+    flat_e = top_e.reshape(-1)
+    # dispatch: the kept (expert, slot) pairs are unique, so the
+    # accumulating put is the JAX package's dropping scatter-add
+    buf = torch.zeros((cfg.n_experts, cap, d), dtype=x.dtype,
+                      device=x.device)
+    src = xt.repeat_interleave(k, dim=0)                       # [T*k, d]
+    buf.index_put_((flat_e[keep], slot[keep]), src[keep], accumulate=True)
+    gate = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_gate"], x.dtype))
+    up = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_up"], x.dtype))
+    a = silu(gate) if cfg.act == "swiglu" else gelu_tanh(gate)
+    out_e = torch.einsum("ecf,efd->ecd", a * up,
+                         mat(params["wo"], x.dtype))           # [E, C, d]
+    # combine
+    gathered = out_e[flat_e, torch.where(keep, slot, 0)]       # [T*k, d]
+    gathered = gathered.masked_fill(~keep[:, None], 0)
+    w = top_p.reshape(-1)[:, None].to(x.dtype)
+    y = (gathered * w).reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+    if cfg.shared_expert:
+        y = y + mlp_apply(params["shared"], x, act=cfg.act)
+    return y
+
+
+def moe_aux_loss(params, cfg: MoEConfig, x):
+    """Switch-style load-balance auxiliary loss: E * sum over experts of
+    (share of tokens whose top choice it is) x (mean router
+    probability)."""
+    t = x.shape[0] * x.shape[1]
+    probs = _softmax(dense_apply(params["router"],
+                                 x.reshape(t, -1).to(torch.float32)))
+    top_e = probs.argmax(dim=-1)
+    frac = torch.nn.functional.one_hot(top_e, cfg.n_experts) \
+        .to(torch.float32).mean(dim=0)
+    imp = probs.mean(dim=0)
+    return cfg.n_experts * (frac * imp).sum()

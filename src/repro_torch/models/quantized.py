@@ -18,9 +18,9 @@ unchanged.  Two packing modes:
     lane-packed per word), executed through ``kernels/ops.packed_matmul``
     so decode/prefill GEMMs run on the packed arithmetic datapath
     (activations are dynamically quantized per row to ``plan.w_b``
-    bits).  Unstacked >2-D kernels (MoE expert banks) keep the memory
-    packing.  The short depthwise conv of the SSM/Griffin blocks becomes
-    ``BSEGConv`` — taps BSEG-packed through the pre-adder, executed via
+    bits).  MoE expert banks keep the memory packing (stacked
+    [L, E, d_in, d_out] banks too: one B7 call a bank per layer).  The
+    short depthwise conv of the SSM/Griffin blocks becomes ``BSEGConv`` — taps BSEG-packed through the pre-adder, executed via
     ``kernels/ops.bseg_conv1d`` (kernel B4; activations dynamically
     quantized to the unsigned ``plan.w_i``-bit domain with a zero
     point, per Eqs. 9/10).
@@ -49,18 +49,20 @@ class PackedLinear:
     """Lane-packed quantized kernel: words [..., d_in, d_out_pad/per]
     int32 (per = 32 // bits fields each), scale [..., 1, d_out_pad] f32
     (the padded columns have scale 1.0 and value 0); ``d_out`` unpads on
-    materialize.  A stacked layer tensor keeps a leading layer axis on
-    ``words`` and ``scale``; ``layer(i)`` slices one layer off."""
+    materialize.  ``stacked``: the leading axis of ``words`` and
+    ``scale`` is the layer axis of a layer stack (set at packing time
+    from the tree position: a MoE expert bank is [E, d_in, ...] alone and
+    [L, E, d_in, ...] stacked, so the rank does not tell);
+    ``layer(i)`` slices one layer off."""
     words: torch.Tensor
     scale: torch.Tensor
     bits: int
     d_out: int
-
-    @property
-    def stacked(self) -> bool:
-        return self.words.ndim == 3
+    stacked: bool = False
 
     def layer(self, i: int) -> "PackedLinear":
+        if not self.stacked:
+            raise ValueError("layer() of a container without a layer axis")
         return PackedLinear(words=self.words[i], scale=self.scale[i],
                             bits=self.bits, d_out=self.d_out)
 
@@ -86,15 +88,19 @@ def quantize_linear(kernel: torch.Tensor, bits: int):
     return q, scale.to(torch.float32)
 
 
-def pack_linear(kernel: torch.Tensor, bits: int) -> PackedLinear:
+def pack_linear(kernel: torch.Tensor, bits: int,
+                stacked: Optional[bool] = None) -> PackedLinear:
     """kernel [..., d_in, d_out] float -> PackedLinear: ``quantize_linear``,
     then every row of the [-1, d_out_pad] view packed by
-    ``ops.pack_weights`` (kernel B6, one call for a whole stack)."""
+    ``ops.pack_weights`` (kernel B6, one call for a whole stack).
+    ``stacked`` says whether the leading axis is a layer axis (default:
+    a 3-D kernel is a stack of 2-D ones)."""
     q, scale = quantize_linear(kernel, bits)
     words = ops.pack_weights(q.reshape(-1, q.shape[-1]), w=bits)
     return PackedLinear(
         words=words.reshape(q.shape[:-1] + (words.shape[-1],)),
-        scale=scale, bits=bits, d_out=kernel.shape[-1])
+        scale=scale, bits=bits, d_out=kernel.shape[-1],
+        stacked=kernel.ndim == 3 if stacked is None else stacked)
 
 
 @dataclasses.dataclass
@@ -275,9 +281,10 @@ def materialize(pl, dtype=torch.bfloat16) -> torch.Tensor:
 
     A ``PackedLinear`` is one ``ops.unpack_dequant`` call (kernel B7 fused
     with the dequant) on the [-1, nw] view of its words, one group of
-    ``d_in`` rows per layer: each field in float32 times its column's
-    scale, trimmed to ``d_out`` and cast to ``dtype`` (bfloat16 or
-    float32), bit for bit the reference's unpack, scale, trim and cast."""
+    ``d_in`` rows per scale row (per layer, per expert): each field in
+    float32 times its column's scale, trimmed to ``d_out`` and cast to
+    ``dtype`` (bfloat16 or float32), bit for bit the reference's unpack,
+    scale, trim and cast."""
     if isinstance(pl, PackedLinear):
         out = ops.unpack_dequant(pl.words.reshape(-1, pl.words.shape[-1]),
                                  pl.scale, w=pl.bits, d_out=pl.d_out,
@@ -303,7 +310,8 @@ def is_sdv(x) -> bool:
 def count_packed(tree) -> Dict[str, int]:
     """Per-layer count of the packed containers in a serve tree:
     ``{"memory": ..., "sdv": ..., "bseg": ...}``, a stacked container
-    counting once per layer."""
+    counting once per layer (a stacked MoE expert bank once per layer,
+    not per expert)."""
     out = {"memory": 0, "sdv": 0, "bseg": 0}
     keys = {PackedLinear: "memory", SDVLinear: "sdv", BSEGConv: "bseg"}
 
@@ -322,7 +330,8 @@ def count_packed(tree) -> Dict[str, int]:
 _QUANT_LEAF_NAMES = ("kernel", "wi_gate", "wi_up", "wo")
 _SKIP_CONTAINERS = ("router", "conv", "proj_patches")
 #: top-level containers whose leading axis is the stacked layer axis —
-#: a 3-D kernel under one of these is a stack of 2-D GEMMs
+#: a 3-D kernel under one of these is a stack of 2-D GEMMs, a 4-D one a
+#: stack of MoE expert banks
 _STACKED_CONTAINERS = ("blocks", "groups", "tail", "enc_blocks",
                        "dec_blocks")
 
@@ -347,10 +356,14 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
     Kernels named ``kernel``/``wi_gate``/``wi_up``/``wo`` with at least
     ``min_size`` elements, and the LM head, are packed.
     ``compute="memory"`` packs each as ``PackedLinear`` (lane words,
-    kernel B6); ``compute="sdv"`` packs 2-D kernels and stacked layer
-    tensors of 2-D kernels (a 3-D leaf under ``blocks``, ``groups``, ...
-    packs per layer with a shared plan) as ``SDVLinear``, keeping memory
-    packing for unstacked >2-D kernels (MoE expert banks).  ``conv_bseg``
+    kernel B6, one call a leaf); ``compute="sdv"`` packs 2-D kernels and
+    stacked layer tensors of 2-D kernels (a 3-D leaf under ``blocks``,
+    ``groups``, ... packs per layer with a shared plan) as
+    ``SDVLinear``, keeping memory packing for the MoE expert banks (a
+    4-D leaf under those containers, a 3-D one elsewhere).  A leaf under
+    those containers keeps its leading axis as the layer axis
+    (``PackedLinear.stacked``): to pack one layer of a stack, hand it
+    over with a layer axis of 1.  ``conv_bseg``
     (default: on under ``compute="sdv"``, off under memory, as in the
     reference) packs the SSM/Griffin short-conv containers as
     ``BSEGConv``; off keeps the float conv dict.
@@ -437,10 +450,10 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
         return chosen if isinstance(chosen, BSEGPlan) else conv_plan
 
     def quantize(v, name):
-        if sdv_mode and (v.ndim == 2 or
-                         (v.ndim == 3 and _stacked_leading_axis(name))):
+        stacked = _stacked_leading_axis(name)
+        if sdv_mode and (v.ndim == 2 or (v.ndim == 3 and stacked)):
             return pack_linear_sdv(v, layer_plan(name, v))
-        return pack_linear(v, bits)
+        return pack_linear(v, bits, stacked=stacked and v.ndim > 2)
 
     def walk(tree, name):
         out = {}

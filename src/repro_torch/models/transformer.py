@@ -1,10 +1,15 @@
-"""The decoders — torch port of the dense, ssm and hybrid families of
-``repro.models.transformer``: seeded init, the decode caches with
-per-slot positions, ``decode_step`` and (dense only) chunked
+"""The decoders — torch port of the dense, moe, ssm and hybrid families
+of ``repro.models.transformer``: seeded init, the decode caches with
+per-slot positions, ``decode_step`` and (dense and moe) chunked
 ``prefill_step``.
 
   * dense (tinyllama): int8 KV cache, ``decode_step`` with the
     ``advance[B]`` mask, ``prefill_step``;
+  * moe (phi3.5-moe, llama4-maverick): the dense decoder with a
+    mixture-of-experts FFN (``layers.moe_apply``); under ``moe_every =
+    me > 1`` the layers come in groups of ``me``, member 0 with the MoE
+    FFN (``blocks``), member j >= 1 a dense block (``blocks_dense{j}``),
+    and layer ``g*me + j`` of the int8 cache is member j of group g;
   * ssm (Mamba2): a stack of SSD blocks; the cache holds each layer's
     short-conv history (bf16) and SSM state (float32);
   * hybrid (Griffin / RecurrentGemma): groups of (RG-LRU, RG-LRU,
@@ -17,23 +22,31 @@ The recurrent families replay prompts one token per ``decode_step``, as
 in the JAX package: ``prefill_step`` and the ``advance`` mask raise for
 them.  The serving engine's slot helpers: ``reset_slot`` clears one
 batch slot of any family's cache, ``prefill_slot`` prefills one slot of
-a dense cache.  Speculative decoding's entry points (dense only):
-``verify_step`` / ``verify_slot`` score a chunk of tokens with the
+a dense or moe cache.  Speculative decoding's entry points (dense and
+moe): ``verify_step`` / ``verify_slot`` score a chunk of tokens with the
 logits of every column, bit for bit those of sequential
-``decode_step``s, and ``rollback_slot`` rewinds one slot's position.
-``forward`` (dense only) is the full-sequence forward of training, with
-the streaming attention of ``layers.attention_apply``, differentiable
-by autograd.
+``decode_step``s on the dense family, and ``rollback_slot`` rewinds one
+slot's position (on the moe family a token's expert capacity counts the
+whole call's tokens, so columns and slots are not independent there:
+ROADMAP Queue C, property (f)).  ``forward`` (dense and moe) is the
+full-sequence forward of training, with the streaming attention of
+``layers.attention_apply``, differentiable by autograd.
 
 Parameters are a plain dict tree with the JAX package's keys and the
 stacked layer axis first; the JAX package's ``lax.scan`` over layers
 is a Python loop over that axis here (and ``forward`` does not
 rematerialize: the JAX package's ``remat`` only trades memory).  The
-cache is updated in place.  Not ported yet: the moe, encdec and vlm
+cache is updated in place.  Not ported yet: the encdec and vlm
 families.
+
+``init_top_params`` and ``init_group_params`` draw a decoder's tree in
+parts (the leaves outside the layer stacks, then one layer group at a
+time from its own seed), so a model whose bf16 tree exceeds the card can
+be packed group by group (``launch/serve.py::packed_params_layerwise``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict
 
@@ -52,6 +65,12 @@ def _attn_cfg(cfg: ArchConfig) -> L.AttnConfig:
                         head_dim=cfg.hd, rope_theta=cfg.rope_theta)
 
 
+def _moe_cfg(cfg: ArchConfig) -> L.MoEConfig:
+    return L.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       n_experts=cfg.n_experts, top_k=cfg.top_k,
+                       shared_expert=cfg.shared_expert, act=cfg.act)
+
+
 def _ssm_cfg(cfg: ArchConfig) -> S.SSMConfig:
     return S.SSMConfig(d_model=cfg.d_model, d_inner=cfg.d_inner,
                        n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
@@ -63,7 +82,9 @@ def _rg_cfg(cfg: ArchConfig) -> R.RGLRUConfig:
 
 
 #: the families each entry point runs
-_DECODE_FAMILIES = ("dense", "ssm", "hybrid")
+_DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families with an int8 KV cache, chunked prefill and ``forward``
+_KV_FAMILIES = ("dense", "moe")
 
 
 def _require_family(cfg: ArchConfig, what: str):
@@ -71,7 +92,7 @@ def _require_family(cfg: ArchConfig, what: str):
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported yet (ported: "
             f"{', '.join(_DECODE_FAMILIES)})")
-    if cfg.family == "dense" and cfg.serve_kv_bits != 8:
+    if cfg.family in _KV_FAMILIES and cfg.serve_kv_bits != 8:
         raise NotImplementedError("only the int8 KV cache is ported")
 
 
@@ -86,6 +107,57 @@ def _rec_layer_init(ini: L.Init, cfg: ArchConfig):
             "mlp": L.mlp_init(ini, cfg.d_model, cfg.d_ff)}
 
 
+def _init(seed: int, device):
+    dev = resolve_device(device)
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    return gen, dev
+
+
+def _top_params(cfg: ArchConfig, ini: L.Init) -> Dict[str, Any]:
+    d = cfg.d_model
+    p: Dict[str, Any] = {
+        "embed": ini.normal((cfg.vocab_padded, d), std=0.02),
+        "ln_f": L.rmsnorm_init(ini, d),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = ini.normal((d, cfg.vocab_padded), std=0.02)
+    return p
+
+
+def _moe_every(cfg: ArchConfig) -> int:
+    return cfg.moe_every if cfg.family == "moe" else 1
+
+
+def _decoder_block_init(ini: L.Init, cfg: ArchConfig):
+    d = cfg.d_model
+    p = {"ln_attn": L.rmsnorm_init(ini, d),
+         "attn": L.attention_init(ini, _attn_cfg(cfg), d,
+                                  qkv_bias=cfg.qkv_bias),
+         "ln_mlp": L.rmsnorm_init(ini, d)}
+    if cfg.family == "moe":
+        p["moe"] = L.moe_init(ini, _moe_cfg(cfg))
+    else:
+        p["mlp"] = L.mlp_init(ini, d, cfg.d_ff)
+    return p
+
+
+def _decoder_stacks(cfg: ArchConfig, ini: L.Init, n: int):
+    """The stacked blocks of the dense and moe families, ``n`` layers
+    (layer groups under ``moe_every > 1``) on the leading axis:
+    ``blocks``, and under ``moe_every > 1`` the dense members
+    ``blocks_dense{j}`` drawn from a dense config, as in the JAX
+    package."""
+    sini = ini.stacked(n)
+    p = {"blocks": _decoder_block_init(sini, cfg)}
+    dense_cfg = dataclasses.replace(cfg, family="dense")
+    for j in range(1, _moe_every(cfg)):
+        p[f"blocks_dense{j}"] = _decoder_block_init(sini, dense_cfg)
+    return p
+
+
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters with the JAX package's shapes, dtypes and stds
@@ -95,28 +167,12 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     On ``device="meta"`` the tree holds shapes and dtypes only: nothing
     is drawn or allocated (the planner's shape walk)."""
     _require_family(cfg, "init_params")
-    dev = resolve_device(device)
-    gen = None
-    if dev.type != "meta":
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+    gen, dev = _init(seed, device)
     ini = L.Init(gen, dev, cfg.dtype)
     d = cfg.d_model
-    p: Dict[str, Any] = {
-        "embed": ini.normal((cfg.vocab_padded, d), std=0.02),
-        "ln_f": L.rmsnorm_init(ini, d),
-    }
-    if not cfg.tie_embeddings:
-        p["lm_head"] = ini.normal((d, cfg.vocab_padded), std=0.02)
-    if cfg.family == "dense":
-        sini = ini.stacked(cfg.n_layers)
-        p["blocks"] = {
-            "ln_attn": L.rmsnorm_init(sini, d),
-            "attn": L.attention_init(sini, _attn_cfg(cfg), d,
-                                     qkv_bias=cfg.qkv_bias),
-            "ln_mlp": L.rmsnorm_init(sini, d),
-            "mlp": L.mlp_init(sini, d, cfg.d_ff),
-        }
+    p = _top_params(cfg, ini)
+    if cfg.family in _KV_FAMILIES:
+        p.update(_decoder_stacks(cfg, ini, cfg.n_layers // _moe_every(cfg)))
     elif cfg.family == "ssm":
         sini = ini.stacked(cfg.n_layers)
         p["blocks"] = {"ln": L.rmsnorm_init(sini, d),
@@ -137,6 +193,39 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         if n_tail:
             p["tail"] = _rec_layer_init(ini.stacked(n_tail), cfg)
     return p
+
+
+def n_groups(cfg: ArchConfig) -> int:
+    """The length of a dense or moe tree's layer stacks: the layers, or
+    the groups of ``moe_every`` layers."""
+    return cfg.n_layers // _moe_every(cfg)
+
+
+def init_top_params(cfg: ArchConfig, seed: int = 0,
+                    device="cuda") -> Dict[str, Any]:
+    """The leaves of ``init_params(cfg, seed)`` outside the layer stacks
+    (``embed``, ``ln_f``, ``lm_head``), the same numbers: they are drawn
+    first."""
+    _require_family(cfg, "init_top_params")
+    gen, dev = _init(seed, device)
+    return _top_params(cfg, L.Init(gen, dev, cfg.dtype))
+
+
+def init_group_params(cfg: ArchConfig, group: int, seed: int = 0,
+                      device="cuda") -> Dict[str, Any]:
+    """The stacked block containers of a dense or moe tree (``blocks``,
+    ``blocks_dense{j}``) for layer group ``group`` alone, with a leading
+    layer axis of 1, drawn from a generator of their own seeded with
+    (``seed``, ``group``).  ``init_top_params`` and these groups,
+    concatenated on the layer axis, make a whole tree; it is not
+    ``init_params``'s, whose stacks are drawn in one piece."""
+    if cfg.family not in _KV_FAMILIES:
+        raise ValueError(f"init_group_params: family {cfg.family!r} has no "
+                         "decoder layer stacks")
+    if not 0 <= group < n_groups(cfg):
+        raise ValueError(f"group {group} not in 0..{n_groups(cfg) - 1}")
+    gen, dev = _init((seed << 32) | (group + 1), device)
+    return _decoder_stacks(cfg, L.Init(gen, dev, cfg.dtype), 1)
 
 
 def layer_params(stacked, i: int):
@@ -196,28 +285,28 @@ def _finish(cfg: ArchConfig, params, x, mode: str):
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
             diff: bool = True, mode: str = "logits"):
-    """Full-sequence forward of the dense family.  batch: {"tokens":
-    [B, S]}.  mode: "logits" (full [B, S, V] float32), "hidden" (the
+    """Full-sequence forward of the dense and moe families.  batch:
+    {"tokens": [B, S]}.  mode: "logits" (full [B, S, V] float32), "hidden" (the
     post-``ln_f`` states, for a chunked loss) or "last_logits" (only the
     next-token logits).  Attention is ``layers.attention_apply`` over
     positions 0..S-1 (causal, chunked at ``cfg.attn_chunk``); ``diff``
     picks its differentiable variant (bf16 operands, float32
-    accumulation), else float32 operands."""
-    if cfg.family != "dense":
+    accumulation), else float32 operands.  A dense block attends within
+    ``cfg.window``; a MoE block without one, as in the JAX package."""
+    if cfg.family not in _KV_FAMILIES:
         raise NotImplementedError(
             f"forward: family {cfg.family!r} is not ported yet (ported: "
-            "dense; ROADMAP, not-ported list)")
+            f"{', '.join(_KV_FAMILIES)}; ROADMAP, not-ported list)")
     x = _embed(cfg, params, batch["tokens"])
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     acfg = _attn_cfg(cfg)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    for _, bp, _ in _decoder_layers(cfg, params):
         h, _ = L.attention_apply(
             bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
             positions=positions, chunk=cfg.attn_chunk, differentiable=diff,
-            window=cfg.window)
+            window=None if "moe" in bp else cfg.window)
         x = _mlp_residual(cfg, bp, x + h)
     return _finish(cfg, params, x, mode)
 
@@ -231,8 +320,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
     """The decode cache, stacked layer axis first, with per-slot
     positions ``index[B]``:
 
-      * dense: int8 KV [L, B, S_max, KV, hd] with per-(position, head)
-        f32 scales [L, B, S_max, KV];
+      * dense and moe: int8 KV [L, B, S_max, KV, hd] with
+        per-(position, head) f32 scales [L, B, S_max, KV];
       * ssm: ``conv`` [L, B, d_conv-1, conv channels] in the model dtype,
         ``ssm`` [L, B, H, N, P] float32;
       * hybrid: a KV ring ``k``/``v`` [groups, B, min(window, S_max),
@@ -248,7 +337,7 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     cache = {"index": zeros((b,), torch.int32)}
-    if cfg.family == "dense":
+    if cfg.family in _KV_FAMILIES:
         shape = (cfg.n_layers, b, s_max, cfg.n_kv, cfg.hd)
         cache.update(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
                      k_scale=zeros(shape[:-1], torch.float32),
@@ -273,12 +362,38 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
     return cache
 
 
-def _layer_cache(cache, i: int):
-    return tuple(cache[name][i] for name in ("k", "v", "k_scale", "v_scale"))
+def _layer_cache(cache, i: int, scaled: bool = True):
+    """Layer ``i``'s (k, v, k_scale, v_scale); the scales None where the
+    layer writes and reads its int8 K/V unscaled."""
+    k, v = cache["k"][i], cache["v"][i]
+    if not scaled:
+        return k, v, None, None
+    return k, v, cache["k_scale"][i], cache["v_scale"][i]
+
+
+def _decoder_layers(cfg: ArchConfig, params):
+    """(cache layer, block params, scaled) of each layer of the dense and
+    moe families, in order.  Under ``moe_every = me > 1`` layer
+    ``g*me + j`` is member j of group g: member 0 takes ``blocks[g]``
+    (its MoE FFN), member j >= 1 ``blocks_dense{j}[g]`` (its MLP); the
+    JAX package calls their attention without the int8 cache's scales,
+    so they write K/V truncated to int8, read it unscaled and leave the
+    scales at zero (ROADMAP Queue C, reference property (e)):
+    ``scaled`` is False for them."""
+    me = _moe_every(cfg)
+    stacks = [params["blocks"]] + [params[f"blocks_dense{j}"]
+                                   for j in range(1, me)]
+    for g in range(cfg.n_layers // me):
+        for j, stack in enumerate(stacks):
+            yield g * me + j, layer_params(stack, g), me == 1
 
 
 def _mlp_residual(cfg: ArchConfig, bp, y):
+    """y plus the block's FFN of its normed input: the MoE FFN where the
+    block has one, else the gated MLP."""
     z = L.rmsnorm_apply(bp["ln_mlp"], y)
+    if "moe" in bp:
+        return y + L.moe_apply(bp["moe"], _moe_cfg(cfg), z)
     return y + L.mlp_apply(bp["mlp"], z, act=cfg.act)
 
 
@@ -292,14 +407,14 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     f32, cache).
 
     ``cache["index"]`` is the per-slot position vector [B] int32.
-    ``advance`` [B] int (optional, dense only, as in the JAX package):
+    ``advance`` [B] int (optional, dense and moe, as in the JAX package):
     slots with 0 neither write KV nor move their index — their logits
     are discarded.  Omitted means every slot advances.  The cache's
     tensors are updated in place; the returned dict carries the new
     index tensor.
     """
     _require_family(cfg, "decode_step")
-    if advance is not None and cfg.family != "dense":
+    if advance is not None and cfg.family not in _KV_FAMILIES:
         raise ValueError(
             f"advance mask unsupported for family {cfg.family!r}")
     index = cache["index"]
@@ -319,11 +434,11 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     # the written rows, selected once for every layer
     writes = L.decode_writes(index, wmask, cache["k"].shape[2])
     acfg = _attn_cfg(cfg)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    for i, bp, scaled in _decoder_layers(cfg, params):
         h = L.decode_attention(
             bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
-            cache=_layer_cache(cache, i), cache_index=index, writes=writes)
+            cache=_layer_cache(cache, i, scaled), cache_index=index,
+            writes=writes)
         x = _mlp_residual(cfg, bp, x + h)
     return _unembed(cfg, params, x), dict(cache, index=index + bump)
 
@@ -412,7 +527,7 @@ def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
         # as in the JAX package: the recurrent families replay prompts
         # one token per decode_step
         raise ValueError(f"prefill_step: unsupported family {cfg.family}")
-    _require_family(cfg, "prefill_step")       # moe and vlm: not ported
+    _require_family(cfg, "prefill_step")       # vlm: not ported
     index = cache["index"]
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=index.device)
@@ -420,11 +535,11 @@ def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                               cache["k"].shape[2])
     acfg = _attn_cfg(cfg)          # same attention config as decode_step
     x = _embed(cfg, params, tokens)
-    for i in range(cfg.n_layers):
-        bp = layer_params(params["blocks"], i)
+    for i, bp, scaled in _decoder_layers(cfg, params):
         h = L.prefill_attention(
             bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
-            cache=_layer_cache(cache, i), cache_index=index, writes=writes)
+            cache=_layer_cache(cache, i, scaled), cache_index=index,
+            writes=writes)
         x = _mlp_residual(cfg, bp, x + h)
     return x, dict(cache, index=index + n_valid)
 
@@ -494,7 +609,9 @@ def verify_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     gave the decode step's bits at these shapes on the CPU and on the
     H100 (``scripts/verify_vs_decode.py``).  Columns at or past a slot's
     ``n_valid`` give garbage logits (their K/V is not written); callers
-    read only accepted prefixes.
+    read only accepted prefixes.  On the moe family the experts'
+    capacity counts all B x C tokens of the wave, so the equality with
+    sequential decode does not hold there (property (f)).
     """
     x, new_cache = _prefill_forward(cfg, params, cache, tokens, n_valid)
     return _unembed(cfg, params, x), new_cache

@@ -435,8 +435,9 @@ def test_reference_words_through_packed_from_numpy(runs, setup):
 
 def test_sdv_mode_keeps_memory_packing_for_unstacked_banks():
     """Under compute="sdv" an unstacked 3-D kernel (an MoE expert bank)
-    falls to PackedLinear, as in the reference; a stacked one under
-    ``blocks`` packs as SDVLinear."""
+    falls to PackedLinear, as in the reference, and counts as one
+    container (it has no layer axis: its leading axis is the experts');
+    a stacked one under ``blocks`` packs as SDVLinear, one per layer."""
     rng = np.random.default_rng(5)
     bank = (rng.standard_normal((4, 32, 48)) * 0.1).astype(np.float32)
     tree = {"moe": {"wi_gate": bank}, "blocks": {"mlp": {"wo": bank}}}
@@ -448,7 +449,8 @@ def test_sdv_mode_keeps_memory_packing_for_unstacked_banks():
     assert isinstance(tt["moe"]["wi_gate"], tm.PackedLinear)
     assert _same(jt["moe"]["wi_gate"].words, tt["moe"]["wi_gate"].words)
     assert isinstance(tt["blocks"]["mlp"]["wo"], tm.SDVLinear)
-    assert tquant.count_packed(tt) == {"memory": 4, "sdv": 4, "bseg": 0}
+    assert not tt["moe"]["wi_gate"].stacked
+    assert tquant.count_packed(tt) == {"memory": 1, "sdv": 4, "bseg": 0}
 
 
 def test_serve_cli_memory_on_cpu(capsys):
