@@ -184,7 +184,35 @@ exit at the first failure:
      and 225 B6; 224 B7 a prefill, 225 a decode step), each with
      ms/step, tok/s, peak memory and one decode step's device busy share
      split into B7, B1, the expert GEMMs (``aten::bmm`` on a bank) and
-     the rest.
+     the rest;
+ 14. families — the encdec and vlm families (after the earlier phases'
+     memory is freed): B1 (8 rows) and B2 (128 rows) at every projection
+     shape of a full-width seamless-m4t-large-v2 decoder layer (d 1024, 16
+     heads of 64, d_ff 8192) and llava-next-mistral-7b layer (d 4096, K up
+     to 14336) on the INT32 W4A8 plan against the plain version and the
+     exact product; B6 at every leaf shape that memory-mode
+     ``serve_params`` packs of both models (up to llava's [458752, 4096]
+     stack, 1.88e9 values), the fused B7 at every decode projection shape
+     and both LM heads, against their plain versions (and B7 the replaced
+     route), twice; the built memory trees' leaf shapes checked to be
+     exactly those;
+     reduced seamless (forward on {src, tokens}, 8 decode steps) and
+     reduced llava (forward with patches, prefill + 8 decode steps) in SDV
+     and memory modes on the card against the CPU: logits within
+     ``LOGIT_ATOL``, seamless's bf16 K/V within one bf16 rounding of their
+     scale and its cross caches all zero, llava's int8 K/V within one step
+     (the entries that differ counted); then each full-width model from a
+     seeded init in SDV and memory mode (``serve_params``, min_size 1024,
+     the bf16 tree freed): llava's 16-token prefill of 8 prompts (224 B2 /
+     224 B7), seamless's 15 prompt tokens replayed by ``decode_step``, 16
+     greedy steps at batch 8 (seamless 108 B1 / 109 B7 a step, llava 224
+     B1 / 225 B7), ``single_batch_loop`` as the CLI runs it, nothing else
+     and no plain call; ms/step, tok/s, peak memory, one decode step's busy
+     share split into B1 or B7, the bf16 GEMMs (``aten::mm``), the SDV LM
+     head's plain-torch decode (a profiler range; also timed by CUDA
+     events) and the rest; then one ``forward(mode="last_logits")`` at
+     batch 2 (seamless 512 frames + 512 tokens: 216 B2 / 217 B7; llava
+     1152 patches + 64 tokens: 224 B2 / 225 B7).
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -301,8 +329,21 @@ MOE_ARCH = "phi3.5-moe"
 MOE_REFERENCE_ARCHS = ("phi3.5-moe", "llama4-maverick")
 MOE_REFERENCE_STEPS = 8
 #: reduced MoE caches, card vs CPU: the K/V scales (the amax of a bf16
-#: K or V row / 127) within one bf16 rounding
+#: K or V row / 127) within one bf16 rounding; the families phase holds
+#: seamless's bf16 K/V to one bf16 rounding of their scale with it
 CACHE_SCALE_RTOL = 2.0 ** -7
+#: the families phase: full-width seamless-m4t-large-v2 (encdec) and
+#: llava-next-mistral-7b (vlm), batch BATCH, PROMPT-token prompts and NEW
+#: greedy tokens in SDV and memory mode, and one full-width
+#: forward(mode="last_logits") each at (batch, source frames or patches,
+#: target tokens); the reduced models held on the card against the CPU
+#: over FAMILY_REFERENCE_STEPS decode steps
+FAMILY_ARCHS = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
+FAMILY_FORWARD = {"seamless-m4t-large-v2": (2, 512, 512),
+                  "llava-next-mistral-7b": (2, 1152, 64)}
+FAMILY_REFERENCE_STEPS = 8
+#: the profiler range around the SDV LM head's plain-torch weight decode
+HEAD_DECODE = "sdv_lm_head_decode"
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -2868,12 +2909,15 @@ def moe_card_vs_cpu(dev):
                   f"{float(host['k_scale'].sum()):.4g}")
 
 
-def moe_step_split(label, fn, wall_ms, banks, card):
-    """One profiled call of ``fn``: device busy ms and its split into B7,
-    B1, B2 (the port's kernels, by name), the expert GEMMs (the device
-    time of the ``aten::bmm`` calls whose second operand is a bank) and
-    the rest.  Returns the split, or None when the profiler saw no
-    device time."""
+def step_split(tag, label, fn, wall_ms, card, kernels, host_ops):
+    """One profiled call of ``fn``: device busy ms and its split into the
+    port's ``kernels`` ({name: kernel function name}, by the device
+    events' names), the device time under the host events ``host_ops``
+    picks ({name: predicate on an event of ``key_averages
+    (group_by_input_shape=True)``}, e.g. ``aten::bmm`` on a bank, or a
+    profiler range) and the rest; a range's own device-side copy (a user
+    annotation, not a kernel) is left out of busy.  Returns the split, or
+    None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -2884,24 +2928,26 @@ def moe_step_split(label, fn, wall_ms, banks, card):
                        record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_ms = {e.key: e.self_device_time_total / 1e3
-              for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    events = prof.key_averages(group_by_input_shape=True)
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = {HEAD_DECODE} | {e.key for e in host
+                              if getattr(e, "is_user_annotation", False)}
+    dev_ms = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.key not in ranges:
+            dev_ms[e.key] = dev_ms.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3
     busy = sum(dev_ms.values())
     if busy == 0.0:
-        print(f"[moe] {label}: the profiler saw no device time; split not "
-              "measured")
+        print(f"[{tag}] {label}: the profiler saw no device time; split "
+              "not measured")
         return None
-    split = {"B7": "unpack_dequant_kernel", "B1": "sdv_gemv_kernel",
-             "B2": "sdv_gemm_kernel"}
     split = {k: sum(v for n, v in dev_ms.items() if name in n)
-             for k, name in split.items()}
-    split["expert GEMMs"] = sum(
-        e.device_time_total / 1e3
-        for e in prof.key_averages(group_by_input_shape=True)
-        if e.key == "aten::bmm" and len(e.input_shapes) > 1
-        and list(e.input_shapes[1]) in banks)
+             for k, name in kernels.items()}
+    split.update({k: sum(e.device_time_total / 1e3 for e in host if pick(e))
+                  for k, pick in host_ops.items()})
     split["rest"] = busy - sum(split.values())
-    print(f"[moe] {label}: unprofiled wall {wall_ms:.3f} ms, device busy "
+    print(f"[{tag}] {label}: unprofiled wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms ({busy / wall_ms:.1%}): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f" ({card})")
@@ -3005,10 +3051,14 @@ def moe_serve(cfg, dev, card, compute):
 
     def step():
         _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
-    bank_shapes = [[cfg.n_experts, cfg.d_model, cfg.d_ff],
-                   [cfg.n_experts, cfg.d_ff, cfg.d_model]]
-    split = moe_step_split(f"{compute} decode step at batch {BATCH}", step,
-                           step_ms, bank_shapes, card)
+    banks = [[cfg.n_experts, cfg.d_model, cfg.d_ff],
+             [cfg.n_experts, cfg.d_ff, cfg.d_model]]
+    split = step_split(
+        "moe", f"{compute} decode step at batch {BATCH}", step, step_ms,
+        card, {"B7": "unpack_dequant_kernel", "B1": "sdv_gemv_kernel",
+               "B2": "sdv_gemm_kernel"},
+        {"expert GEMMs": lambda e: e.key == "aten::bmm"
+         and len(e.input_shapes) > 1 and list(e.input_shapes[1]) in banks})
     del state
 
     reset_counts()
@@ -3047,6 +3097,452 @@ def phase_moe(dev, card, flush):
     runs = {compute: moe_serve(cfg, dev, card, compute)
             for compute in ("sdv", "memory")}
     print(f"[moe] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"kernels": kern, "runs": runs}
+
+
+def family_layer_shapes(cfg):
+    """(K, M) of one layer's projections and how often a decode step runs
+    each: a seamless decoder layer (self q/k/v/o, cross q/o, the MLP) or
+    a llava layer (q/k/v/o, the MLP)."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+    shapes = {}
+    for k, m, n in ((d, q, 1), (d, kv, 2), (q, d, 1), (d, f, 2), (f, d, 1)):
+        shapes[k, m] = shapes.get((k, m), 0) + n
+    if cfg.family == "encdec":
+        shapes[d, q] += 1
+        shapes[q, d] += 1
+    return shapes
+
+
+def family_launches(cfg, compute):
+    """The launches the families phase expects of ``cfg`` in ``compute``
+    mode: at packing, a decode step, a prefill step (vlm) and one
+    ``forward``, and its ``count_packed``.  A seamless decode step runs 9
+    projections a decoder layer (the cross attention's ``wk``/``wv`` are
+    packed but the decode step never calls them: reference property (g)),
+    its forward 7 an encoder layer and 11 a decoder layer; a llava step
+    and forward 7 a layer.  SDV mode decodes the LM head in plain torch
+    (no kernel); memory mode unpacks it with one B7 a step."""
+    if cfg.family == "encdec":
+        step = 9 * cfg.n_dec_layers
+        fwd = 7 * cfg.n_enc_layers + 11 * cfg.n_dec_layers
+        leaves = 7 + 11 + 1
+    else:
+        step = fwd = 7 * cfg.n_layers
+        leaves = 7 + 1
+    packed = {"memory": 0, "sdv": 0, "bseg": 0}
+    packed[compute] = fwd + 1
+    if compute == "sdv":
+        return dict(pack={}, step=dict(B1=step), prefill=dict(B2=step),
+                    forward=dict(B2=fwd), packed=packed)
+    return dict(pack=dict(B6=leaves), step=dict(B7=step + 1),
+                prefill=dict(B7=step), forward=dict(B7=fwd + 1),
+                packed=packed)
+
+
+def family_pack_shapes(cfg):
+    """The [rows, columns] of every B6 call of ``cfg``'s memory-mode
+    ``serve_params`` (one call a leaf: a stack of L layers' [K, M]
+    kernels packs as [L * K, M]), and the LM head's [d, vocab_padded]."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv * cfg.hd
+    stacks = (cfg.n_enc_layers, cfg.n_dec_layers) \
+        if cfg.family == "encdec" else (cfg.n_layers,)
+    shapes = {(d, cfg.vocab_padded)}
+    for n in stacks:
+        shapes |= {(n * k, m) for k, m in ((d, q), (d, kv), (q, d), (d, f),
+                                           (f, d))}
+    return sorted(shapes)
+
+
+def family_kernels(dev, flush, card):
+    """B1 (8 rows) and B2 (128 rows) at every projection shape of a
+    seamless decoder layer (d 1024, 16 heads of 64, d_ff 8192) and a llava
+    layer (d 4096, K up to 14336) on the INT32 W4A8 plan, against the
+    plain version and the exact product, beside their bound and
+    ``_int_mm``; B6 at every leaf shape that memory-mode ``serve_params``
+    packs of both models (``family_pack_shapes``: llava's largest, the
+    stacked [32 x 14336, 4096] down leaf, holds 1.88e9 values, just under
+    2^31), with B7's int8 unpack of its words; the fused B7 at every
+    decode-step projection shape of both models and at both LM heads,
+    against its plain version and the replaced route, twice.  Returns the
+    B1/B2 sums over one layer's projections a decode step by arch, and
+    the B6/B7 cases."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.quantized import default_sdv_plan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    plan = default_sdv_plan(4, 8)
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_arch(arch)
+        for kname, rows in (("B1", DECODE_ROWS), ("B2", PREFILL_ROWS)):
+            acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0,
+                       max_abs_err=0)
+            for (k, m), mult in family_layer_shapes(cfg).items():
+                r = sdv_case(kname, plan, "int32 W4A8 n=2", k, m, rows, gen,
+                             flush)
+                for key in ("ms", "plain_ms", "bytes", "ops"):
+                    acc[key] += mult * r[key]
+                acc["library_ms"] = None if r["library_ms"] is None \
+                    or acc["library_ms"] is None \
+                    else acc["library_ms"] + mult * r["library_ms"]
+                acc["max_abs_err"] = max(acc["max_abs_err"],
+                                         r["max_abs_err"])
+            acc["bound_ms"], acc["bound_by"] = bound_ms(acc["bytes"],
+                                                        acc["ops"])
+            out[arch, kname] = acc
+            print(f"[families] {kname} per {cfg.name} layer's "
+                  f"{sum(family_layer_shapes(cfg).values())} decode "
+                  f"projections at {rows} rows (int32 W4A8): "
+                  f"{acc['ms']:.4f} ms (bound {acc['bound_ms']:.4f} ms by "
+                  f"{acc['bound_by']}), plain {acc['plain_ms']:.1f} ms, "
+                  f"_int_mm {acc['library_ms']} ms ({card})")
+    per = 32 // MEMORY_BITS
+    out["B6"], out["B7"] = {}, {}
+    for arch, short in zip(FAMILY_ARCHS, ("seamless", "llava")):
+        cfg = get_arch(arch)
+        head = (cfg.d_model, cfg.vocab_padded)
+        for m, n in family_pack_shapes(cfg):
+            name = f"{short} LM head" if (m, n) == head \
+                else f"{short} stack {m}x{n}"
+            out["B6"][name] = packbits_case(m, n, MEMORY_BITS, gen, flush,
+                                            f"{cfg.name} {name}")["B6"]
+            gc.collect()
+            torch.cuda.empty_cache()
+        for k, n in [*family_layer_shapes(cfg), head]:
+            name = f"{short} LM head" if (k, n) == head \
+                else f"{short} {k}x{n}"
+            out["B7"][name] = dequant_case(k, n // per, MEMORY_BITS, n, k,
+                                           torch.bfloat16, gen, flush,
+                                           f"{cfg.name} {name}", twice=True)
+    return out
+
+
+def family_card_vs_cpu(dev):
+    """Reduced seamless-m4t-large-v2 and llava-next-mistral-7b in SDV and
+    memory modes on the card against the same models on the CPU (plain
+    kernel versions): ``forward`` (seamless on {src, tokens}, llava with
+    its patches), llava's 5-token prefill, and
+    ``FAMILY_REFERENCE_STEPS`` decode steps.  Logits within
+    ``LOGIT_ATOL`` and ``index`` bit for bit; seamless's bf16
+    self-attention K/V within one bf16 rounding of their scale
+    (``CACHE_SCALE_RTOL``) and its cross caches all zero on both; llava's
+    int8 K/V within one quantization step and their scales within
+    ``CACHE_SCALE_RTOL``.  The entries that differ are counted."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, prefill_step, serve_params)
+    cpu = torch.device("cpu")
+    for arch in FAMILY_ARCHS:
+        cfg = get_arch(arch).reduced()
+        params = init_params(cfg, seed=1, device=cpu)
+        rng = np.random.default_rng(1)
+        prompt = rng.integers(0, cfg.vocab, (3, 5))
+        tokens = rng.integers(0, cfg.vocab, (FAMILY_REFERENCE_STEPS, 3, 1))
+        extra = ({"src": (3, 7, cfg.d_model)} if cfg.family == "encdec"
+                 else {"patches": (3, cfg.n_patches, cfg.d_model)})
+        extra = {k: rng.standard_normal(s).astype(np.float32)
+                 for k, s in extra.items()}
+        kv = ("k", "v")
+        for compute in ("sdv", "memory"):
+            fwd, outs, caches = {}, {}, {}
+            for d in (cpu, dev):
+                q = serve_params(_to(params, d), bits=4, min_size=1024,
+                                 compute=compute)
+                i32 = dict(dtype=torch.int32, device=d)
+                batch = {"tokens": torch.tensor(prompt, **i32),
+                         **{k: torch.from_numpy(v).to(d)
+                            for k, v in extra.items()}}
+                fwd[d.type] = forward(cfg, q, batch).cpu()
+                cache = init_cache(cfg, 3, 16, device=d)
+                if cfg.family == "vlm":
+                    cache = prefill_step(cfg, q, cache, batch["tokens"],
+                                         torch.tensor([5, 3, 0], **i32))
+                logits = []
+                for t in tokens:
+                    out, cache = decode_step(cfg, q, cache,
+                                             torch.tensor(t, **i32))
+                    logits.append(out.cpu())
+                outs[d.type] = torch.stack(logits)
+                caches[d.type] = {k: v.cpu() for k, v in cache.items()}
+            err = float((outs["cuda"] - outs["cpu"]).abs().max())
+            f_err = float((fwd["cuda"] - fwd["cpu"]).abs().max())
+            check(err <= LOGIT_ATOL and f_err <= LOGIT_ATOL,
+                  f"reduced {cfg.name} ({compute}) card vs CPU: decode "
+                  f"logits {err}, forward {f_err} > {LOGIT_ATOL}")
+            card, host = caches["cuda"], caches["cpu"]
+            check(torch.equal(card["index"], host["index"]),
+                  f"reduced {cfg.name} ({compute}): index card vs CPU")
+            if cfg.family == "encdec":
+                rel = {k: float((card[k].float() - host[k].float()).abs()
+                                .max() / host[k].float().abs().max())
+                       for k in kv}
+                zero = all(not c[k].any() for c in (card, host)
+                           for k in ("cross_k", "cross_v"))
+                check(max(rel.values()) <= CACHE_SCALE_RTOL and zero,
+                      f"reduced {cfg.name} ({compute}): bf16 K/V card vs "
+                      f"CPU {rel} of their scale, cross caches zero {zero}")
+                reading = (", ".join(f"{k} within {v:.3g} of its scale"
+                                     for k, v in rel.items())
+                           + "; cross_k/cross_v all zero on both")
+            else:
+                steps = {k: int((card[k].int() - host[k].int()).abs().max())
+                         for k in kv}
+                rel = {k: float(((card[k] - host[k]).abs()
+                                 / host[k].abs().clamp_min(1e-30)).max())
+                       for k in ("k_scale", "v_scale")}
+                check(max(steps.values()) <= 1
+                      and max(rel.values()) <= CACHE_SCALE_RTOL,
+                      f"reduced {cfg.name} ({compute}): int8 caches card vs "
+                      f"CPU: steps {steps}, scale rel {rel}")
+                reading = (f"int8 steps {steps}, scales within "
+                           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+                           + " relative")
+            differ = {k: (int((card[k] != host[k]).sum()), host[k].numel())
+                      for k in host if k != "index"}
+            print(f"[families] reduced {cfg.name} ({compute}), forward + "
+                  f"{'prefill + ' if cfg.family == 'vlm' else ''}"
+                  f"{FAMILY_REFERENCE_STEPS} decode steps, card vs CPU: max "
+                  f"|dlogit| decode {err:.4g}, forward {f_err:.4g} "
+                  f"(tolerance {LOGIT_ATOL}); index bit for bit; {reading}; "
+                  "cache entries that differ (of all): "
+                  + ", ".join(f"{k} {n} of {m}"
+                              for k, (n, m) in differ.items()))
+
+
+@contextlib.contextmanager
+def labelled_head_decode():
+    """Run the SDV LM head's weight decode (``layers.mat`` of an
+    ``SDVLinear``: ``ref.sdv_unpack_words_ref`` and the dequant, plain
+    torch, every call) inside a profiler range named ``HEAD_DECODE``."""
+    import torch
+    from repro_torch.models import layers, quantized
+    orig = layers.mat
+
+    def mat(w, dtype):
+        if not quantized.is_sdv(w):
+            return orig(w, dtype)
+        with torch.profiler.record_function(HEAD_DECODE):
+            return orig(w, dtype)
+    layers.mat = mat
+    try:
+        yield
+    finally:
+        layers.mat = orig
+
+
+def family_serve(cfg, dev, card, compute):
+    """Full-width ``cfg`` from a seeded torch init packed by
+    ``serve_params(compute=compute, min_size=1024)`` (the bf16 tree freed
+    after packing), batch 8: llava's 16-token ``prefill_step`` of 8
+    prompts, seamless's 15 prompt tokens replayed through ``decode_step``
+    (encdec has no chunked prefill); 16 greedy decode steps; the serve
+    CLI's ``single_batch_loop``; each with exactly ``family_launches``'
+    kernels and no plain call; one decode step profiled (``step_split``:
+    B1 or B7, the bf16 GEMMs (``aten::mm``: the memory-mode projections
+    and the LM head product; attention runs ``aten::bmm``), the SDV LM
+    head's decode under ``HEAD_DECODE``); then one
+    ``forward(mode="last_logits")`` at
+    ``FAMILY_FORWARD``.  Returns the counts, walls, peak memory and the
+    split."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, prefill_step, serve_params)
+    from repro_torch.models.layers import mat
+    from repro_torch.models.quantized import count_packed
+
+    want = family_launches(cfg, compute)
+    vlm = cfg.family == "vlm"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    qparams = serve_params(params, bits=4, min_size=1024, compute=compute)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    c_pack = counts()
+    check(c_pack == expect(**want["pack"]),
+          f"{cfg.name} {compute} packing launches {c_pack}, want "
+          f"{want['pack']}")
+    check(count_packed(qparams) == want["packed"],
+          f"{cfg.name} {compute} count_packed {count_packed(qparams)}")
+    if compute == "memory":
+        packed = {(p.words.numel() // p.words.shape[-1],
+                   p.words.shape[-1] * (32 // p.bits))
+                  for _, p in packed_leaves(qparams)}
+        check(packed == set(family_pack_shapes(cfg)),
+              f"{cfg.name}: B6 packed {sorted(packed)}, but family_kernels "
+              f"checks {family_pack_shapes(cfg)}")
+    peak_build = torch.cuda.max_memory_allocated(dev) / 2**30
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    print(f"[families] {cfg.name} ({compute}): {cfg.family}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads ({cfg.n_kv} KV) of {cfg.hd}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}); "
+          f"seeded init + packing {t_build:.1f} s, launches {c_pack}, "
+          f"count_packed {count_packed(qparams)}; the packed tree holds "
+          f"{held:.2f} GiB, build peak {peak_build:.2f} GiB ({card})")
+
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                           dtype=torch.int32, device=dev)
+    n_prompt = torch.full((BATCH,), PROMPT - 1, dtype=torch.int32,
+                          device=dev)
+
+    def fill(cache):
+        """The first PROMPT - 1 prompt tokens into a fresh cache."""
+        if vlm:
+            return prefill_step(cfg, qparams, cache, prompts, n_prompt)
+        for i in range(PROMPT - 1):
+            _, cache = decode_step(cfg, qparams, cache, prompts[:, i:i + 1])
+        return cache
+
+    cache = fill(init_cache(cfg, BATCH, PROMPT + NEW, device=dev))
+    decode_step(cfg, qparams, cache, prompts[:, -1:])          # warm-up
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = fill(init_cache(cfg, BATCH, PROMPT + NEW, device=dev))
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    c_prefill = counts()
+    want_fill = want["prefill"] if vlm else {
+        k: (PROMPT - 1) * v for k, v in want["step"].items()}
+    check(c_prefill == expect(**want_fill),
+          f"{cfg.name} {compute} prompt launches {c_prefill}, want "
+          f"{want_fill}")
+    reset_counts()
+    tok = prompts[:, -1:]
+    gen = []
+    t0 = time.perf_counter()
+    for _ in range(NEW):
+        logits, cache = decode_step(cfg, qparams, cache, tok)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    c_decode = counts()
+    check(c_decode == expect(**{k: NEW * v for k, v in want["step"].items()}),
+          f"{cfg.name} {compute} decode launches {c_decode}, want {NEW} x "
+          f"{want['step']}")
+    check(tuple(logits.shape) == (BATCH, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} {compute} decode logits")
+    check(cache["index"].tolist() == [PROMPT - 1 + NEW] * BATCH,
+          cache["index"].tolist())
+    if not vlm:
+        check(not cache["cross_k"].any() and not cache["cross_v"].any(),
+              f"{cfg.name}: the cross cache was written")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = t_decode / NEW * 1e3
+    how = f"prefill {BATCH}x{PROMPT}" if vlm else \
+        f"{PROMPT - 1} prompt tokens replayed by decode_step"
+    print(f"[families] {cfg.name} {compute} {how}: "
+          f"{t_prefill * 1e3:.1f} ms ({BATCH * (PROMPT - 1) / t_prefill:.1f} "
+          f"tok/s), launches {c_prefill} ({card})")
+    print(f"[families] {cfg.name} {compute} decode {NEW} steps at batch "
+          f"{BATCH}: {step_ms:.1f} ms/step, {BATCH * NEW / t_decode:.1f} "
+          f"tok/s, launches {c_decode}, peak memory {peak:.2f} GiB, sample "
+          f"{torch.cat(gen, 1)[0].tolist()[:8]} ({card})")
+    state = {"cache": {k: v.clone() for k, v in cache.items()}}
+
+    def step():
+        _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
+    with labelled_head_decode():
+        split = step_split(
+            "families", f"{cfg.name} {compute} decode step at batch "
+            f"{BATCH}", step, step_ms, card,
+            {"B1": "sdv_gemv_kernel", "B7": "unpack_dequant_kernel"},
+            {"bf16 GEMMs": lambda e: e.key == "aten::mm",
+             "SDV LM head decode": lambda e: e.key == HEAD_DECODE})
+    head_ms = None
+    if compute == "sdv":
+        head_ms = event_ms(lambda: mat(qparams["lm_head"], torch.bfloat16), 3)
+        print(f"[families] {cfg.name} SDV LM head's plain-torch decode "
+              f"(layers.mat of the [{cfg.d_model}, {cfg.vocab_padded}] "
+              f"head, CUDA events): {head_ms:.3f} ms a call ({card})")
+    del state, cache
+
+    reset_counts()
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    toks, dt = single_batch_loop(cfg, qparams, cache, prompts, NEW)
+    c_loop = counts()
+    steps = PROMPT + NEW - 1
+    check(c_loop == expect(**{k: steps * v for k, v in want["step"].items()}),
+          f"{cfg.name} {compute} single_batch_loop launches {c_loop}")
+    check(toks.shape == (BATCH, NEW) and (toks >= 0).all()
+          and (toks < cfg.vocab).all(), toks.shape)
+    print(f"[families] {cfg.name} {compute} single_batch_loop: "
+          f"{dt / steps * 1e3:.1f} ms/step, {BATCH * steps / dt:.1f} tok/s "
+          f"({steps} steps), launches {c_loop} ({card})")
+    del cache
+
+    b, s_in, s_tgt = FAMILY_FORWARD[cfg.name]
+    frames = torch.randn((b, s_in, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    batch = {"tokens": prompts[:b].repeat(1, -(-s_tgt // PROMPT))[:, :s_tgt],
+             ("patches" if vlm else "src"): frames}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last = forward(cfg, qparams, batch, mode="last_logits")
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    c_fwd = counts()
+    check(c_fwd == expect(**want["forward"]),
+          f"{cfg.name} {compute} forward launches {c_fwd}, want "
+          f"{want['forward']}")
+    check(tuple(last.shape) == (b, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(last).all()),
+          f"{cfg.name} {compute} forward logits {tuple(last.shape)}")
+    rows = b * (s_in + s_tgt if vlm else s_tgt)
+    print(f"[families] {cfg.name} {compute} forward(mode=\"last_logits\") "
+          f"at batch {b}, {s_in} {'patches' if vlm else 'source frames'} + "
+          f"{s_tgt} tokens ({rows} decoder rows): {t_fwd * 1e3:.1f} ms "
+          f"(first call at these shapes), launches {c_fwd}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+          f"({card})")
+    del qparams, last, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"pack": c_pack, "prefill": c_prefill, "decode": c_decode,
+            "loop": c_loop, "forward": c_fwd, "step_ms": step_ms,
+            "peak_gib": peak, "split": split, "head_ms": head_ms,
+            "forward_ms": t_fwd * 1e3}
+
+
+def phase_families(dev, card, flush):
+    """Phase 14: the encdec and vlm families.  Frees what earlier phases
+    left on the card, then runs ``family_kernels`` at full-width
+    seamless-m4t-large-v2's and llava-next-mistral-7b's shapes,
+    ``family_card_vs_cpu`` and ``family_serve`` of each in SDV and memory
+    modes."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    kern = family_kernels(dev, flush, card)
+    family_card_vs_cpu(dev)
+    runs = {(arch, compute): family_serve(get_arch(arch), dev, card, compute)
+            for arch in FAMILY_ARCHS for compute in ("sdv", "memory")}
+    print(f"[families] phase {time.perf_counter() - t_phase:.1f} s")
     return {"kernels": kern, "runs": runs}
 
 
@@ -3093,6 +3589,7 @@ def main() -> int:
         spec = phase_spec(dev, card)
         train = phase_train(dev, flush)
         moe = phase_moe(dev, card, flush)
+        fam = phase_families(dev, card, flush)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3108,7 +3605,9 @@ def main() -> int:
                       "tinyllama QAT export decode":
                           train["launches"]["B1 export decode"],
                       "phi3.5-moe SDV decode":
-                          moe["runs"]["sdv"]["decode"]["B1"]},
+                          moe["runs"]["sdv"]["decode"]["B1"],
+                      **{f"{a} SDV decode": fam["runs"][a, "sdv"]["decode"]
+                         ["B1"] for a in FAMILY_ARCHS}},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"],
                       "tinyllama spec engine": spec["B2"],
@@ -3117,7 +3616,11 @@ def main() -> int:
                       "tinyllama QAT export eval":
                           train["launches"]["B2 export eval"],
                       "phi3.5-moe SDV prefill":
-                          moe["runs"]["sdv"]["prefill"]["B2"]}}
+                          moe["runs"]["sdv"]["prefill"]["B2"],
+                      f"{FAMILY_ARCHS[1]} SDV prefill":
+                          fam["runs"][FAMILY_ARCHS[1], "sdv"]["prefill"]["B2"],
+                      **{f"{a} SDV forward": fam["runs"][a, "sdv"]["forward"]
+                         ["B2"] for a in FAMILY_ARCHS}}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -3162,6 +3665,18 @@ def main() -> int:
         kernels[i]["per"] += (f"; moe_attn_*: one {MOE_ARCH} layer's 4 "
                               f"attention projections (K, M in 4096, 1024) "
                               "on the int32 W4A8 plan")
+        for arch, short in zip(FAMILY_ARCHS, ("seamless", "llava")):
+            acc = fam["kernels"][arch, kname]
+            kernels[i].update({f"{short}_layer_{key}": acc[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            kernels[i]["max_abs_err"] = max(kernels[i]["max_abs_err"],
+                                            acc["max_abs_err"])
+        kernels[i]["per"] += ("; seamless_layer_*: one seamless-m4t-large-v2 "
+                              "decoder layer's 9 decode projections (1024 -> "
+                              "1024 x6, 1024 -> 8192 x2, 8192 -> 1024); "
+                              "llava_layer_*: one llava-next-mistral-7b "
+                              "layer's 7 (4096 -> 4096 x2, 4096 -> 1024 x2, "
+                              "4096 -> 14336 x2, 14336 -> 4096), int32 W4A8")
     b3_paths = {f"ultranet {name}": c["B3"] for name, c in ultra.items()}
     b3_paths["ste_conv2d QAT layer step"] = train["launches"]["B3 conv"]
     kernels.append({
@@ -3212,7 +3727,9 @@ def main() -> int:
                 "phi3.5-moe SDV layer-wise build":
                     moe["runs"]["sdv"]["pack"]["B6"],
                 "phi3.5-moe memory layer-wise build":
-                    moe["runs"]["memory"]["pack"]["B6"]},
+                    moe["runs"]["memory"]["pack"]["B6"],
+                **{f"{a} memory serve_params": fam["runs"][a, "memory"]
+                   ["pack"]["B6"] for a in FAMILY_ARCHS}},
                ("one tinyllama serve_params(compute=\"memory\"): 7 stacked "
                 "W4 leaves of 22 layers + the LM head; no single PyTorch "
                 "call packs bit fields: no library time")),
@@ -3223,7 +3740,10 @@ def main() -> int:
                 "tinyllama memory engine": eng["B7"],
                 **{f"phi3.5-moe {c} {path}": moe["runs"][c][path]["B7"]
                    for c in ("sdv", "memory")
-                   for path in ("prefill", "decode")}},
+                   for path in ("prefill", "decode")},
+                **{f"{a} memory {path}": fam["runs"][a, "memory"][path]["B7"]
+                   for a in FAMILY_ARCHS
+                   for path in ("prefill", "decode", "forward")}},
                ("one tinyllama memory decode step: 154 W4 projections + the "
                 "LM head, unpacked and dequantized to bf16 in one pass "
                 "(unpack_dequant_kernel); before_ms: the route it replaced "
@@ -3253,6 +3773,18 @@ def main() -> int:
             entry.update(prefill_ms=acc["prefill_ms"],
                          prefill_bound_ms=acc["prefill_bound_ms"],
                          prefill_library_ms=acc["prefill_library_ms"])
+        if kname in ("B6", "B7"):
+            for case, r in fam["kernels"][kname].items():
+                key = case.lower().replace(" ", "_")
+                entry.update({f"{key}_{k}": r[k] for k in (
+                    "ms", "plain_ms", "bound_ms")})
+            entry["per"] += (
+                "; seamless_* / llava_*: seamless-m4t-large-v2's and "
+                "llava-next-mistral-7b's " + (
+                    "LM heads and stacked leaves (stack_RxC: L layers' "
+                    "[K, C] kernels as [L * K, C]), W4"
+                    if kname == "B6" else
+                    "LM heads and decode projections (KxM), W4, bf16"))
         if kname == "B7":
             bank = moe["kernels"]["B7"]
             entry.update({f"moe_{key}": bank[key] for key in (

@@ -28,6 +28,12 @@ bf16 tree (84 GB for phi3.5-moe) would not fit the card, its packed one
 does.  In both compute modes its expert banks are memory-packed and
 unpacked by kernel B7 at every step.  It runs through the single-batch
 loop (the engine packs float weights per bucket).
+The encoder-decoder arch (``--arch seamless-m4t-large-v2``) replays its
+prompts one token per ``decode_step`` (no chunked prefill), with its
+decoder's bf16 self-attention cache and the cross cache the JAX package
+leaves at zero; the vision-language arch (``--arch
+llava-next-mistral-7b``) serves text only, as the dense archs, its patch
+projection left in bf16.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --no-smoke --engine on --batch 8 --requests 32
@@ -41,6 +47,12 @@ loop (the engine packs float weights per bucket).
       --no-smoke --batch 8 --prompt-len 16 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe \\
       --no-smoke --packed-compute memory
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2 --no-smoke --batch 8 --prompt-len 16 \\
+      --new-tokens 16 [--packed-compute memory]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llava-next-mistral-7b --no-smoke --batch 8 --prompt-len 16 \\
+      --new-tokens 16 [--packed-compute memory]
 """
 from __future__ import annotations
 
@@ -84,6 +96,10 @@ def cache_note(cache) -> str:
     """What ``init_cache`` built, for the banner."""
     if "k_scale" in cache:
         return "int8 KV cache"
+    if "cross_k" in cache:
+        return (f"{str(cache['k'].dtype).removeprefix('torch.')} "
+                f"self-attention KV cache and cross cache of "
+                f"{cache['k'].shape[2]} entries")
     if "k" in cache:
         return (f"{str(cache['k'].dtype).removeprefix('torch.')} KV ring "
                 f"cache of {cache['k'].shape[2]} entries")

@@ -1,14 +1,16 @@
 """Layer library of the decoders — torch port of the dense and MoE parts
 of ``repro.models.layers``: RMSNorm, projections, rotary embedding,
-decode and chunked-prefill attention against an int8 KV cache, gated
-MLP, the mixture-of-experts FFN (token-choice top-k routing with the
-reference's capacity drop); the
+decode and chunked-prefill attention against an int8 KV cache (and
+decode against the bf16 self-attention cache of the encoder-decoder
+family), gated MLP, the mixture-of-experts FFN (token-choice top-k
+routing with the reference's capacity drop); the
 sliding-window decode attention of the hybrid (Griffin) family against
 a bf16 ring buffer (the JAX package's ``transformer._decode_attn_ring``);
-and the full-sequence self-attention of ``transformer.forward``
-(``attention_apply``: the chunked online softmax of the JAX package's
-``_stream_attend`` / ``_stream_attend_diff``, differentiable by
-autograd).
+the encoder-decoder's decode-time cross attention against its cross
+cache; and the full-sequence self- and cross-attention of
+``transformer.forward`` (``attention_apply``: the chunked online softmax
+of the JAX package's ``_stream_attend`` / ``_stream_attend_diff``,
+differentiable by autograd).
 
 Layouts and dtypes follow the JAX package: activations [B, S, d] in the
 model dtype, int8 KV caches [B, S_max, KV, hd] with per-(position, head)
@@ -170,10 +172,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
+    """``window``: the sliding window of ``attention_apply`` (None: the
+    whole causal past; the decode and prefill attentions take none, as
+    the JAX package's decode configs set none).  Self attention always
+    rotates queries and keys; cross attention never calls ``_qkv``, so
+    it takes no RoPE."""
     n_heads: int
     n_kv: int
     head_dim: int
     rope_theta: float = 10000.0
+    window: Optional[int] = None
 
 
 def _stream_step(qf, kch, vch, carry, *, qpos, kpos, sk: int,
@@ -265,18 +273,27 @@ def _stream_attend_diff(q, k, v, *, q_start: int, causal: bool,
 
 
 def attention_apply(params, cfg: AttnConfig, x, *, positions,
-                    chunk: int = 1024, differentiable: bool = True,
-                    window: Optional[int] = None):
-    """Full-sequence causal self-attention with RoPE (the JAX package's
-    ``attention_apply`` as ``forward`` calls it: ``kv=None``, causal,
-    queries from position 0).  x [B, S, d]; positions [B, S]; returns
-    ([B, S, d], (k, v))."""
+                    kv: Optional[tuple] = None, causal: bool = True,
+                    chunk: int = 1024, differentiable: bool = True):
+    """Full-sequence self- (``kv=None``) or cross-attention
+    (``kv=(k_in, v_in)``, activations [B, Sk, d] that ``wk``/``wv``
+    project, without RoPE), queries from position 0, within
+    ``cfg.window``.  x [B, S, d]; positions [B, S]; returns ([B, S, d],
+    (k, v)).  The chunk is taken from the query length, as in the JAX
+    package."""
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q, k, v = _qkv(params, cfg, x, positions)
+    if kv is None:
+        q, k, v = _qkv(params, cfg, x, positions)
+    else:
+        q = dense_apply(params["wq"], x).reshape(b, s, h, hd)
+        k_in, v_in = kv
+        k = dense_apply(params["wk"], k_in).reshape(b, k_in.shape[1], g, hd)
+        v = dense_apply(params["wv"], v_in).reshape(b, v_in.shape[1], g, hd)
     attend = _stream_attend_diff if differentiable else _stream_attend
     out = attend(q.reshape(b, s, g, h // g, hd), k, v, q_start=0,
-                 causal=True, window=window, chunk=min(chunk, max(s, 16)))
+                 causal=causal, window=cfg.window,
+                 chunk=min(chunk, max(s, 16)))
     return dense_apply(params["wo"], out.reshape(b, s, h * hd)), (k, v)
 
 
@@ -325,16 +342,24 @@ def _qkv(params, cfg: AttnConfig, x, pos):
 
 
 def _write_kv(cache, k, v, rows, src, dest):
-    """Quantize k/v [B, S, G, hd] and write the selected entries: cache
-    position ``dest[j]`` of row ``rows[j]`` takes entry ``src[j]``.
+    """Write the selected entries of k/v [B, S, G, hd] into the cache:
+    cache position ``dest[j]`` of row ``rows[j]`` takes entry ``src[j]``.
+    Returns the whole K and V as float32.
 
-    Without scales (``k_scale is None``) k/v are cast to int8 as XLA
-    casts (truncated toward zero, saturating) and read back unscaled, as
-    the JAX package's attention does when it is called without
+    A float cache (the encoder-decoder's bf16 self-attention cache) takes
+    k/v cast to its dtype.  An int8 cache with scales takes them
+    quantized per (position, head).  An int8 cache without scales
+    (``k_scale is None``) takes them cast to int8 as XLA casts
+    (truncated toward zero, saturating) and is read back unscaled, as the
+    JAX package's attention does when it is called without
     ``cache_k_scale``: the moe family's ``moe_every > 1`` layers call it
     so, and the scales stay zero (ROADMAP Queue C, reference property
     (e))."""
     cache_k, cache_v, k_scale, v_scale = cache
+    if cache_k.dtype != torch.int8:
+        for c, t in ((cache_k, k), (cache_v, v)):
+            c[rows, dest] = t[rows, src].to(c.dtype)
+        return cache_k.to(torch.float32), cache_v.to(torch.float32)
     if k_scale is None:
         for c, t in ((cache_k, k), (cache_v, v)):
             c[rows, dest] = torch.clamp(t[rows, src].to(torch.float32),
@@ -351,20 +376,24 @@ def _write_kv(cache, k, v, rows, src, dest):
 
 
 def _attend(q, kc_f, vc_f, valid, scores_eq: str, out_eq: str, hd: int):
+    """Softmax attention in float32; ``valid`` masks the scores (None:
+    every key)."""
     s = quantizer.div(torch.einsum(scores_eq, q.to(torch.float32), kc_f),
                       math.sqrt(hd))
-    s = torch.where(valid, s, -1e30)
+    if valid is not None:
+        s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum(out_eq, p, vc_f)
 
 
 def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
                      writes):
-    """Single-token decode against an int8 KV cache.
+    """Single-token decode against a KV cache.
 
     x [B, 1, d]; ``cache`` = (k, v, k_scale, v_scale) of one layer,
-    [B, S_max, KV, hd] / [B, S_max, KV] (scales None: written and read
-    unscaled, ``_write_kv``); cache_index [B] int32: each
+    [B, S_max, KV, hd] / [B, S_max, KV]: int8 with scales, int8 without
+    (None: written and read unscaled) or bf16 (scales None; written in
+    its dtype, read as float32), ``_write_kv``; cache_index [B] int32: each
     slot's count of valid entries (the new token goes to that slot's
     position); ``writes`` = ``decode_writes(...)``: the rows that write.
     Returns y [B, 1, d]; the cache is updated in place.
@@ -381,6 +410,21 @@ def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     out = _attend(q.reshape(b, g, r, hd), kc_f, vc_f,
                   valid[:, None, None, :], "bgrd,bkgd->bgrk",
                   "bgrk,bkgd->bgrd", hd)
+    return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+
+
+def cross_decode_attention(params, cfg: AttnConfig, x, *, cross_k,
+                           cross_v):
+    """The encoder-decoder's decode-time cross attention, as the JAX
+    package's ``decode_step`` computes it: the query ``wq(x)`` against
+    the cross cache's K/V [B, S, KV, hd] as they are (no ``wk``/``wv``,
+    no RoPE, no position mask).  x [B, 1, d]; returns ``wo`` of the
+    attended values, [B, 1, d]."""
+    b = x.shape[0]
+    h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = dense_apply(params["wq"], x).reshape(b, g, h // g, hd)
+    out = _attend(q, cross_k.to(torch.float32), cross_v.to(torch.float32),
+                  None, "bgrd,bkgd->bgrk", "bgrk,bkgd->bgrd", hd)
     return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
 
 

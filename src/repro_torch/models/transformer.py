@@ -1,6 +1,6 @@
-"""The decoders — torch port of the dense, moe, ssm and hybrid families
-of ``repro.models.transformer``: seeded init, the decode caches with
-per-slot positions, ``decode_step`` and (dense and moe) chunked
+"""The models — torch port of ``repro.models.transformer``, every family
+of the JAX package: seeded init, the decode caches with per-slot
+positions, ``decode_step``, and (dense, moe and vlm) chunked
 ``prefill_step``.
 
   * dense (tinyllama): int8 KV cache, ``decode_step`` with the
@@ -10,6 +10,17 @@ per-slot positions, ``decode_step`` and (dense and moe) chunked
     me > 1`` the layers come in groups of ``me``, member 0 with the MoE
     FFN (``blocks``), member j >= 1 a dense block (``blocks_dense{j}``),
     and layer ``g*me + j`` of the int8 cache is member j of group g;
+  * vlm (llava-next): the dense decoder with ``proj_patches``, which
+    ``forward`` applies to the patch embeddings it puts ahead of the
+    text; serving is text only (the patches enter only ``forward``, as
+    in the JAX package: ROADMAP Queue C, reference property (h));
+  * encdec (seamless-m4t): an encoder stack (``enc_blocks``, no causal
+    mask) and a decoder stack (``dec_blocks``) whose blocks add a cross
+    attention over the encoder output.  The decode cache holds the
+    decoder's self-attention K/V in bf16 and a cross cache that no entry
+    point writes: ``decode_step`` attends to it as it is, zeros after
+    ``init_cache`` (reference property (g)).  Prompts replay one token
+    per ``decode_step``;
   * ssm (Mamba2): a stack of SSD blocks; the cache holds each layer's
     short-conv history (bf16) and SSM state (float32);
   * hybrid (Griffin / RecurrentGemma): groups of (RG-LRU, RG-LRU,
@@ -18,26 +29,28 @@ per-slot positions, ``decode_step`` and (dense and moe) chunked
     per attention layer and each recurrent layer's conv history (bf16)
     and RNN state (float32).
 
-The recurrent families replay prompts one token per ``decode_step``, as
-in the JAX package: ``prefill_step`` and the ``advance`` mask raise for
-them.  The serving engine's slot helpers: ``reset_slot`` clears one
-batch slot of any family's cache, ``prefill_slot`` prefills one slot of
-a dense or moe cache.  Speculative decoding's entry points (dense and
-moe): ``verify_step`` / ``verify_slot`` score a chunk of tokens with the
+The recurrent families and encdec replay prompts one token per
+``decode_step``, as in the JAX package: ``prefill_step`` and the
+``advance`` mask raise for them.  The serving engine's slot helpers:
+``reset_slot`` clears one batch slot of any family's cache,
+``prefill_slot`` prefills one slot of a dense, moe or vlm cache.
+Speculative decoding's entry points (dense, moe and vlm):
+``verify_step`` / ``verify_slot`` score a chunk of tokens with the
 logits of every column, bit for bit those of sequential
 ``decode_step``s on the dense family, and ``rollback_slot`` rewinds one
 slot's position (on the moe family a token's expert capacity counts the
 whole call's tokens, so columns and slots are not independent there:
-ROADMAP Queue C, property (f)).  ``forward`` (dense and moe) is the
-full-sequence forward of training, with the streaming attention of
-``layers.attention_apply``, differentiable by autograd.
+ROADMAP Queue C, property (f)).  ``forward`` (dense, moe, vlm and
+encdec) is the full-sequence forward of training, with the streaming
+attention of ``layers.attention_apply``, differentiable by autograd.
+Not ported yet: the full-sequence ``forward`` of the ssm and hybrid
+families.
 
 Parameters are a plain dict tree with the JAX package's keys and the
 stacked layer axis first; the JAX package's ``lax.scan`` over layers
 is a Python loop over that axis here (and ``forward`` does not
 rematerialize: the JAX package's ``remat`` only trades memory).  The
-cache is updated in place.  Not ported yet: the encdec and vlm
-families.
+cache is updated in place.
 
 ``init_top_params`` and ``init_group_params`` draw a decoder's tree in
 parts (the leaves outside the layer stacks, then one layer group at a
@@ -60,9 +73,10 @@ from . import ssm as S
 from .quantized import BSEGConv, PackedLinear, SDVLinear
 
 
-def _attn_cfg(cfg: ArchConfig) -> L.AttnConfig:
+def _attn_cfg(cfg: ArchConfig, *, window=None) -> L.AttnConfig:
     return L.AttnConfig(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                        head_dim=cfg.hd, rope_theta=cfg.rope_theta)
+                        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+                        window=window)
 
 
 def _moe_cfg(cfg: ArchConfig) -> L.MoEConfig:
@@ -82,9 +96,10 @@ def _rg_cfg(cfg: ArchConfig) -> R.RGLRUConfig:
 
 
 #: the families each entry point runs
-_DECODE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-#: the families with an int8 KV cache, chunked prefill and ``forward``
-_KV_FAMILIES = ("dense", "moe")
+_DECODE_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
+#: the decoder-only families with an int8 KV cache, chunked prefill and
+#: speculative verification
+_KV_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _require_family(cfg: ArchConfig, what: str):
@@ -117,6 +132,9 @@ def _init(seed: int, device):
 
 
 def _top_params(cfg: ArchConfig, ini: L.Init) -> Dict[str, Any]:
+    """The leaves outside the layer stacks: the embedding, ``ln_f``, the
+    untied LM head and, for a vision frontend, ``proj_patches`` (the
+    patch-embedding projection ahead of the text)."""
     d = cfg.d_model
     p: Dict[str, Any] = {
         "embed": ini.normal((cfg.vocab_padded, d), std=0.02),
@@ -124,6 +142,8 @@ def _top_params(cfg: ArchConfig, ini: L.Init) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = ini.normal((d, cfg.vocab_padded), std=0.02)
+    if cfg.frontend == "vision":
+        p["proj_patches"] = L.dense_init(ini, d, d)
     return p
 
 
@@ -131,7 +151,11 @@ def _moe_every(cfg: ArchConfig) -> int:
     return cfg.moe_every if cfg.family == "moe" else 1
 
 
-def _decoder_block_init(ini: L.Init, cfg: ArchConfig):
+def _decoder_block_init(ini: L.Init, cfg: ArchConfig, *,
+                        cross: bool = False):
+    """A block: self attention and the FFN (the MoE FFN on the moe
+    family), and with ``cross`` the encoder-decoder's cross attention
+    (``ln_cross``, ``cross``)."""
     d = cfg.d_model
     p = {"ln_attn": L.rmsnorm_init(ini, d),
          "attn": L.attention_init(ini, _attn_cfg(cfg), d,
@@ -141,11 +165,15 @@ def _decoder_block_init(ini: L.Init, cfg: ArchConfig):
         p["moe"] = L.moe_init(ini, _moe_cfg(cfg))
     else:
         p["mlp"] = L.mlp_init(ini, d, cfg.d_ff)
+    if cross:
+        p["ln_cross"] = L.rmsnorm_init(ini, d)
+        p["cross"] = L.attention_init(ini, _attn_cfg(cfg), d,
+                                      qkv_bias=cfg.qkv_bias)
     return p
 
 
 def _decoder_stacks(cfg: ArchConfig, ini: L.Init, n: int):
-    """The stacked blocks of the dense and moe families, ``n`` layers
+    """The stacked blocks of the dense, moe and vlm families, ``n`` layers
     (layer groups under ``moe_every > 1``) on the leading axis:
     ``blocks``, and under ``moe_every > 1`` the dense members
     ``blocks_dense{j}`` drawn from a dense config, as in the JAX
@@ -177,6 +205,12 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         sini = ini.stacked(cfg.n_layers)
         p["blocks"] = {"ln": L.rmsnorm_init(sini, d),
                        "ssm": S.ssm_init(sini, _ssm_cfg(cfg))}
+    elif cfg.family == "encdec":
+        p["enc_blocks"] = _decoder_block_init(ini.stacked(cfg.n_enc_layers),
+                                              cfg)
+        p["dec_blocks"] = _decoder_block_init(ini.stacked(cfg.n_dec_layers),
+                                              cfg, cross=True)
+        p["ln_enc"] = L.rmsnorm_init(ini, d)
     else:                                       # hybrid
         n_groups = cfg.n_layers // 3
         n_tail = cfg.n_layers - 3 * n_groups    # trailing rec layers
@@ -196,7 +230,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
 
 
 def n_groups(cfg: ArchConfig) -> int:
-    """The length of a dense or moe tree's layer stacks: the layers, or
+    """The length of a dense, moe or vlm tree's layer stacks: the layers, or
     the groups of ``moe_every`` layers."""
     return cfg.n_layers // _moe_every(cfg)
 
@@ -204,8 +238,8 @@ def n_groups(cfg: ArchConfig) -> int:
 def init_top_params(cfg: ArchConfig, seed: int = 0,
                     device="cuda") -> Dict[str, Any]:
     """The leaves of ``init_params(cfg, seed)`` outside the layer stacks
-    (``embed``, ``ln_f``, ``lm_head``), the same numbers: they are drawn
-    first."""
+    (``embed``, ``ln_f``, ``lm_head``, ``proj_patches``), the same
+    numbers: they are drawn first."""
     _require_family(cfg, "init_top_params")
     gen, dev = _init(seed, device)
     return _top_params(cfg, L.Init(gen, dev, cfg.dtype))
@@ -213,7 +247,7 @@ def init_top_params(cfg: ArchConfig, seed: int = 0,
 
 def init_group_params(cfg: ArchConfig, group: int, seed: int = 0,
                       device="cuda") -> Dict[str, Any]:
-    """The stacked block containers of a dense or moe tree (``blocks``,
+    """The stacked block containers of a decoder-only tree (``blocks``,
     ``blocks_dense{j}``) for layer group ``group`` alone, with a leading
     layer axis of 1, drawn from a generator of their own seeded with
     (``seed``, ``group``).  ``init_top_params`` and these groups,
@@ -283,31 +317,81 @@ def _finish(cfg: ArchConfig, params, x, mode: str):
     raise ValueError(f"unknown forward mode {mode!r}")
 
 
+def _block_apply(cfg: ArchConfig, bp, x, positions, *, diff: bool,
+                 window=None, causal: bool = True, cross_kv=None):
+    """One block of the full-sequence forward: self attention (within
+    ``window``, ``causal`` or not), with ``cross_kv`` the cross attention
+    over it, then the FFN; each a residual."""
+    h, _ = L.attention_apply(
+        bp["attn"], _attn_cfg(cfg, window=window),
+        L.rmsnorm_apply(bp["ln_attn"], x), positions=positions,
+        causal=causal, chunk=cfg.attn_chunk, differentiable=diff)
+    x = x + h
+    if cross_kv is not None:
+        h, _ = L.attention_apply(
+            bp["cross"], _attn_cfg(cfg),
+            L.rmsnorm_apply(bp["ln_cross"], x), positions=positions,
+            kv=cross_kv, causal=False, chunk=cfg.attn_chunk,
+            differentiable=diff)
+        x = x + h
+    return _mlp_residual(cfg, bp, x)
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
             diff: bool = True, mode: str = "logits"):
-    """Full-sequence forward of the dense and moe families.  batch:
-    {"tokens": [B, S]}.  mode: "logits" (full [B, S, V] float32), "hidden" (the
+    """Full-sequence forward of the dense, moe, vlm and encdec families.
+    batch: {"tokens": [B, S]}; vlm: {"tokens": [B, S - n_patches],
+    "patches": [B, n_patches, d]}, the projected patches ahead of the
+    text; encdec: {"src": [B, S_src, d] frame embeddings, "tokens":
+    [B, S_tgt]}.  mode: "logits" (full [B, S, V] float32), "hidden" (the
     post-``ln_f`` states, for a chunked loss) or "last_logits" (only the
     next-token logits).  Attention is ``layers.attention_apply`` over
     positions 0..S-1 (causal, chunked at ``cfg.attn_chunk``); ``diff``
     picks its differentiable variant (bf16 operands, float32
-    accumulation), else float32 operands.  A dense block attends within
-    ``cfg.window``; a MoE block without one, as in the JAX package."""
+    accumulation), else float32 operands.  A dense block (the moe
+    family's dense members too) attends within ``cfg.window``, the other
+    blocks without one, as in the JAX package.  The encoder attends
+    without a causal mask; each decoder block of encdec attends across
+    to the normed encoder output."""
+    if cfg.family == "encdec":
+        return _forward_encdec(cfg, params, batch, diff=diff, mode=mode)
     if cfg.family not in _KV_FAMILIES:
         raise NotImplementedError(
             f"forward: family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(_KV_FAMILIES)}; ROADMAP, not-ported list)")
+            f"{', '.join(_KV_FAMILIES)}, encdec; ROADMAP, not-ported list)")
     x = _embed(cfg, params, batch["tokens"])
-    b, s, _ = x.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
-    acfg = _attn_cfg(cfg)
+    if cfg.family == "vlm":
+        patches = L.dense_apply(params["proj_patches"],
+                                batch["patches"].to(cfg.dtype))
+        x = torch.cat([patches, x], dim=1)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
     for _, bp, _ in _decoder_layers(cfg, params):
-        h, _ = L.attention_apply(
-            bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
-            positions=positions, chunk=cfg.attn_chunk, differentiable=diff,
-            window=None if "moe" in bp else cfg.window)
-        x = _mlp_residual(cfg, bp, x + h)
+        dense = cfg.family in ("dense", "moe") and "moe" not in bp
+        x = _block_apply(cfg, bp, x, positions, diff=diff,
+                         window=cfg.window if dense else None)
+    return _finish(cfg, params, x, mode)
+
+
+def _forward_encdec(cfg: ArchConfig, params, batch, *, diff: bool,
+                    mode: str):
+    """The encoder over ``src`` (cast to the model dtype, no causal
+    mask), ``ln_enc``, then the decoder over ``tokens`` attending across
+    to the encoder output."""
+    enc = batch["src"].to(cfg.dtype)
+    pos_src = _positions(enc.shape[0], enc.shape[1], enc.device)
+    for i in range(cfg.n_enc_layers):
+        enc = _block_apply(cfg, layer_params(params["enc_blocks"], i), enc,
+                           pos_src, diff=diff, causal=False)
+    enc = L.rmsnorm_apply(params["ln_enc"], enc)
+    x = _embed(cfg, params, batch["tokens"])
+    pos = _positions(x.shape[0], x.shape[1], x.device)
+    for i in range(cfg.n_dec_layers):
+        x = _block_apply(cfg, layer_params(params["dec_blocks"], i), x, pos,
+                         diff=diff, cross_kv=(enc, enc))
     return _finish(cfg, params, x, mode)
 
 
@@ -320,8 +404,14 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
     """The decode cache, stacked layer axis first, with per-slot
     positions ``index[B]``:
 
-      * dense and moe: int8 KV [L, B, S_max, KV, hd] with
+      * dense, moe and vlm: int8 KV [L, B, S_max, KV, hd] with
         per-(position, head) f32 scales [L, B, S_max, KV];
+      * encdec: the decoder's self-attention KV ``k``/``v`` [L_dec, B,
+        S_max, KV, hd] in the model dtype (bf16: the JAX package
+        quantizes only the decoder-only families' caches) and the cross
+        cache ``cross_k``/``cross_v`` of the same shape and dtype, zeros
+        that no entry point writes (ROADMAP Queue C, reference property
+        (g));
       * ssm: ``conv`` [L, B, d_conv-1, conv channels] in the model dtype,
         ``ssm`` [L, B, H, N, P] float32;
       * hybrid: a KV ring ``k``/``v`` [groups, B, min(window, S_max),
@@ -342,6 +432,10 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
         cache.update(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
                      k_scale=zeros(shape[:-1], torch.float32),
                      v_scale=zeros(shape[:-1], torch.float32))
+    elif cfg.family == "encdec":
+        shape = (cfg.n_dec_layers, b, s_max, cfg.n_kv, cfg.hd)
+        cache.update(k=zeros(shape), v=zeros(shape), cross_k=zeros(shape),
+                     cross_v=zeros(shape))
     elif cfg.family == "ssm":
         scfg = _ssm_cfg(cfg)
         cache["conv"] = zeros((cfg.n_layers, b, scfg.d_conv - 1,
@@ -407,7 +501,8 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     f32, cache).
 
     ``cache["index"]`` is the per-slot position vector [B] int32.
-    ``advance`` [B] int (optional, dense and moe, as in the JAX package):
+    ``advance`` [B] int (optional, dense, moe and vlm, as in the JAX
+    package):
     slots with 0 neither write KV nor move their index — their logits
     are discarded.  Omitted means every slot advances.  The cache's
     tensors are updated in place; the returned dict carries the new
@@ -425,6 +520,9 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     if cfg.family == "hybrid":
         x = _decode_hybrid(cfg, params, cache, x, index)
         return _unembed(cfg, params, x), dict(cache, index=index + 1)
+    if cfg.family == "encdec":
+        x = _decode_encdec(cfg, params, cache, x, index)
+        return _unembed(cfg, params, x), dict(cache, index=index + 1)
     if advance is None:
         bump, wmask = 1, None
     else:
@@ -441,6 +539,26 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
             writes=writes)
         x = _mlp_residual(cfg, bp, x + h)
     return _unembed(cfg, params, x), dict(cache, index=index + bump)
+
+
+def _decode_encdec(cfg: ArchConfig, params, cache, x, index):
+    """The decoder layers of one encoder-decoder decode step: self
+    attention on the bf16 cache (written in place), cross attention
+    against the cross cache as the JAX package reads it (no ``wk``/``wv``:
+    ``layers.cross_decode_attention``), then the MLP."""
+    acfg = _attn_cfg(cfg)
+    writes = L.decode_writes(index, None, cache["k"].shape[2])
+    for i in range(cfg.n_dec_layers):
+        bp = layer_params(params["dec_blocks"], i)
+        x = x + L.decode_attention(
+            bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
+            cache=_layer_cache(cache, i, scaled=False), cache_index=index,
+            writes=writes)
+        x = x + L.cross_decode_attention(
+            bp["cross"], acfg, L.rmsnorm_apply(bp["ln_cross"], x),
+            cross_k=cache["cross_k"][i], cross_v=cache["cross_v"][i])
+        x = _mlp_residual(cfg, bp, x)
+    return x
 
 
 def _decode_ssm(cfg: ArchConfig, params, cache, x):
@@ -523,11 +641,11 @@ def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     """Chunked teacher-forcing core: returns (final hidden states
     [B, C, d], cache).  ``prefill_step`` drops the hidden states,
     ``verify_step`` unembeds them."""
-    if cfg.family not in ("dense", "moe", "vlm"):
-        # as in the JAX package: the recurrent families replay prompts
-        # one token per decode_step
+    if cfg.family not in _KV_FAMILIES:
+        # as in the JAX package: the recurrent families and encdec
+        # replay prompts one token per decode_step
         raise ValueError(f"prefill_step: unsupported family {cfg.family}")
-    _require_family(cfg, "prefill_step")       # vlm: not ported
+    _require_family(cfg, "prefill_step")
     index = cache["index"]
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=index.device)

@@ -9,7 +9,8 @@ Gradients come from ``torch.autograd`` over ``models.forward``
 (``train/qat/ste.py``'s autograd functions inside it under QAT); the JAX
 package's ``lax.scan`` over loss chunks and microbatches is a Python
 loop here, and its ``jax.jit`` of the step is not ported (the step runs
-op by op).  Only the dense family has a ported ``forward``.
+op by op).  The families with a ported ``forward`` train: dense, moe,
+vlm (the loss over the text positions only) and encdec.
 """
 from __future__ import annotations
 
@@ -33,6 +34,8 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     CE runs per chunk; memory is O(B * chunk * V))."""
     from ..models.transformer import unembed_hidden
     hidden = forward(cfg, params, batch, mode="hidden")
+    if cfg.family == "vlm":
+        hidden = hidden[:, cfg.n_patches:, :]     # text positions only
     hidden = hidden[:, :-1, :]
     targets = batch["tokens"][:, 1:].long()
     b, sm1, _ = hidden.shape
