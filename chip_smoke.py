@@ -157,8 +157,9 @@ exit at the first failure:
      128 in 2 microbatches) for 2 steps, saving its checkpoint, and step
      3 from memory: finite losses, every wrapped leaf on the planner's
      plan, 310 B2 a step and 155 an eval batch and nothing else, step
-     walls, peak memory and one profiled step split into B2, the cuBLAS
-     GEMMs, ``prepare_sdv_weights`` (CUDA events) and the rest; the
+     walls, peak memory and one profiled step split into B2,
+     ``prepare_sdv_weights`` (a profiler range) and the rest (``qat_run``,
+     which phase 15 runs too); the
      checkpoint restored bit for bit and step 3 run from it with the
      same loss; the step-3 parameters exported by ``export_for_serving``
      evaluate within 0.1 of the QAT eval (154 B2) and decode through
@@ -212,7 +213,28 @@ exit at the first failure:
      head's plain-torch decode (a profiler range; also timed by CUDA
      events) and the rest; then one ``forward(mode="last_logits")`` at
      batch 2 (seamless 512 frames + 512 tokens: 216 B2 / 217 B7; llava
-     1152 patches + 64 tokens: 224 B2 / 225 B7).
+     1152 patches + 64 tokens: 224 B2 / 225 B7);
+ 15. ssm — the ssm and hybrid families' full-sequence path (after the
+     earlier phases' memory is freed): reduced mamba2-130m and
+     recurrentgemma-2b ``forward`` at 2 x 64 tokens in float, SDV and
+     memory mode on the card against the CPU (logits within
+     ``LOGIT_ATOL``, ``loss_fn`` within ``SSM_LOSS_ATOL``), the chunked
+     SSD scan and the RG-LRU core at full width within ``SSM_SCAN_RTOL``
+     of the CPU and the associative scan bit for bit; full-size
+     mamba2-130m and full-width, full-depth recurrentgemma-2b, one
+     ``forward(mode="last_logits")`` each at batch 2 x 2048 tokens in SDV
+     (120 B2 + 24 B4 / 200 B2 + 18 B4) and memory mode (120 / 200 B7),
+     nothing else and no plain call, with ms, peak memory and a profiled
+     split (B2, B4, B7, the SSD scan, the RG-LRU scan, the rest); packed
+     QAT of full-size mamba2-130m (``run_qat`` with the launcher's
+     ``--qat`` defaults, a checkpoint at step 2, step 3 from memory and
+     from the restored checkpoint with the same loss, 240 B2 a step and
+     120 an eval batch, the export decoded on B1 + B4) and of
+     recurrentgemma-2b at full width cut to the depth whose reckoned peak
+     is under ``QAT_PEAK_LIMIT_GIB`` (2 steps, its B2 a step checked);
+     then the int64 oracles on the card bit for bit against the kernels:
+     ``core.sdv.sdv_matvec`` against B1 and B2, ``core.bseg.bseg_conv1d``
+     against B4, UltraNet ``mode="bseg_jnp"`` against ``mode="bseg"``.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -344,6 +366,34 @@ FAMILY_FORWARD = {"seamless-m4t-large-v2": (2, 512, 512),
 FAMILY_REFERENCE_STEPS = 8
 #: the profiler range around the SDV LM head's plain-torch weight decode
 HEAD_DECODE = "sdv_lm_head_decode"
+#: the ssm phase: full-size mamba2-130m and full-width recurrentgemma-2b,
+#: one forward each at SSM_FORWARD = (batch, tokens) in SDV and memory
+#: mode (mamba2: 8 SSD chunks of 256; recurrentgemma: its whole window of
+#: 2048); the reduced models card vs CPU within LOGIT_ATOL and their loss
+#: within SSM_LOSS_ATOL (the tests' LOSS_ATOL), the scans alone within
+#: SSM_SCAN_RTOL of the CPU, relative to the largest output (float32
+#: einsums and GEMMs sum in another order, exp and sigmoid round
+#: otherwise: 1.2e-5 observed on the SSD's final state after 4 chunks of
+#: 256, H100, 700 W); the SSD run with TF32 on (a 10-bit mantissa) must
+#: miss it; the
+#: profiler ranges of the SSD scan, the RG-LRU's associative scan and
+#: the STE weight packing
+SSM_ARCHS = ("mamba2-130m", "recurrentgemma-2b")
+SSM_FORWARD = (2, 2048)
+SSM_LOSS_ATOL = 5e-3
+SSM_SCAN_RTOL = 1e-4
+SSM_RANGES = ("ssd_chunked_scan", "rglru_associative_scan",
+              "prepare_sdv_weights")
+#: recurrentgemma-2b's QAT depth: the largest 3g + 2 layers whose peak,
+#: reckoned at the bytes a parameter the train phase measured (a 37.99
+#: GiB peak over tinyllama-1.1b's 1.100e9 parameters, H100, 700 W), is
+#: under QAT_PEAK_LIMIT_GIB of the card's 80 GB
+QAT_BYTES_PER_PARAM = 37.99 * 2**30 / 1.100048384e9
+QAT_PEAK_LIMIT_GIB = 70
+#: the oracles on the card: the SDV matvec at (M, K), the BSEG conv1d at
+#: (channels, samples, taps)
+ORACLE_SDV_SHAPE = (64, 96)
+ORACLE_CONV_SHAPE = (37, 64, 4)
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -2538,220 +2588,32 @@ def ste_card_checks(dev, plan):
     return c_conv["B3"]
 
 
-def time_prepare(cfg, plan):
-    """Device ms of ``ops.prepare_sdv_weights`` over one microbatch's 155
-    STE projections (every layer's 7 kernel shapes and the LM head), as
-    ``ste_dense`` calls it (on the transposed int32 weights); CUDA
-    events, median of 3."""
-    import torch
-    from repro_torch.kernels import ops
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    total = 0.0
-    for (k, m), mult in list(LAYER_SHAPES.items()) + [(LM_HEAD_SHAPE, 0)]:
-        qw = torch.randint(-7, 8, (k, m), generator=gen, device="cuda",
-                           dtype=torch.int32)
-        ms = event_ms(lambda: ops.prepare_sdv_weights(qw.T, plan), reps=3)
-        total += ms * (mult * cfg.n_layers if mult else 1)
-    return total
-
-
-def phase_train(dev, flush):
-    """Packed QAT of full-width tinyllama-1.1b: ``run_qat`` with the
-    launcher's ``--qat`` defaults for QAT_CKPT_STEP steps, saving its
-    checkpoint; the checkpoint restored bit for bit; step QAT_STEPS run
-    both from the state in memory and from the restored one (the same
-    loss); the export decoded on B1.  Returns the phase's kernel
-    numbers and launch counts."""
-    import math
-    import shutil
-    import statistics
-
-    import numpy as np
-    import torch
-    from repro_torch import tree
-    from repro_torch.launch.serve import single_batch_loop
-    from repro_torch.models import init_cache
-    from repro_torch.models.quantized import PLANNER_DECODE_ROWS
-    from repro_torch.planner import choose_plan, matmul_spec
-    from repro_torch.train import checkpoint, loop
-    from repro_torch.train.qat import (QATRunConfig, count_qat_layers,
-                                       evaluate, export_for_serving, is_qat,
-                                       run_qat)
-
+def phase_train(dev, card, flush):
+    """Packed QAT of full-width tinyllama-1.1b: B2 at the QAT shapes and
+    the STE layers on the card (``qat_b2_cases``, ``ste_card_checks``),
+    then ``qat_run`` with the launcher's ``--qat`` defaults: a checkpoint
+    at QAT_CKPT_STEP, step QAT_STEPS from memory and from the restored
+    checkpoint, the export evaluated and decoded on B1; every wrapped
+    leaf on the dsp48e2 n=3 plan ``qat_b2_cases`` times.  Returns the
+    phase's kernel numbers and launch counts."""
     t_phase = time.perf_counter()
     b2, plan = qat_b2_cases(flush)
     b3 = ste_card_checks(dev, plan)
     print(f"[train] kernel checks {time.perf_counter() - t_phase:.1f} s")
-
-    ckpt = ROOT / "build" / "qat_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    qcfg = QATRunConfig(arch="tinyllama-1.1b", smoke=False,
-                        steps=QAT_CKPT_STEP, global_batch=QAT_BATCH,
-                        seq=QAT_SEQ, microbatches=QAT_MICRO,
-                        plan_policy="auto", ckpt_dir=str(ckpt),
-                        eval_batches=1, device=str(dev))
-    snaps = []
-
-    def sync(_):
-        torch.cuda.synchronize(dev)
-        snaps.append(counts())
-
-    def log(msg):
-        print(f"[train] {msg}")
-
-    try:
-        # --- the main path: run_qat, then its step 3 from memory ---------
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        res = run_qat(qcfg, sync=sync, log=log)
-        wall_qat = time.perf_counter() - t0
-        c_run = counts()
-        cfg, ocfg, data = res["cfg"], res["ocfg"], res["data"]
-        losses = list(res["losses"])
-        step_ms = [t * 1e3 for t in res["step_times"]]
-
-        def on_step(s, p, o, m, dt, mon):
-            losses.append(float(m["loss"]))
-            step_ms.append(dt * 1e3)
-        params, _, _, _ = loop.run_training(
-            cfg, ocfg, res["params"], res["opt"], data, steps=QAT_STEPS,
-            start=QAT_CKPT_STEP, microbatches=QAT_MICRO, sync=sync,
-            on_step=on_step)
-        c_total = counts()
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        per_mb = 7 * cfg.n_layers + 1
-        check(len(losses) == QAT_STEPS
-              and all(math.isfinite(x) for x in losses), f"losses {losses}")
-        check(math.isfinite(res["qat_eval"]), res["qat_eval"])
-        zero = dict.fromkeys(c_total, 0)
-        c_eval = _sub_counts(c_run, snaps[QAT_CKPT_STEP - 1])
-        steps_c = [_sub_counts(b, a) for a, b in zip(
-            [zero] + snaps[:QAT_CKPT_STEP - 1] + [c_run], snaps)]
-        for i, c in enumerate(steps_c):
-            check(c == expect(B2=QAT_MICRO * per_mb),
-                  f"step {i + 1} launches {c}, want B2="
-                  f"{QAT_MICRO * per_mb}")
-        check(c_eval == expect(B2=per_mb), f"eval launches {c_eval}")
-        wrapped = {}
-
-        def walk(t, path):
-            if is_qat(t):
-                wrapped[path] = t
-            elif isinstance(t, dict):
-                for k, v in t.items():
-                    walk(v, f"{path}/{k}" if path else k)
-        walk(params, "")
-        check(len(wrapped) == count_qat_layers(params) == res["qat_layers"]
-              == 8, sorted(wrapped))
-        for path, c in wrapped.items():
-            want = choose_plan(matmul_spec(
-                path, PLANNER_DECODE_ROWS, c.kernel.shape[-2],
-                c.kernel.shape[-1], w_bits=4, a_bits=8)).plan
-            check(c.plan == want and c.plan == plan and c.use_kernel,
-                  f"{path}: plan {c.plan}, planner {want}")
-        print(f"[train] run_qat({cfg.name}, {QAT_CKPT_STEP} steps, batch "
-              f"{QAT_BATCH}x{QAT_SEQ} in {QAT_MICRO} microbatches of "
-              f"{QAT_ROWS} rows, W4A8 on {plan.spec.name} n={plan.n} for all "
-              f"{len(wrapped)} wrapped leaves = {per_mb} projections) "
-              f"{wall_qat:.1f} s with its checkpoint save and evals, then "
-              f"step {QAT_STEPS} from memory: losses "
-              f"{[round(x, 4) for x in losses]}, qat eval "
-              f"{res['qat_eval']:.4f} (float init "
-              f"{res['float_eval_at_init']:.4f}); step walls "
-              f"{[round(t, 1) for t in step_ms]} ms; launches per step "
-              f"{steps_c[0]}, eval {c_eval}; peak memory {peak:.2f} GiB")
-
-        # --- one step profiled: B2, the float GEMMs, prepare, the rest ---
-        step_fn = loop.make_train_step(cfg, ocfg, microbatches=QAT_MICRO)
-        batch = data.device_batch(QAT_STEPS, dev)
-        wall = statistics.median(step_ms[1:])
-        prof = profile(f"QAT train step ({QAT_MICRO} x {QAT_ROWS} rows)",
-                       lambda: step_fn(params, res["opt"], batch), steps=1,
-                       wall_ms=wall)
-        split = None
-        if prof is not None:
-            busy, ev = prof
-            b2_ms = sum(v for k, v in ev.items() if "sdv_gemm_kernel" in k)
-            gemm_ms = sum(v for k, v in ev.items()
-                          if "gemm" in k.lower() and "sdv_" not in k)
-            prep_ms = QAT_MICRO * time_prepare(cfg, plan)
-            split = dict(wall_ms=wall, busy_ms=busy, b2_ms=b2_ms,
-                         gemm_ms=gemm_ms, prepare_ms=prep_ms,
-                         rest_ms=busy - b2_ms - gemm_ms - prep_ms)
-            print(f"[train] step device split: B2 {b2_ms:.3f} ms, cuBLAS "
-                  f"GEMMs (the STE backward products, attention) "
-                  f"{gemm_ms:.3f} ms, prepare_sdv_weights {prep_ms:.3f} ms "
-                  f"(CUDA events, {QAT_MICRO} x {per_mb} calls), the rest "
-                  f"{split['rest_ms']:.3f} ms of {busy:.3f} busy")
-
-        # --- checkpoint: restored bit for bit; step 3 from it ------------
-        check(checkpoint.latest_step(str(ckpt)) == QAT_CKPT_STEP,
-              sorted(p.name for p in ckpt.iterdir()))
-        t0 = time.perf_counter()
-        (p_r, o_r), _ = checkpoint.restore(str(ckpt), QAT_CKPT_STEP,
-                                           (res["params"], res["opt"]))
-        t_restore = time.perf_counter() - t0
-        saved = tree.leaves((res["params"], res["opt"]))
-        check(all(same_bits(a, b) for a, b in
-                  zip(saved, tree.leaves((p_r, o_r)))),
-              "restored checkpoint != the saved state")
-        del res["opt"]
-        resumed = []
-        reset_counts()
-        p_b, _, _, _ = loop.run_training(
-            cfg, ocfg, p_r, o_r, data, steps=QAT_STEPS, start=QAT_CKPT_STEP,
-            microbatches=QAT_MICRO, on_step=lambda s, p, o, m, dt, mon:
-            resumed.append(float(m["loss"])))
-        c_b = counts()
-        del o_r
-        check(c_b == expect(B2=(QAT_STEPS - QAT_CKPT_STEP) * QAT_MICRO
-                            * per_mb), f"resumed launches {c_b}")
-        check(resumed == losses[QAT_CKPT_STEP:], f"step {QAT_STEPS} loss "
-              f"resumed {resumed} != from memory {losses[QAT_CKPT_STEP:]}")
-        pa, pb = tree.leaves(params), tree.leaves(p_b)
-        n_same = sum(same_bits(a, b) for a, b in zip(pa, pb))
-        print(f"[train] checkpoint of step {QAT_CKPT_STEP}: {len(saved)} "
-              f"leaves restored bit for bit ({t_restore:.1f} s); step "
-              f"{QAT_STEPS} from it: loss {resumed[0]!r} == from memory "
-              f"{losses[QAT_CKPT_STEP]!r}; {n_same} of {len(pa)} parameter "
-              f"leaves bit-equal after it; launches {c_b}")
-        del p_b, p_r
-
-        # --- export: SDV serving on the planner's plans, eval, decode ---
-        served = export_for_serving(qcfg, params)
-        reset_counts()
-        served_eval = evaluate(cfg, served, data, batches=1,
-                               offset=qcfg.eval_offset)
-        c_serve = counts()
-        qat_eval = evaluate(cfg, params, data, batches=1,
-                            offset=qcfg.eval_offset)
-        check(c_serve == expect(B2=per_mb - 1), f"served eval {c_serve}")
-        check(abs(served_eval - qat_eval) < EXPORT_ATOL,
-              f"served eval {served_eval} vs qat eval {qat_eval}")
-        p_len, n_new = QAT_DECODE
-        prompts = torch.tensor(np.random.default_rng(0).integers(
-            0, cfg.vocab, (BATCH, p_len)), dtype=torch.int32, device=dev)
-        reset_counts()
-        toks, _ = single_batch_loop(cfg, served, init_cache(
-            cfg, BATCH, p_len + n_new, device=dev), prompts, n_new)
-        c_dec = counts()
-        check(c_dec == expect(B1=(p_len + n_new - 1) * (per_mb - 1)),
-              f"exported decode launches {c_dec}")
-        check(toks.shape == (BATCH, n_new), toks.shape)
-        print(f"[train] step-{QAT_STEPS} params exported to SDV serving: "
-              f"eval {served_eval:.4f} vs QAT {qat_eval:.4f} (|diff| "
-              f"{abs(served_eval - qat_eval):.4f} < {EXPORT_ATOL}), "
-              f"{c_serve['B2']} B2; single_batch_loop {p_len}+{n_new} tokens "
-              f"at batch {BATCH}: {c_dec['B1']} B1, sample {toks[0].tolist()}")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    run = qat_run("tinyllama-1.1b", dev, card, steps=QAT_STEPS,
+                  ckpt_step=QAT_CKPT_STEP, export=True, tag="train")
+    check(run["qat_layers"] == 8 and run["plans"] == {plan},
+          f"tinyllama QAT: {run['qat_layers']} wrapped leaves on "
+          f"{run['plans']}, want 8 on {plan}")
     print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
-    return dict(b2=b2, split=split, step_ms=step_ms, peak=peak,
-                launches={"B2 train": c_total["B2"], "B2 resume": c_b["B2"],
-                          "B2 export eval": c_serve["B2"],
-                          "B1 export decode": c_dec["B1"], "B3 conv": b3})
+    return dict(b2=b2, split=run["split"], step_ms=run["step_ms"],
+                peak=run["peak_gib"],
+                launches={"B2 train": run["b2_run"],
+                          "B2 resume": run["b2_resume"],
+                          "B2 export eval": run["b2_export_eval"],
+                          "B1 export decode": run["b1_decode"],
+                          "B3 conv": b3})
+
 
 def moe_bank_shapes(cfg):
     """The two B7 calls of one expert bank at ``cfg``'s width, W4: (rows
@@ -3546,6 +3408,634 @@ def phase_families(dev, card, flush):
     return {"kernels": kern, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the ssm and hybrid full-sequence forward, packed QAT, oracles
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def labelled_ranges():
+    """Run the chunked SSD scan (``ssm._ssd_chunked``), the RG-LRU's
+    associative scan (``rglru.associative_scan``, its outermost call) and
+    the STE weight packing (``ops.prepare_sdv_weights``) inside profiler
+    ranges named by ``SSM_RANGES``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import rglru, ssm
+    patched = [(ssm, "_ssd_chunked"), (rglru, "associative_scan"),
+               (ops, "prepare_sdv_weights")]
+    origs = [getattr(mod, name) for mod, name in patched]
+    depth = [0]
+
+    def labelled(orig, label):
+        def fn(*args, **kw):
+            if depth[0]:                    # the scan's own recursion
+                return orig(*args, **kw)
+            depth[0] += 1
+            try:
+                with torch.profiler.record_function(label):
+                    return orig(*args, **kw)
+            finally:
+                depth[0] -= 1
+        return fn
+    for (mod, name), orig, label in zip(patched, origs, SSM_RANGES):
+        setattr(mod, name, labelled(orig, label))
+    try:
+        yield
+    finally:
+        for (mod, name), orig in zip(patched, origs):
+            setattr(mod, name, orig)
+
+
+def ssm_split(label, fn, wall_ms, card, tag="ssm"):
+    """``step_split`` of one call of ``fn`` into B2, B4, B7, the SSD scan,
+    the RG-LRU scan, the STE weight packing and the rest (the float
+    GEMMs outside the scans among it: the ranges hold GEMMs of their
+    own, so a GEMM category would count them twice)."""
+    with labelled_ranges():
+        return step_split(
+            tag, label, fn, wall_ms, card,
+            {"B2": "sdv_gemm_kernel", "B4": "bseg_conv1d_kernel",
+             "B7": "unpack_dequant_kernel"},
+            {name: (lambda e, r=r: e.key == r)
+             for name, r in zip(("SSD scan", "RG-LRU scan",
+                                 "prepare_sdv_weights"), SSM_RANGES)})
+
+
+def ssm_card_vs_cpu(dev):
+    """(a) Reduced mamba2-130m and recurrentgemma-2b ``forward`` at batch
+    2 x 64 tokens (past the reduced window of 16) in float, SDV and
+    memory mode on the card against the same call on the CPU: logits
+    within ``LOGIT_ATOL``, ``loss_fn`` within ``SSM_LOSS_ATOL``.  Then the
+    scans alone at full width: ``_ssd_chunked`` at mamba2-130m's heads
+    (24 x 64, state 128, 4 chunks of 256) and ``_rglru_core`` at
+    recurrentgemma-2b's d_rnn 2560 within ``SSM_SCAN_RTOL`` of the CPU
+    (float32 einsums and GEMMs with TF32 off sum in another order; the
+    card's exp and sigmoid round otherwise), ``associative_scan`` bit for
+    bit (elementwise products and sums only)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import forward, init_params, serve_params
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.layers import Init
+    from repro_torch.train.loop import loss_fn
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the SSD's float32 einsums would round")
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(3)
+    for arch in SSM_ARCHS:
+        cfg = get_arch(arch).reduced()
+        params = init_params(cfg, seed=1, device=cpu)
+        toks = rng.integers(0, cfg.vocab, (2, 64))
+        for compute in ("float", "sdv", "memory"):
+            outs = []                           # the CPU's, the card's
+            for d in (cpu, dev):
+                p = _to(params, d)
+                q = p if compute == "float" else serve_params(
+                    p, bits=4, min_size=1024, compute=compute)
+                batch = {"tokens": torch.tensor(toks, dtype=torch.int32,
+                                                device=d)}
+                with torch.no_grad():
+                    outs.append((forward(cfg, q, batch).cpu(),
+                                 float(loss_fn(cfg, q, batch))))
+            (host, host_loss), (card, card_loss) = outs
+            err = float((card - host).abs().max())
+            dloss = abs(card_loss - host_loss)
+            check(err <= LOGIT_ATOL and dloss <= SSM_LOSS_ATOL,
+                  f"reduced {cfg.name} {compute} forward card vs CPU: "
+                  f"|dlogit| {err}, |dloss| {dloss}")
+            print(f"[ssm] reduced {cfg.name} {compute} forward at 2 x 64, "
+                  f"card vs CPU: max |dlogit| {err:.4g} (tolerance "
+                  f"{LOGIT_ATOL}), loss {card_loss:.6f} vs {host_loss:.6f} "
+                  f"(|d| {dloss:.3g}, tolerance {SSM_LOSS_ATOL})")
+
+    gen = torch.Generator().manual_seed(7)
+    scfg = ssm.SSMConfig(d_model=768, d_inner=1536, n_heads=24,
+                         d_state=128)
+    b, s, h, p, n = 2, 4 * scfg.chunk, 24, scfg.head_dim, scfg.d_state
+    ins = (torch.randn((b, s, h, p), generator=gen),
+           torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen)),
+           -torch.exp(0.5 * torch.randn(h, generator=gen)),
+           torch.randn((b, s, 1, n), generator=gen),
+           torch.randn((b, s, 1, n), generator=gen))
+    h0 = torch.randn((b, h, n, p), generator=gen)
+    want = ssm._ssd_chunked(*ins, scfg, h0=h0)
+
+    def rel_err():
+        got = ssm._ssd_chunked(*(t.to(dev) for t in ins), scfg,
+                               h0=h0.to(dev))
+        return [float((a.cpu() - w).abs().max() / w.abs().max())
+                for a, w in zip(got, want)]
+    rel = rel_err()
+    check(max(rel) <= SSM_SCAN_RTOL, f"_ssd_chunked card vs CPU {rel}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        rel_tf32 = rel_err()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(max(rel_tf32) > SSM_SCAN_RTOL,
+          f"_ssd_chunked with TF32 on is within the tolerance: {rel_tf32}")
+    print(f"[ssm] _ssd_chunked at [{b}, {s}, {h}, {p}], state {n}, "
+          f"{s // scfg.chunk} chunks of {scfg.chunk}: card vs CPU y, h_final "
+          f"within {rel[0]:.3g}, {rel[1]:.3g} relative (tolerance "
+          f"{SSM_SCAN_RTOL}; with TF32 on {rel_tf32[0]:.3g}, "
+          f"{rel_tf32[1]:.3g})")
+
+    a = torch.rand((2, 2048, 2560), generator=gen) * 0.5 + 0.5
+    x = torch.randn((2, 2048, 2560), generator=gen)
+    want = rglru.associative_scan(a, x)
+    got = rglru.associative_scan(a.to(dev), x.to(dev))
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "associative_scan card != CPU")
+    rcfg = rglru.RGLRUConfig(d_model=2560, d_rnn=2560)
+    rp = rglru.rglru_init(Init(gen, cpu, torch.float32), rcfg)
+    u = torch.randn((2, 512, 2560), generator=gen)
+    r0 = torch.randn((2, 2560), generator=gen)
+    yc, hc = rglru._rglru_core(rp, u, r0)
+    yd, hd = rglru._rglru_core(_to(rp, dev), u.to(dev), r0.to(dev))
+    rel = [float((a.cpu() - c).abs().max() / c.abs().max())
+           for a, c in ((yd, yc), (hd, hc))]
+    check(max(rel) <= SSM_SCAN_RTOL, f"_rglru_core card vs CPU {rel}")
+    print(f"[ssm] associative_scan at [2, 2048, 2560] card == CPU bit for "
+          f"bit; _rglru_core at [2, 512, 2560] from a state: y, h within "
+          f"{rel[0]:.3g}, {rel[1]:.3g} relative (tolerance {SSM_SCAN_RTOL})")
+
+
+def forward_bound(tree, rows):
+    """The least time of one forward's packed work over ``rows``
+    activation rows: the SDV GEMMs (B2: the int32 activations, words and
+    lane outputs once each, 2 rows K M operations) and the memory-packed
+    weights' unpacking (B7: the words and scales read, the bf16 weights
+    written).  Returns (ms, what bounds it)."""
+    from repro_torch.models import PackedLinear, SDVLinear
+    nbytes = ops_n = 0
+
+    def walk(node):
+        nonlocal nbytes, ops_n
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (SDVLinear, PackedLinear)):
+            layers = node.words.shape[0] if node.stacked else 1
+            k, g = node.words.shape[-2], node.words.shape[-1]
+            nbytes += node.words.numel() * 4
+            if isinstance(node, SDVLinear):
+                nbytes += layers * rows * (k + g * node.plan.n) * 4
+                ops_n += layers * 2 * rows * k * node.d_out
+            else:
+                nbytes += node.scale.numel() * 4 + layers * k * node.d_out * 2
+    walk(tree)
+    return bound_ms(nbytes, ops_n)
+
+
+def ssm_forward(cfg, dev, card, compute):
+    """(b) Full-width ``cfg`` from a seeded init packed by
+    ``serve_params(compute=compute, min_size=1024)`` (the bf16 tree
+    freed), one ``forward(mode="last_logits")`` at ``SSM_FORWARD`` after
+    a warm-up call: exactly the packed tree's B2 + B4 (SDV) or B7
+    (memory) launches, no plain call; ms, peak memory and one profiled
+    call's split."""
+    import torch
+    from repro_torch.models import forward, init_params, serve_params
+    from repro_torch.models.quantized import count_packed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device=dev)
+    qparams = serve_params(params, bits=4, min_size=1024, compute=compute)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed = count_packed(qparams)
+    per_step = RECURRENT_STEP[cfg.name]
+    want = expect(B2=packed["sdv"], B4=packed["bseg"]) \
+        if compute == "sdv" else expect(B7=packed["memory"])
+    check(packed == ({"memory": 0, "sdv": per_step["B1"],
+                      "bseg": per_step["B4"]} if compute == "sdv" else
+                     {"memory": per_step["B1"], "sdv": 0, "bseg": 0}),
+          f"{cfg.name} {compute} count_packed {packed}")
+    b, s = SSM_FORWARD
+    gen = torch.Generator(device=dev).manual_seed(8)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+
+    def run():
+        with torch.no_grad():
+            return forward(cfg, qparams, batch, mode="last_logits")
+    run()                                              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    last = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    c = counts()
+    check(c == want, f"{cfg.name} {compute} forward launches {c}, want "
+                     f"{want}")
+    check(tuple(last.shape) == (b, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(last).all()),
+          f"{cfg.name} {compute} forward logits")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[ssm] {cfg.name} {compute} forward(mode=\"last_logits\") at "
+          f"batch {b} x {s} tokens ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}): {ms:.1f} ms, launches "
+          f"{ {k: v for k, v in c.items() if v} }, peak memory {peak:.2f} "
+          f"GiB ({card})")
+    split = ssm_split(f"{cfg.name} {compute} forward at {b} x {s}", run, ms,
+                      card)
+    kname = "B2" if compute == "sdv" else "B7"
+    b_ms, b_by = forward_bound(qparams, b * s)
+    if split is not None:
+        print(f"[ssm] {cfg.name} {compute} forward: {kname}'s "
+              f"{split[kname]:.3f} ms against its bound {b_ms:.3f} ms by "
+              f"{b_by} ({b_ms / split[kname]:.1%}) ({card})")
+    del qparams, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": c, "ms": ms, "peak_gib": peak, "split": split,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def qat_launches(params):
+    """B2 launches of one microbatch's STE forward: one a wrapped
+    projection and layer."""
+    from repro_torch.train.qat import is_qat
+
+    def walk(t, path):
+        if is_qat(t):
+            return t.kernel.shape[0] if t.kernel.ndim == 3 else 1
+        if isinstance(t, dict):
+            return sum(walk(v, path + (k,)) for k, v in t.items())
+        return 0
+    return walk(params, ())
+
+
+def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
+            tag="ssm"):
+    """``run_qat`` of full-width ``arch`` with the launcher's ``--qat``
+    defaults (W4A8, plan_policy "auto", batch 8 x 128 in 2 microbatches
+    of 512 rows, so B2) for ``ckpt_step`` steps saving a checkpoint, then
+    the remaining steps from memory (without ``ckpt_step``: all ``steps``
+    in ``run_qat``): finite losses, every wrapped leaf on the planner's
+    plan, exactly 2 x the wrapped projections' B2 a step and one
+    microbatch's an eval batch, nothing else; step walls, peak memory,
+    one profiled step's split.  With a checkpoint: restored bit for bit,
+    the last step run from it with the same loss.  With ``export``: the
+    trained tree exported (``export_for_serving``) evaluates within
+    ``EXPORT_ATOL`` of the QAT eval (B2) and decodes through
+    ``single_batch_loop`` (B1, and B4 on the short convs)."""
+    import math
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import init_cache
+    from repro_torch.models.quantized import (PLANNER_DECODE_ROWS,
+                                              count_packed, is_sdv)
+    from repro_torch.planner import choose_plan, matmul_spec
+    from repro_torch.train import checkpoint, loop
+    from repro_torch.train.qat import (QATRunConfig, evaluate,
+                                       export_for_serving, is_qat, run_qat)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = ROOT / "build" / "qat_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    qcfg = QATRunConfig(arch=arch, smoke=False, steps=ckpt_step or steps,
+                        global_batch=QAT_BATCH, seq=QAT_SEQ,
+                        microbatches=QAT_MICRO, plan_policy="auto",
+                        ckpt_dir=str(ckpt) if ckpt_step else None,
+                        eval_batches=1, device=str(dev))
+    snaps = []
+
+    def sync(_):
+        torch.cuda.synchronize(dev)
+        snaps.append(counts())
+    out = {}
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_qat(qcfg, sync=sync, log=lambda m: print(f"[{tag}] {m}"))
+        wall = time.perf_counter() - t0
+        c_run = counts()
+        cfg, ocfg, data = res["cfg"], res["ocfg"], res["data"]
+        losses = list(res["losses"])
+        step_ms = [t * 1e3 for t in res["step_times"]]
+        params = res["params"]
+        if ckpt_step:
+            def on_step(s, p, o, m, dt, mon):
+                losses.append(float(m["loss"]))
+                step_ms.append(dt * 1e3)
+            params, _, _, _ = loop.run_training(
+                cfg, ocfg, res["params"], res["opt"], data, steps=steps,
+                start=ckpt_step, microbatches=QAT_MICRO, sync=sync,
+                on_step=on_step)
+        c_total = counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        per_mb = qat_launches(params)
+        n_run = ckpt_step or steps
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+              and math.isfinite(res["qat_eval"]),
+              f"{arch} QAT losses {losses}, eval {res['qat_eval']}")
+        zero = dict.fromkeys(c_total, 0)
+        c_eval = _sub_counts(c_run, snaps[n_run - 1])
+        steps_c = [_sub_counts(b, a) for a, b in zip(
+            [zero] + snaps[:n_run - 1] + [c_run], snaps)]
+        for i, c in enumerate(steps_c):
+            check(c == expect(B2=QAT_MICRO * per_mb),
+                  f"{arch} QAT step {i + 1} launches {c}, want B2="
+                  f"{QAT_MICRO * per_mb}")
+        check(c_eval == expect(B2=per_mb), f"{arch} QAT eval {c_eval}")
+        wrapped = {}
+
+        def walk(t, path):
+            if is_qat(t):
+                wrapped[path] = t
+            elif isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{path}/{k}" if path else k)
+        walk(params, "")
+        check(len(wrapped) == res["qat_layers"], sorted(wrapped))
+        for path, c in wrapped.items():
+            plan = choose_plan(matmul_spec(
+                path, PLANNER_DECODE_ROWS, c.kernel.shape[-2],
+                c.kernel.shape[-1], w_bits=4, a_bits=8)).plan
+            check(c.plan == plan and c.use_kernel,
+                  f"{arch} {path}: plan {c.plan}, planner {plan}")
+        plans = {c.plan for c in wrapped.values()}
+        print(f"[{tag}] run_qat({cfg.name}: {cfg.n_layers} layers, "
+              f"{sum(x.numel() for x in tree.leaves(params)) / 1e9:.3f}e9 "
+              f"parameters; {QAT_BATCH}x{QAT_SEQ} tokens in {QAT_MICRO} "
+              f"microbatches of {QAT_ROWS} rows; {len(wrapped)} wrapped "
+              f"leaves = {per_mb} projections a microbatch on "
+              f"{sorted(f'{p.spec.name} n={p.n}' for p in plans)}) "
+              f"{wall:.1f} s with its evals"
+              f"{' and checkpoint' if ckpt_step else ''}; losses "
+              f"{[round(x, 4) for x in losses]}, qat eval "
+              f"{res['qat_eval']:.4f} (float init "
+              f"{res['float_eval_at_init']:.4f}); step walls "
+              f"{[round(t, 1) for t in step_ms]} ms; launches a step "
+              f"{steps_c[0]}, an eval batch {c_eval}; peak memory "
+              f"{peak:.2f} GiB ({card})")
+        out.update(b2_run=c_total["B2"], b2_eval=c_eval["B2"],
+                   per_mb=per_mb, step_ms=step_ms, peak_gib=peak,
+                   losses=losses, plans=plans, qat_layers=len(wrapped))
+
+        step_fn = loop.make_train_step(cfg, ocfg, microbatches=QAT_MICRO)
+        batch = data.device_batch(steps, dev)
+        wall_ms = statistics.median(step_ms[1:] or step_ms)
+        out["split"] = ssm_split(
+            f"{cfg.name} QAT train step ({QAT_MICRO} x {QAT_ROWS} rows)",
+            lambda: step_fn(params, res["opt"], batch), wall_ms, card,
+            tag=tag)
+
+        if ckpt_step:
+            check(checkpoint.latest_step(str(ckpt)) == ckpt_step,
+                  sorted(p.name for p in ckpt.iterdir()))
+            t0 = time.perf_counter()
+            (p_r, o_r), _ = checkpoint.restore(str(ckpt), ckpt_step,
+                                               (res["params"], res["opt"]))
+            t_restore = time.perf_counter() - t0
+            saved = tree.leaves((res["params"], res["opt"]))
+            check(all(same_bits(a, b) for a, b in
+                      zip(saved, tree.leaves((p_r, o_r)))),
+                  f"{arch}: restored checkpoint != the saved state")
+            del res
+            resumed = []
+            reset_counts()
+            p_b, _, _, _ = loop.run_training(
+                cfg, ocfg, p_r, o_r, data, steps=steps, start=ckpt_step,
+                microbatches=QAT_MICRO, on_step=lambda s, p, o, m, dt, mon:
+                resumed.append(float(m["loss"])))
+            c_b = counts()
+            del o_r
+            check(c_b == expect(B2=(steps - ckpt_step) * QAT_MICRO * per_mb),
+                  f"{arch} resumed launches {c_b}")
+            check(resumed == losses[ckpt_step:], f"{arch} step {steps} loss "
+                  f"resumed {resumed} != from memory {losses[ckpt_step:]}")
+            pa, pb = tree.leaves(params), tree.leaves(p_b)
+            n_same = sum(same_bits(a, b) for a, b in zip(pa, pb))
+            print(f"[{tag}] {cfg.name} checkpoint of step {ckpt_step}: "
+                  f"{len(saved)} leaves restored bit for bit "
+                  f"({t_restore:.1f} s); step {steps} from it: loss "
+                  f"{resumed[0]!r} == from memory {losses[ckpt_step]!r}; "
+                  f"{n_same} of {len(pa)} parameter leaves bit-equal after "
+                  f"it; launches {c_b}")
+            out["b2_resume"] = c_b["B2"]
+            del p_b, p_r
+        else:
+            del res
+
+        if export:
+            served = export_for_serving(qcfg, params)
+            packed = count_packed(served)
+            # projections a step: the SDV containers but an SDV LM head,
+            # which layers.mat decodes in plain torch
+            n_proj = packed["sdv"] - is_sdv(served.get("lm_head"))
+            reset_counts()
+            served_eval = evaluate(cfg, served, data, batches=1,
+                                   offset=qcfg.eval_offset)
+            c_serve = counts()
+            qat_eval = evaluate(cfg, params, data, batches=1,
+                                offset=qcfg.eval_offset)
+            check(c_serve == expect(B2=n_proj, B4=packed["bseg"]),
+                  f"{arch} served eval launches {c_serve}")
+            check(abs(served_eval - qat_eval) < EXPORT_ATOL,
+                  f"{arch} served eval {served_eval} vs qat eval {qat_eval}")
+            p_len, n_new = QAT_DECODE
+            prompts = torch.tensor(np.random.default_rng(0).integers(
+                0, cfg.vocab, (BATCH, p_len)), dtype=torch.int32,
+                device=dev)
+            reset_counts()
+            toks, _ = single_batch_loop(cfg, served, init_cache(
+                cfg, BATCH, p_len + n_new, device=dev), prompts, n_new)
+            c_dec = counts()
+            n_steps = p_len + n_new - 1
+            check(c_dec == expect(B1=n_steps * n_proj,
+                                  B4=n_steps * packed["bseg"]),
+                  f"{arch} exported decode launches {c_dec}, packed "
+                  f"{packed}")
+            check(toks.shape == (BATCH, n_new) and (toks >= 0).all()
+                  and (toks < cfg.vocab).all(), toks.shape)
+            print(f"[{tag}] {cfg.name} step-{steps} params exported to SDV "
+                  f"serving (count_packed {packed}): eval {served_eval:.4f} "
+                  f"vs QAT {qat_eval:.4f} (|diff| "
+                  f"{abs(served_eval - qat_eval):.4f} < {EXPORT_ATOL}), "
+                  f"launches {c_serve}; single_batch_loop {p_len}+{n_new} "
+                  f"tokens at batch {BATCH}: launches "
+                  f"{ {k: v for k, v in c_dec.items() if v} }, sample "
+                  f"{toks[0].tolist()}")
+            out.update(b2_export_eval=c_serve["B2"],
+                       b4_export_eval=c_serve["B4"], b1_decode=c_dec["B1"],
+                       b4_decode=c_dec["B4"])
+            del served
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_qat_depth(cfg):
+    """The largest depth 3g + 2 (g groups and the 2 trailing layers) of
+    ``cfg`` whose reckoned QAT peak, ``QAT_BYTES_PER_PARAM`` bytes a
+    parameter, is under ``QAT_PEAK_LIMIT_GIB``: (layers, parameters,
+    reckoned GiB) of it and of the full depth."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.models import init_params
+
+    def reckon(n):
+        c = dataclasses.replace(cfg, n_layers=n)
+        p = sum(x.numel() for x in tree.leaves(init_params(c, device="meta")))
+        return n, p, p * QAT_BYTES_PER_PARAM / 2**30
+    full = reckon(cfg.n_layers)
+    fits = [reckon(n) for n in range(cfg.n_layers - 3 * (cfg.n_layers // 3),
+                                     cfg.n_layers + 1, 3)]
+    return max(r for r in fits if r[2] < QAT_PEAK_LIMIT_GIB), full
+
+
+def ssm_oracles(dev, flush):
+    """(e) The int64 oracles on the card, bit for bit against the kernels
+    that implement them: ``core.sdv.sdv_matvec`` (torch int64 words on
+    the card) against ``ops.packed_matmul`` at 8 rows (B1; B2 for
+    unsigned storage, which B1 does not take) and 16 (B2) on the same
+    integers (M 64, K 96) on INT32 n=2, DSP48E2 n=3 and DSP58 W4A8 plans
+    with signed and unsigned weight storage;
+    ``core.bseg.bseg_conv1d`` against ``ops.bseg_conv1d`` (B4) at C 37, S
+    64 on the four W4A4 plans, both against the exact conv; UltraNet
+    ``mode="bseg_jnp"`` against ``mode="bseg"`` at 32x32, batch 1."""
+    import torch
+    from repro_torch.core import bseg as cbseg
+    from repro_torch.core import sdv as csdv
+    from repro_torch.core.datapath import DATAPATHS, plan_bseg, plan_sdv
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ultranet
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    m, k = ORACLE_SDV_SHAPE
+    cases = []
+    for spec in ("int32", "dsp48e2", "dsp58"):
+        for signed in (True, False):
+            plan = plan_sdv(DATAPATHS[spec], 4, 8, signed_a=signed,
+                            signed_b=True, park_sign_bits=signed)
+            lo = -8 if signed else 0
+            w = torch.randint(lo, lo + 16, (m, k), generator=gen,
+                              device=dev, dtype=torch.int64)
+            words = ops.prepare_sdv_weights(w, plan)
+            for rows in (DECODE_ROWS, 2 * DECODE_ROWS):
+                # the dispatch's kernel: B1 up to 8 rows of a signed-storage
+                # plan, else B2 (B1 stores signed elements only)
+                kname = {"sdv_matvec": "B1", "sdv_matmul": "B2"}[
+                    ops.select_packed_route(rows, plan=plan)]
+                x = torch.randint(-128, 128, (rows, k), generator=gen,
+                                  device=dev, dtype=torch.int64)
+                reset_counts()
+                y = ops.packed_matmul(x.to(torch.int32), words, plan=plan,
+                                      m=m)
+                c = counts()
+                check(c == expect(**{kname: 1}),
+                      f"packed_matmul at {rows} rows on {spec} n={plan.n} "
+                      f"signed storage {signed} launched {c}, want "
+                      f"{kname}")
+                oracle = torch.stack([csdv.sdv_matvec(w, xr, plan)
+                                      for xr in x])
+                exact = ref._exact_int_matmul(x, w.T)
+                check(torch.equal(oracle.long(), y.long())
+                      and torch.equal(y.long(), exact.long()),
+                      f"sdv_matvec oracle != {kname} on {spec} n={plan.n} "
+                      f"signed storage {signed}")
+            storage = "signed" if signed else "unsigned"
+            cases.append(f"{spec} n={plan.n} {storage}")
+    print(f"[ssm] core.sdv.sdv_matvec (int64 words on the card) == "
+          f"packed_matmul at 8 rows (B1; B2 on unsigned storage) and 16 "
+          f"rows (B2) == the exact product bit for bit at M {m}, K {k} on "
+          f"W4A8 {cases}")
+    c_, s_, n_ = ORACLE_CONV_SHAPE
+    for spec in CONV_SPECS:
+        plan = plan_bseg(DATAPATHS[spec], 4, 4)
+        taps = torch.randint(-8, 8, (c_, n_), generator=gen, device=dev,
+                             dtype=torch.int32)
+        xq = torch.randint(-8, 8, (2, s_, c_), generator=gen, device=dev,
+                           dtype=torch.int32)
+        kappa, tap_sum = ops.prepare_bseg_taps(taps, plan)
+        reset_counts()
+        y = ops.bseg_conv1d(xq, kappa, tap_sum, plan=plan, n_taps=n_,
+                            zero_point=8)
+        check(counts() == expect(B4=1), f"ops.bseg_conv1d {counts()}")
+        x_in = torch.nn.functional.pad(xq.permute(0, 2, 1), (n_ - 1, 0))
+        oracle = cbseg.bseg_conv1d(taps[None].expand(2, c_, n_), x_in, plan,
+                                   input_zero_point=8).permute(0, 2, 1)
+        exact = ref.conv1d_ref(xq, taps, n_ - 1)
+        check(torch.equal(oracle.long(), y.long())
+              and torch.equal(y.long(), exact.long()),
+              f"core.bseg.bseg_conv1d != B4 on {spec}")
+    print(f"[ssm] core.bseg.bseg_conv1d (int64 words on the card, float32 "
+          f"on fp32m) == B4 == the exact causal conv bit for bit at batch "
+          f"2, C {c_}, S {s_}, {n_} taps on W4A4 {list(CONV_SPECS)}")
+    params = ultranet.init_ultranet(0, device=dev)
+    img = torch.randint(0, 16, (1, 32, 32, 3), generator=gen, device=dev)
+    jnp_out = ultranet.ultranet_forward(params, img, mode="bseg_jnp",
+                                        device=dev)
+    bseg_out = ultranet.ultranet_forward(params, img, mode="bseg",
+                                         device=dev)
+    check(torch.equal(jnp_out.long(), bseg_out.long()),
+          "UltraNet bseg_jnp != bseg on the card")
+    print(f"[ssm] UltraNet-INT4 mode=\"bseg_jnp\" == mode=\"bseg\" at 32x32, "
+          f"batch 1, bit for bit; oracles {time.perf_counter() - t0:.1f} s")
+
+
+def phase_ssm_train(dev, card, flush):
+    """Phase 15: the ssm and hybrid families' full-sequence forward and
+    packed QAT, and the oracles.  Frees what earlier phases left on the
+    card, then (a) ``ssm_card_vs_cpu``, (b) ``ssm_forward`` of full-size
+    mamba2-130m and full-width recurrentgemma-2b in SDV and memory mode,
+    (c) ``qat_run`` of full-size mamba2-130m (3 steps, a checkpoint at
+    step 2, the export evaluated and decoded), (d) ``qat_run`` of
+    recurrentgemma-2b at full width, cut to the depth
+    ``hybrid_qat_depth`` reckons (2 steps), (e) ``ssm_oracles``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import registry
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    ssm_card_vs_cpu(dev)
+    forwards = {(arch, compute): ssm_forward(registry.get_arch(arch), dev,
+                                             card, compute)
+                for arch in SSM_ARCHS for compute in ("sdv", "memory")}
+    mamba = qat_run(SSM_ARCHS[0], dev, card, steps=QAT_STEPS,
+                    ckpt_step=QAT_CKPT_STEP, export=True)
+    rg = registry.get_arch(SSM_ARCHS[1])
+    (n, params, gib), full = hybrid_qat_depth(rg)
+    cut = dataclasses.replace(rg, name=f"{rg.name}-qat{n}", n_layers=n)
+    print(f"[ssm] {rg.name} QAT depth: the full {full[0]} layers hold "
+          f"{full[1] / 1e9:.3f}e9 parameters, reckoned {full[2]:.1f} GiB at "
+          f"{QAT_BYTES_PER_PARAM:.2f} bytes a parameter (the train phase's "
+          f"tinyllama peak over its parameters); cut to {n} layers "
+          f"({n // 3} groups "
+          f"and {n % 3} trailing), {params / 1e9:.3f}e9 parameters, reckoned "
+          f"{gib:.1f} GiB < {QAT_PEAK_LIMIT_GIB} GiB")
+    registry.ARCHS[cut.name] = cut
+    registry.ALIASES[cut.name] = cut.name
+    try:
+        hybrid = qat_run(cut.name, dev, card, steps=2)
+    finally:
+        del registry.ARCHS[cut.name], registry.ALIASES[cut.name]
+    hybrid["n_layers"] = n
+    ssm_oracles(dev, flush)
+    print(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"forward": forwards, "mamba_qat": mamba, "hybrid_qat": hybrid}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -3587,9 +4077,10 @@ def main() -> int:
         phase_reference(dev, "memory")
         eng = phase_engine(dev, card)
         spec = phase_spec(dev, card)
-        train = phase_train(dev, flush)
+        train = phase_train(dev, card, flush)
         moe = phase_moe(dev, card, flush)
         fam = phase_families(dev, card, flush)
+        ssm = phase_ssm_train(dev, card, flush)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3607,7 +4098,9 @@ def main() -> int:
                       "phi3.5-moe SDV decode":
                           moe["runs"]["sdv"]["decode"]["B1"],
                       **{f"{a} SDV decode": fam["runs"][a, "sdv"]["decode"]
-                         ["B1"] for a in FAMILY_ARCHS}},
+                         ["B1"] for a in FAMILY_ARCHS},
+                      "mamba2-130m QAT export decode":
+                          ssm["mamba_qat"]["b1_decode"]},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"],
                       "tinyllama spec engine": spec["B2"],
@@ -3620,7 +4113,15 @@ def main() -> int:
                       f"{FAMILY_ARCHS[1]} SDV prefill":
                           fam["runs"][FAMILY_ARCHS[1], "sdv"]["prefill"]["B2"],
                       **{f"{a} SDV forward": fam["runs"][a, "sdv"]["forward"]
-                         ["B2"] for a in FAMILY_ARCHS}}}
+                         ["B2"] for a in FAMILY_ARCHS},
+                      **{f"{a} SDV forward": ssm["forward"][a, "sdv"]
+                         ["launches"]["B2"] for a in SSM_ARCHS},
+                      "mamba2-130m QAT train": ssm["mamba_qat"]["b2_run"],
+                      "mamba2-130m QAT resume": ssm["mamba_qat"]["b2_resume"],
+                      "mamba2-130m QAT export eval":
+                          ssm["mamba_qat"]["b2_export_eval"],
+                      f"recurrentgemma-2b ({ssm['hybrid_qat']['n_layers']} "
+                      "layers) QAT train": ssm["hybrid_qat"]["b2_run"]}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -3695,7 +4196,13 @@ def main() -> int:
                 "W4A4 plan"),
     })
     b4_paths = {"mamba2 decode": recurrent["mamba2-130m"]["B4"],
-                "recurrentgemma decode": recurrent["recurrentgemma-2b"]["B4"]}
+                "recurrentgemma decode": recurrent["recurrentgemma-2b"]["B4"],
+                **{f"{a} SDV forward": ssm["forward"][a, "sdv"]["launches"]
+                   ["B4"] for a in SSM_ARCHS},
+                "mamba2-130m QAT export eval":
+                    ssm["mamba_qat"]["b4_export_eval"],
+                "mamba2-130m QAT export decode":
+                    ssm["mamba_qat"]["b4_decode"]}
     kernels.append({
         "name": "B4 bseg_conv1d",
         "route": "cuda",
@@ -3743,7 +4250,9 @@ def main() -> int:
                    for path in ("prefill", "decode")},
                 **{f"{a} memory {path}": fam["runs"][a, "memory"][path]["B7"]
                    for a in FAMILY_ARCHS
-                   for path in ("prefill", "decode", "forward")}},
+                   for path in ("prefill", "decode", "forward")},
+                **{f"{a} memory forward": ssm["forward"][a, "memory"]
+                   ["launches"]["B7"] for a in SSM_ARCHS}},
                ("one tinyllama memory decode step: 154 W4 projections + the "
                 "LM head, unpacked and dequantized to bf16 in one pass "
                 "(unpack_dequant_kernel); before_ms: the route it replaced "

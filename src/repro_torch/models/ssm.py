@@ -1,13 +1,14 @@
 """Mamba2 (SSD) block and the shared short depthwise causal conv of the
-Mamba2 and RG-LRU blocks — torch port of the decode half of
-``repro.models.ssm``.
+Mamba2 and RG-LRU blocks — torch port of ``repro.models.ssm``.
 
 The short conv is the model-level site of the paper's BSEG datapath:
 ``serve_params(compute="sdv")`` replaces its container with a
 ``BSEGConv``, which runs on kernel B4; the float container is the plain
-float conv.  ``ssm_apply`` is ported for decode (``decode=True``, the
-single-step recurrence); the chunked SSD scan that training and the
-full-sequence ``forward`` take is not ported yet and raises.
+float conv.  ``ssm_apply`` runs decode (``decode=True``, the single-step
+recurrence) and the full sequence of training and ``forward``
+(``_ssd_chunked``, the chunked SSD scan of arXiv:2405.21060: a quadratic
+intra-chunk term and a linear inter-chunk state recurrence, one chunk at
+a time, in float32).
 """
 from __future__ import annotations
 
@@ -94,18 +95,66 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _ssd_chunked(x, dt, a, b_in, c_in, cfg: SSMConfig,
+                 h0: Optional[torch.Tensor] = None):
+    """Chunked SSD scan.
+
+    x [B, S, H, P]; dt [B, S, H] (already softplus'ed, positive);
+    a [H] (negative); b_in/c_in [B, S, G, N].
+    Returns (y [B, S, H, P] float32, h_final [B, H, N, P] float32).
+
+    The JAX package's ``lax.scan`` over the ``S / q`` chunks is a loop
+    here, with its float32 arithmetic: the quadratic intra-chunk term
+    only ever exists for one chunk, so memory is O(q^2 H) at any S.  The
+    causal segment matrix masks before its ``exp`` (the reference masks
+    after): the same values, and a gradient that stays finite where an
+    upper-triangle segment sum overflows float32 (its masked ``exp``
+    gives inf there, and 0 x inf in the backward).
+    """
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    q = min(cfg.chunk, s)
+    assert s % q == 0, (s, q)
+    rep = h // g
+    f32 = torch.float32
+    causal = torch.ones((q, q), dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    neg_inf = torch.tensor(float("-inf"), dtype=f32, device=x.device)
+    hprev = torch.zeros((bsz, h, n, p), dtype=f32, device=x.device) \
+        if h0 is None else h0.to(f32)
+    ys = []
+    for c in range(s // q):
+        sl = slice(c * q, (c + 1) * q)
+        dtc = dt[:, sl].to(f32)                                # [B,q,H]
+        cum = torch.cumsum(dtc * a[None, None, :], dim=1)
+        seg = cum[:, -1, :]                                    # [B,H]
+        li = cum[:, :, None, :] - cum[:, None, :, :]           # [B,q,q,H]
+        l_mat = torch.exp(torch.where(causal, li, neg_inf))
+        bc = b_in[:, sl].to(f32)
+        cc = c_in[:, sl].to(f32)
+        scores = torch.einsum("bqgn,bkgn->bqkg", cc, bc)       # [B,q,q,G]
+        scores = torch.repeat_interleave(scores, rep, dim=-1)  # [B,q,q,H]
+        xdt = x[:, sl].to(f32) * dtc[..., None]                # [B,q,H,P]
+        y_intra = torch.einsum("bqkh,bkhp->bqhp", scores * l_mat, xdt)
+        ch = torch.repeat_interleave(cc, rep, dim=2)
+        y_inter = torch.einsum("bqhn,bhnp->bqhp",
+                               ch * torch.exp(cum)[..., None], hprev)
+        decay_state = torch.exp(seg[:, None, :] - cum)         # [B,q,H]
+        bh = torch.repeat_interleave(bc, rep, dim=2)
+        s_c = torch.einsum("bqhn,bqhp->bhnp",
+                           bh * decay_state[..., None], xdt)
+        hprev = torch.exp(seg)[..., None, None] * hprev + s_c
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1), hprev
+
+
 def ssm_apply(params, cfg: SSMConfig, x, *, conv_state=None,
               ssm_state=None, decode: bool = False):
     """Mamba2 block. x [B, S, d_model] -> (y, (conv_state, ssm_state)).
 
-    Only ``decode=True`` (S = 1, the single-step recurrence
-    h' = exp(dt a) h + dt B x^T) is ported; the chunked SSD scan of the
-    full-sequence path raises."""
-    if not decode:
-        raise NotImplementedError(
-            "the chunked SSD scan (decode=False: training and the "
-            "full-sequence forward) is not ported yet; it comes with the "
-            "ssm/hybrid forward slice")
+    ``decode=True`` (S = 1) runs the single-step recurrence
+    h' = exp(dt a) h + dt B x^T; otherwise the chunked SSD scan
+    (``_ssd_chunked``) runs over the sequence from ``ssm_state``."""
     bsz, s, _ = x.shape
     di, h, p = cfg.d_inner, cfg.n_heads, cfg.head_dim
     gn = cfg.n_groups * cfg.d_state
@@ -124,19 +173,22 @@ def ssm_apply(params, cfg: SSMConfig, x, *, conv_state=None,
     dtp = softplus(dt.to(torch.float32) + params["dt_bias"][None, None, :])
     a = -torch.exp(params["a_log"])                          # [H] negative
 
-    rep = h // cfg.n_groups
-    dt1 = dtp[:, 0]                                          # [B,H]
-    dec = torch.exp(dt1 * a[None, :])                        # [B,H]
-    bh1 = torch.repeat_interleave(bh[:, 0], rep, dim=1)      # [B,H,N]
-    ch1 = torch.repeat_interleave(ch[:, 0], rep, dim=1)
-    xdt = xh[:, 0].to(torch.float32) * dt1[..., None]        # [B,H,P]
-    if ssm_state is None:
-        ssm_state = torch.zeros((bsz, h, cfg.d_state, p),
-                                dtype=torch.float32, device=x.device)
-    ssm_state = dec[..., None, None] * ssm_state \
-        + torch.einsum("bhn,bhp->bhnp", bh1.to(torch.float32), xdt)
-    y = torch.einsum("bhn,bhnp->bhp", ch1.to(torch.float32), ssm_state)
-    y = y[:, None]                                           # [B,1,H,P]
+    if decode:
+        rep = h // cfg.n_groups
+        dt1 = dtp[:, 0]                                      # [B,H]
+        dec = torch.exp(dt1 * a[None, :])                    # [B,H]
+        bh1 = torch.repeat_interleave(bh[:, 0], rep, dim=1)  # [B,H,N]
+        ch1 = torch.repeat_interleave(ch[:, 0], rep, dim=1)
+        xdt = xh[:, 0].to(torch.float32) * dt1[..., None]    # [B,H,P]
+        if ssm_state is None:
+            ssm_state = torch.zeros((bsz, h, cfg.d_state, p),
+                                    dtype=torch.float32, device=x.device)
+        ssm_state = dec[..., None, None] * ssm_state \
+            + torch.einsum("bhn,bhp->bhnp", bh1.to(torch.float32), xdt)
+        y = torch.einsum("bhn,bhnp->bhp", ch1.to(torch.float32), ssm_state)
+        y = y[:, None]                                       # [B,1,H,P]
+    else:
+        y, ssm_state = _ssd_chunked(xh, dtp, a, bh, ch, cfg, h0=ssm_state)
     y = y + params["d_skip"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(bsz, s, di).to(x.dtype)
     y = rmsnorm_apply(params["norm"], y * silu(z))

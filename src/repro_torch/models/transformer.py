@@ -40,11 +40,10 @@ logits of every column, bit for bit those of sequential
 ``decode_step``s on the dense family, and ``rollback_slot`` rewinds one
 slot's position (on the moe family a token's expert capacity counts the
 whole call's tokens, so columns and slots are not independent there:
-ROADMAP Queue C, property (f)).  ``forward`` (dense, moe, vlm and
-encdec) is the full-sequence forward of training, with the streaming
-attention of ``layers.attention_apply``, differentiable by autograd.
-Not ported yet: the full-sequence ``forward`` of the ssm and hybrid
-families.
+ROADMAP Queue C, property (f)).  ``forward`` (every family) is
+the full-sequence forward of training, with the streaming attention of
+``layers.attention_apply``, the chunked SSD scan and the RG-LRU's
+associative scan, differentiable by autograd.
 
 Parameters are a plain dict tree with the JAX package's keys and the
 stacked layer axis first; the JAX package's ``lax.scan`` over layers
@@ -343,37 +342,73 @@ def _positions(b: int, s: int, device):
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
             diff: bool = True, mode: str = "logits"):
-    """Full-sequence forward of the dense, moe, vlm and encdec families.
-    batch: {"tokens": [B, S]}; vlm: {"tokens": [B, S - n_patches],
-    "patches": [B, n_patches, d]}, the projected patches ahead of the
-    text; encdec: {"src": [B, S_src, d] frame embeddings, "tokens":
-    [B, S_tgt]}.  mode: "logits" (full [B, S, V] float32), "hidden" (the
-    post-``ln_f`` states, for a chunked loss) or "last_logits" (only the
-    next-token logits).  Attention is ``layers.attention_apply`` over
-    positions 0..S-1 (causal, chunked at ``cfg.attn_chunk``); ``diff``
-    picks its differentiable variant (bf16 operands, float32
-    accumulation), else float32 operands.  A dense block (the moe
-    family's dense members too) attends within ``cfg.window``, the other
-    blocks without one, as in the JAX package.  The encoder attends
-    without a causal mask; each decoder block of encdec attends across
-    to the normed encoder output."""
+    """Full-sequence forward of every family.  batch: {"tokens": [B, S]};
+    vlm: {"tokens": [B, S - n_patches], "patches": [B, n_patches, d]},
+    the projected patches ahead of the text; encdec: {"src": [B, S_src,
+    d] frame embeddings, "tokens": [B, S_tgt]}.  mode: "logits" (full
+    [B, S, V] float32), "hidden" (the post-``ln_f`` states, for a chunked
+    loss) or "last_logits" (only the next-token logits).  Attention is
+    ``layers.attention_apply`` over positions 0..S-1 (causal, chunked at
+    ``cfg.attn_chunk``); ``diff`` picks its differentiable variant (bf16
+    operands, float32 accumulation), else float32 operands.  A dense
+    block (the moe family's dense members too) attends within
+    ``cfg.window``, the other blocks without one, as in the JAX package;
+    the hybrid family's attention layers attend within ``cfg.window``.
+    The encoder attends without a causal mask; each decoder block of
+    encdec attends across to the normed encoder output.  The ssm family
+    runs each Mamba2 block over the sequence (the chunked SSD scan), the
+    hybrid family its groups (two RG-LRU layers, each an associative
+    scan, and a windowed attention layer, each with its MLP) and then
+    its trailing RG-LRU layers, every recurrence from a zero state."""
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, batch, diff=diff, mode=mode)
-    if cfg.family not in _KV_FAMILIES:
-        raise NotImplementedError(
-            f"forward: family {cfg.family!r} is not ported yet (ported: "
-            f"{', '.join(_KV_FAMILIES)}, encdec; ROADMAP, not-ported list)")
     x = _embed(cfg, params, batch["tokens"])
     if cfg.family == "vlm":
         patches = L.dense_apply(params["proj_patches"],
                                 batch["patches"].to(cfg.dtype))
         x = torch.cat([patches, x], dim=1)
     positions = _positions(x.shape[0], x.shape[1], x.device)
-    for _, bp, _ in _decoder_layers(cfg, params):
-        dense = cfg.family in ("dense", "moe") and "moe" not in bp
-        x = _block_apply(cfg, bp, x, positions, diff=diff,
-                         window=cfg.window if dense else None)
+    if cfg.family == "ssm":
+        scfg = _ssm_cfg(cfg)
+        for i in range(cfg.n_layers):
+            bp = layer_params(params["blocks"], i)
+            h, _ = S.ssm_apply(bp["ssm"], scfg, L.rmsnorm_apply(bp["ln"], x))
+            x = x + h
+    elif cfg.family == "hybrid":
+        for i in range(cfg.n_layers // 3):
+            x = _hybrid_group_apply(layer_params(params["groups"], i), cfg,
+                                    x, positions, diff=diff)
+        for i in range(cfg.n_layers % 3):
+            x, _ = _rec_layer_apply(layer_params(params["tail"], i), cfg, x)
+    elif cfg.family in _KV_FAMILIES:
+        for _, bp, _ in _decoder_layers(cfg, params):
+            dense = cfg.family in ("dense", "moe") and "moe" not in bp
+            x = _block_apply(cfg, bp, x, positions, diff=diff,
+                             window=cfg.window if dense else None)
+    else:
+        raise ValueError(f"forward: unknown family {cfg.family!r}")
     return _finish(cfg, params, x, mode)
+
+
+def _rec_layer_apply(rp, cfg: ArchConfig, x, *, conv_state=None,
+                     rnn_state=None):
+    """One RG-LRU layer and its MLP, each a residual, from the given conv
+    and RNN states (zero when None).  Returns (x, (conv_state,
+    rnn_state))."""
+    h, states = R.rglru_apply(rp["rec"], _rg_cfg(cfg),
+                              L.rmsnorm_apply(rp["ln_mix"], x),
+                              conv_state=conv_state, rnn_state=rnn_state)
+    return _mlp_residual(cfg, rp, x + h), states
+
+
+def _hybrid_group_apply(gp, cfg: ArchConfig, x, positions, *,
+                        diff: bool = True):
+    """One Griffin group of the full-sequence forward: two RG-LRU layers
+    from zero states, then causal attention within ``cfg.window`` and the
+    MLP."""
+    x, _ = _rec_layer_apply(gp["rec0"], cfg, x)
+    x, _ = _rec_layer_apply(gp["rec1"], cfg, x)
+    return _block_apply(cfg, gp, x, positions, diff=diff, window=cfg.window)
 
 
 def _forward_encdec(cfg: ArchConfig, params, batch, *, diff: bool,
@@ -577,17 +612,16 @@ def _decode_ssm(cfg: ArchConfig, params, cache, x):
     return x
 
 
-def _rec_layer_apply(rp, cfg: ArchConfig, x, cache, conv: str, rnn: str,
-                     i: int):
-    """One RG-LRU layer (+ MLP); its conv and RNN states are the
-    cache's ``conv``/``rnn`` entries of layer ``i``, written back."""
-    h, (c, r) = R.rglru_apply(rp["rec"], _rg_cfg(cfg),
-                              L.rmsnorm_apply(rp["ln_mix"], x),
-                              conv_state=cache[conv][i],
-                              rnn_state=cache[rnn][i])
+def _rec_layer_decode(rp, cfg: ArchConfig, x, cache, conv: str, rnn: str,
+                      i: int):
+    """One RG-LRU layer (+ MLP) of a decode step; its conv and RNN states
+    are the cache's ``conv``/``rnn`` entries of layer ``i``, written
+    back."""
+    x, (c, r) = _rec_layer_apply(rp, cfg, x, conv_state=cache[conv][i],
+                                 rnn_state=cache[rnn][i])
     cache[conv][i] = c
     cache[rnn][i] = r
-    return _mlp_residual(cfg, rp, x + h)
+    return x
 
 
 def _decode_hybrid(cfg: ArchConfig, params, cache, x, index):
@@ -598,18 +632,18 @@ def _decode_hybrid(cfg: ArchConfig, params, cache, x, index):
     w = cache["k"].shape[2]
     for i in range(cfg.n_layers // 3):
         gp = layer_params(params["groups"], i)
-        x = _rec_layer_apply(gp["rec0"], cfg, x, cache, "g_conv0", "g_rnn0",
-                             i)
-        x = _rec_layer_apply(gp["rec1"], cfg, x, cache, "g_conv1", "g_rnn1",
-                             i)
+        x = _rec_layer_decode(gp["rec0"], cfg, x, cache, "g_conv0",
+                              "g_rnn0", i)
+        x = _rec_layer_decode(gp["rec1"], cfg, x, cache, "g_conv1",
+                              "g_rnn1", i)
         h = L.decode_attention_ring(
             gp["attn"], acfg, L.rmsnorm_apply(gp["ln_attn"], x),
             k_cache=cache["k"][i], v_cache=cache["v"][i], cache_index=index,
             window=w)
         x = _mlp_residual(cfg, gp, x + h)
     for i in range(cfg.n_layers % 3):
-        x = _rec_layer_apply(layer_params(params["tail"], i), cfg, x, cache,
-                             "t_conv0", "t_rnn0", i)
+        x = _rec_layer_decode(layer_params(params["tail"], i), cfg, x,
+                              cache, "t_conv0", "t_rnn0", i)
     return x
 
 

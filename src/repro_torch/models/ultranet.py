@@ -3,7 +3,7 @@
 Torch port of ``repro.models.ultranet``.  DAC-SDC 2020 object-detection
 CNN: 8 conv3x3 stages (4 with a 2x2 maxpool) plus a 1x1 head, quantized
 W4A4, NHWC activations and ``[C_out, C_in, k, k]`` weights as in the
-reference.  Two execution paths:
+reference.  Two execution paths, and a benchmark baseline:
 
   * ``mode="ref"``  — the exact integer conv oracle
     (``kernels/ref.conv2d_int_ref``, float64 products, exact);
@@ -15,8 +15,11 @@ reference.  Two execution paths:
     a wide DSP48E2/DSP58 or FP32M word then runs on B3 as well) or
     ``SDVPlan`` (the conv becomes an im2col GEMM on that plan).
 
-The reference's benchmark-only ``mode="bseg_jnp"`` (the seed's
-broadcast pure-jnp BSEG emulation) is not ported.
+``mode="bseg_jnp"`` keeps the reference's broadcast-materialized seed
+emulation (one ``core.bseg.bseg_conv1d`` pass per kernel row, the
+activations broadcast to [B, H, C_out, C_in, W]) as a benchmark
+baseline only: it is on no serving path, and at 416x416 its broadcast
+alone is tens of GB.
 
 Thresholding (FINN-style) is modeled as requantize -> unsigned int4
 activations: the signed-kernel x unsigned-input regime of Eqs. 9/10.
@@ -29,7 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.bseg import bseg_num_multiplies
+from ..core.bseg import bseg_conv1d, bseg_num_multiplies
 from ..core.datapath import INT32, BSEGPlan, SDVPlan, plan_bseg
 from ..device import resolve_device
 from ..kernels import ops, ref
@@ -43,7 +46,7 @@ HEAD_CHANNELS = 36          # 6 anchors x (4 box + 1 obj + 1 cls)
 W_BITS = 4
 A_BITS = 4
 
-ULTRANET_MODES = ("ref", "bseg")
+ULTRANET_MODES = ("ref", "bseg", "bseg_jnp")
 
 
 @dataclasses.dataclass
@@ -90,6 +93,28 @@ def _conv2d_planned(x: torch.Tensor, w: torch.Tensor, chosen,
     return ops.packed_conv2d(x, w, plan=plan, mode="auto", zero_point=0)
 
 
+def _conv2d_bseg_jnp(x: torch.Tensor, w: torch.Tensor,
+                     plan) -> torch.Tensor:
+    """SEED BASELINE (benchmarks only): the conv through the cycle-level
+    BSEG 1-D oracle, one pass per kernel row with activations
+    broadcast-materialized to [B, H, C_out, C_in, W]."""
+    b, hh, ww, cin = x.shape
+    cout, _, kh, kw = w.shape
+    pad = kh // 2
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    total = torch.zeros((b, hh, ww, cout), dtype=torch.int32,
+                        device=x.device)
+    for r in range(kh):
+        rows = xp[:, r:r + hh, :, :].movedim(-1, 2)      # [B,hh,cin,Wp]
+        taps = w[:, :, r, :].to(torch.int32)             # [cout,cin,kw]
+        shape = (b, hh, cout, cin)
+        y = bseg_conv1d(taps[None, None].expand(shape + (kw,)),
+                        rows[:, :, None].expand(shape + (rows.shape[-1],)),
+                        plan, input_zero_point=0)        # [...,W_out]
+        total = total + y.sum(dim=3).movedim(2, -1)
+    return total
+
+
 def _conv2d(x, w, plan, mode: str, chosen=None):
     if chosen is not None and mode == "bseg":
         return _conv2d_planned(x, w, chosen, plan)
@@ -98,9 +123,7 @@ def _conv2d(x, w, plan, mode: str, chosen=None):
     if mode == "bseg":
         return ops.packed_conv2d(x, w, plan=plan, mode="auto", zero_point=0)
     if mode == "bseg_jnp":
-        raise NotImplementedError(
-            "mode 'bseg_jnp' (the JAX package's benchmark-only seed "
-            "emulation) is not ported")
+        return _conv2d_bseg_jnp(x, w, plan)
     raise ValueError(f"unknown ultranet mode {mode!r}; "
                      f"expected one of {ULTRANET_MODES}")
 

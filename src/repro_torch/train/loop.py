@@ -9,8 +9,8 @@ Gradients come from ``torch.autograd`` over ``models.forward``
 (``train/qat/ste.py``'s autograd functions inside it under QAT); the JAX
 package's ``lax.scan`` over loss chunks and microbatches is a Python
 loop here, and its ``jax.jit`` of the step is not ported (the step runs
-op by op).  The families with a ported ``forward`` train: dense, moe,
-vlm (the loss over the text positions only) and encdec.
+op by op).  Every family trains: dense, moe, vlm (the loss over the
+text positions only), encdec, ssm and hybrid.
 """
 from __future__ import annotations
 

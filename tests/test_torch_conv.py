@@ -372,9 +372,13 @@ def test_ultranet_weights_and_accounting():
     with pytest.raises(ValueError, match="unknown ultranet mode"):
         TU.ultranet_forward(tparams, torch.zeros(1, 16, 16, 3), mode="bogus",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="bseg_jnp"):
-        TU.ultranet_forward(tparams, torch.zeros(1, 16, 16, 3),
-                            mode="bseg_jnp", device="cpu")
+    # the benchmark-only seed baseline runs, equal to the exact oracle
+    img = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 16, (1, 16, 16, 3)))
+    assert TU.ULTRANET_MODES == JU.ULTRANET_MODES
+    assert torch.equal(
+        TU.ultranet_forward(tparams, img, mode="bseg_jnp", device="cpu"),
+        TU.ultranet_forward(tparams, img, mode="ref", device="cpu"))
     with pytest.raises(ValueError, match="per-layer plans"):
         TU.ultranet_forward(tparams, torch.zeros(1, 16, 16, 3), mode="ref",
                             plans=[None] * 9, device="cpu")

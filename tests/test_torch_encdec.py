@@ -55,6 +55,7 @@ from repro.serving import queue as j_queue
 from repro.serving.engine import Engine as JEngine
 from repro.train import loop as jloop
 from repro.train import optimizer as jopt
+from repro.train.qat import ste as jste
 
 import repro_torch.models as tm
 from repro_torch.configs.base import ArchConfig as TArchConfig
@@ -66,7 +67,8 @@ from repro_torch.serving import BucketShape, Engine
 from repro_torch.serving import loadgen as t_loadgen
 from repro_torch.serving.spec import SpecConfig, SpecDecoder
 from repro_torch.train import loop, optimizer
-from test_torch_qat import _recording, _worst_leaf_rel
+from repro_torch.train.qat import ste
+from test_torch_qat import _port_plan, _qat_paths, _recording, _worst_leaf_rel
 from test_torch_serving import TickClock, _drop_port_only
 
 ARCH = "seamless-m4t-large-v2"
@@ -430,6 +432,44 @@ def test_step_gradients_match_reference_float32(seamless, monkeypatch):
     dloss, dgrad = float32_step(monkeypatch, cfg, seamless["tcfg"], host)
     assert dloss <= LOSS_ATOL_F32, dloss
     assert dgrad <= GRAD_RTOL_F32, dgrad
+
+
+def qat_loss_check(cfg, tcfg, params, tparams, host):
+    """Packed QAT (W4A8, the planner's plans) of both packages from the
+    same weights: ``qat_params`` wraps the same leaf paths with the same
+    bitwidths and plans, and ``loss_fn`` of the wrapped trees on the host
+    batch agrees within ``LOSS_ATOL`` (the reference run op by op:
+    ``cfg`` unrolls its layer loop).  Returns the wrapped paths."""
+    kw = dict(w_bits=4, a_bits=8, min_size=1 << 10, plan_policy="auto")
+    qp = jste.qat_params(params, use_kernel=False, **kw)
+    tqp = ste.qat_params(tparams, **kw)
+    want = dict(_qat_paths(qp, is_qat=jste.is_qat))
+    got = dict(_qat_paths(tqp, is_qat=ste.is_qat))
+    assert sorted(got) == sorted(want)
+    for path, c in got.items():
+        assert (c.w_bits, c.a_bits) == (want[path].w_bits,
+                                        want[path].a_bits)
+        assert c.plan == _port_plan(want[path].plan), path
+    jl = float(jloop.loss_fn(cfg, qp, {k: jnp.asarray(v)
+                                       for k, v in host.items()}))
+    with torch.no_grad():
+        tl = float(loop.loss_fn(tcfg, tqp, {k: torch.from_numpy(v)
+                                            for k, v in host.items()}))
+    assert np.isfinite(tl) and abs(tl - jl) <= LOSS_ATOL, (tl, jl)
+    return got
+
+
+def test_qat_matches_reference(seamless):
+    """QAT of reduced seamless: both stacks' projections wrapped, the
+    decoder's cross projections among them, and the packed QAT loss."""
+    cfg = seamless["cfg"]
+    host = JData(vocab=cfg.vocab, seq_len=12, global_batch=2, seed=0,
+                 d_model=cfg.d_model, encdec=True).batch_at(0)
+    got = qat_loss_check(cfg, seamless["tcfg"], seamless["params"],
+                         seamless["tparams"], host)
+    assert {f"dec_blocks/cross/{w}/kernel" for w in ("wq", "wk", "wv",
+                                                     "wo")} <= set(got)
+    assert any(p.startswith("enc_blocks/") for p in got)
 
 
 # ---------------------------------------------------------------------------

@@ -417,8 +417,9 @@ def test_greedy_tokens_where_margin_exceeds_tolerance(runs, setup):
 
 def test_recurrent_families_refuse_prefill_and_advance(setup):
     """As in the JAX package: prompts are replayed one token per
-    decode_step, so prefill_step and the advance mask raise, and the
-    chunked SSD scan of the full-sequence path is not ported."""
+    decode_step, so prefill_step and the advance mask raise; the
+    full-sequence path (``ssm_apply(decode=False)``, the chunked SSD scan)
+    runs, and equals the decode recurrence step by step (float32)."""
     tcfg, tq = setup["tcfg"], setup["tq"]
     cache = tm.init_cache(tcfg, B, S_MAX, device="cpu")
     tokens = torch.zeros((B, 1), dtype=torch.int32)
@@ -429,8 +430,18 @@ def test_recurrent_families_refuse_prefill_and_advance(setup):
         tm.decode_step(tcfg, tq, cache, tokens,
                        advance=torch.ones(B, dtype=torch.int32))
     scfg = tssm.SSMConfig(d_model=8, d_inner=16, n_heads=2, d_state=4)
-    with pytest.raises(NotImplementedError, match="SSD"):
-        tssm.ssm_apply({}, scfg, torch.zeros(1, 4, 8), decode=False)
+    gen = torch.Generator().manual_seed(0)
+    p = tssm.ssm_init(tm.layers.Init(gen, torch.device("cpu"),
+                                     torch.float32), scfg)
+    x = torch.randn((1, 4, 8), generator=gen)
+    y, (_, h) = tssm.ssm_apply(p, scfg, x, decode=False)
+    conv = h1 = None
+    for t in range(4):
+        y1, (conv, h1) = tssm.ssm_apply(p, scfg, x[:, t:t + 1],
+                                        conv_state=conv, ssm_state=h1,
+                                        decode=True)
+        assert torch.allclose(y[:, t:t + 1], y1, rtol=0, atol=1e-5)
+    assert torch.allclose(h, h1, rtol=0, atol=1e-5)
 
 
 def test_serve_cli_recurrent_on_cpu(capsys):

@@ -99,9 +99,22 @@ def test_forward_matches_reference(tiny, diff):
 
 
 def test_forward_refuses_other_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(t_get_arch("mamba2-130m").reduced(), {},
-                   {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    """``forward`` runs every family (it refused the ssm and hybrid ones
+    before they were ported) and refuses an unknown mode."""
+    for arch in ("tinyllama-1.1b", "phi3.5-moe", "llava-next-mistral-7b",
+                 "seamless-m4t-large-v2", "mamba2-130m",
+                 "recurrentgemma-2b"):
+        cfg = t_get_arch(arch).reduced()
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.zeros((1, cfg.n_patches, cfg.d_model))
+        if cfg.family == "encdec":
+            batch["src"] = torch.zeros((1, 3, cfg.d_model))
+        with torch.no_grad():
+            out = tm.forward(cfg, tm.init_params(cfg, device="cpu"), batch,
+                             mode="last_logits")
+        assert tuple(out.shape) == (1, 1, cfg.vocab_padded), arch
+        assert bool(torch.isfinite(out).all()), arch
     with pytest.raises(ValueError, match="mode"):
         tm.forward(t_get_arch("tinyllama-1.1b").reduced(),
                    tm.init_params(t_get_arch("tinyllama-1.1b").reduced(),

@@ -47,7 +47,8 @@ from repro_torch.serving import BucketShape, Engine
 from repro_torch.serving import loadgen as t_loadgen
 from repro_torch.train import loop, optimizer
 from test_torch_encdec import (FORWARD_ATOL, GRAD_RTOL_F32, LOSS_ATOL,
-                               LOSS_ATOL_F32, float32_step, same_serve_tree)
+                               LOSS_ATOL_F32, float32_step, qat_loss_check,
+                               same_serve_tree)
 from test_torch_moe import (B, C, RULES, check_runs, jax_run, model_setup,
                             port_run)
 from test_torch_serving import TickClock, _drop_port_only, _op_by_op
@@ -144,6 +145,18 @@ def test_step_gradients_match_reference_float32(llava, monkeypatch):
     dloss, dgrad = float32_step(monkeypatch, cfg, llava["tcfg"], host)
     assert dloss <= LOSS_ATOL_F32, dloss
     assert dgrad <= GRAD_RTOL_F32, dgrad
+
+
+def test_qat_matches_reference(llava):
+    """QAT of reduced llava: the decoder's projections and the LM head
+    wrapped, ``proj_patches`` left float (``_SKIP_CONTAINERS``), and the
+    packed QAT loss of the text positions."""
+    cfg = llava["cfg"]
+    host = JData(vocab=cfg.vocab, seq_len=20, global_batch=2, seed=0,
+                 n_patches=cfg.n_patches, d_model=cfg.d_model).batch_at(0)
+    got = qat_loss_check(cfg, llava["tcfg"], llava["params"],
+                         llava["tparams"], host)
+    assert "lm_head" in got and not any("proj_patches" in p for p in got)
 
 
 # ---------------------------------------------------------------------------
