@@ -234,7 +234,24 @@ exit at the first failure:
      is under ``QAT_PEAK_LIMIT_GIB`` (2 steps, its B2 a step checked);
      then the int64 oracles on the card bit for bit against the kernels:
      ``core.sdv.sdv_matvec`` against B1 and B2, ``core.bseg.bseg_conv1d``
-     against B4, UltraNet ``mode="bseg_jnp"`` against ``mode="bseg"``.
+     against B4, UltraNet ``mode="bseg_jnp"`` against ``mode="bseg"``;
+ 16. dist — distribution (after the earlier phases' memory is freed), on
+     a one-rank ``nccl`` process group and a (1, 1) ("data", "model")
+     ``DeviceMesh`` (no fallback: without ``nccl`` the phase fails):
+     (a) ``train.grad_compress.compressed_allreduce`` over a float32
+     gradient tree of full-width tinyllama-1.1b's shapes (1.1e9 values),
+     packed == unpacked bit for bit in g_hat and the error, the card ==
+     the CPU (a one-rank ``gloo`` group) bit for bit on a slice of
+     ``DIST_SLICE`` values, the ms of the packed and the unpacked reduce
+     and their wire bytes; (b) ``launch/train.py --mesh 1,1 --steps
+     DIST_STEPS`` at the launcher's defaults (global batch 8 x 128, 2
+     microbatches) at full width, and the same steps without a mesh
+     from the same seed (``loop.init_run``): losses finite and within
+     ``DIST_LOSS_ATOL``, step walls and peak memory, the mesh run's
+     checkpoint restored into the plain layout bit for bit; (c) the dry
+     run's ``build_cell`` for tinyllama-1.1b ``train_4k`` and
+     ``decode_32k`` on the 16 x 16 production mesh (a fake process group
+     of 256 ranks): leaf counts, per-device argument bytes and flops.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -247,6 +264,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -394,6 +412,20 @@ QAT_PEAK_LIMIT_GIB = 70
 #: (channels, samples, taps)
 ORACLE_SDV_SHAPE = (64, 96)
 ORACLE_CONV_SHAPE = (37, 64, 4)
+
+
+#: the dist phase: the card-vs-CPU slice of the compressed all-reduce,
+#: the launcher's steps with and without a mesh, their losses' tolerance
+#: (the CPU tests' MESH_TOL: a mesh reduces the same bf16 products in
+#: another order), the dry run's cells and their argument/sharding leaf
+#: counts at full width (train: 12 parameters, their 24 moments, the
+#: step, the tokens; decode: 8 packed kernels of 2 leaves and 4 others,
+#: 5 cache leaves, the tokens — at the reference test's reduced width 4
+#: kernels stay under serve_params' min_size, 22 leaves)
+DIST_SLICE = 1 << 20
+DIST_STEPS = 3
+DIST_LOSS_ATOL = 2e-3
+DIST_CELLS = {"train_4k": 38, "decode_32k": 26}
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -4036,6 +4068,198 @@ def phase_ssm_train(dev, card, flush):
     return {"forward": forwards, "mamba_qat": mamba, "hybrid_qat": hybrid}
 
 
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_grad_compress(mesh, dev):
+    """(a): the compressed all-reduce over a full-width tinyllama-1.1b
+    gradient tree on the card, packed and unpacked, and on a slice
+    against the CPU."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.train import grad_compress as gc_mod
+    shapes = tree.leaves(init_params(get_arch("tinyllama-1.1b"),
+                                     device="meta"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    grads = [torch.randn(s.shape, generator=gen, device=dev) * 1e-3
+             for s in shapes]
+    errs = [torch.zeros_like(g) for g in grads]
+    n_values = sum(g.numel() for g in grads)
+    out, ms = {}, {}
+    for pack in (True, False):
+        gh, ne = gc_mod.compressed_allreduce(grads, errs, mesh,
+                                             pack_words=pack)   # warm
+        del gh, ne
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        gh, ne = gc_mod.compressed_allreduce(grads, errs, mesh,
+                                             pack_words=pack)
+        torch.cuda.synchronize(dev)
+        ms[pack] = (time.perf_counter() - t0) * 1e3
+        out[pack] = (gh, ne)
+    for (gp, ep), (gu, eu) in zip(zip(*out[True]), zip(*out[False])):
+        check(same_bits(gp, gu) and same_bits(ep, eu),
+              "dist: packed != unpacked compressed all-reduce")
+    # the card against the CPU on a slice (a one-rank gloo group)
+    g = grads[0].reshape(-1)[:DIST_SLICE]
+    e = (torch.randn(g.shape, generator=gen, device=dev) * 1e-4)
+    cpu_group = dist.new_group(ranks=[0], backend="gloo")
+    card = gc_mod.compress_psum(g, e, mesh.get_group("data"))
+    cpu = gc_mod.compress_psum(g.cpu(), e.cpu(), cpu_group)
+    check(all(same_bits(a.cpu(), b) for a, b in zip(card, cpu)),
+          "dist: compressed all-reduce on the card != the CPU")
+    packed_bytes = sum(-(-g.numel() // 2) * 4 for g in grads)
+    res = {"values": n_values, "packed_ms": ms[True],
+           "unpacked_ms": ms[False], "packed_wire_bytes": packed_bytes,
+           "unpacked_wire_bytes": 4 * n_values}
+    print(f"[dist] compressed all-reduce over {len(grads)} tinyllama "
+          f"gradient leaves ({n_values / 1e9:.3f}e9 values): packed "
+          f"{ms[True]:.1f} ms, {packed_bytes / 1e9:.3f} GB on the wire; "
+          f"unpacked int32 {ms[False]:.1f} ms, {4 * n_values / 1e9:.3f} GB; "
+          f"packed == unpacked bit for bit; card == CPU bit for bit on "
+          f"{g.numel()} values")
+    del grads, errs, out
+    return res
+
+
+def dist_train(dev, card):
+    """(b): the launcher's --mesh 1,1 run and the same steps without a
+    mesh; the mesh checkpoint restored into the plain layout."""
+    import shutil
+
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import checkpoint, loop
+    ckpt = ROOT / "build" / "dist_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mesh_run = launcher.main(["--arch", "tinyllama-1.1b", "--mesh", "1,1",
+                              "--steps", str(DIST_STEPS), "--device",
+                              str(dev), "--ckpt-dir", str(ckpt)])
+    mesh_s = time.perf_counter() - t0
+    mesh_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    mesh_params = [x.full_tensor() for x in tree.leaves(mesh_run["params"])]
+    del mesh_run["params"], mesh_run["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg, ocfg, params, opt, data = loop.init_run(
+        "tinyllama-1.1b", steps=DIST_STEPS, device=dev)
+    plain = {"losses": [], "step_s": []}
+
+    def on_step(s, p, o, m, dt, mon):
+        plain["losses"].append(float(m["loss"]))
+        plain["step_s"].append(dt)
+    params, opt, _, _ = loop.run_training(
+        cfg, ocfg, params, opt, data, steps=DIST_STEPS, microbatches=2,
+        on_step=on_step)
+    plain_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = mesh_run["losses"]
+    check(len(losses) == DIST_STEPS
+          and all(math.isfinite(x) for x in losses + plain["losses"]),
+          f"dist: losses {losses} / {plain['losses']}")
+    diff = max(abs(a - b) for a, b in zip(losses, plain["losses"]))
+    check(diff <= DIST_LOSS_ATOL,
+          f"dist: mesh losses {losses} vs plain {plain['losses']}")
+    t0 = time.perf_counter()
+    (restored, _), _ = checkpoint.restore(str(ckpt), DIST_STEPS,
+                                          (params, opt))
+    restore_s = time.perf_counter() - t0
+    got = tree.leaves(restored)
+    check(len(got) == len(mesh_params) and all(
+        same_bits(a, b) for a, b in zip(got, mesh_params)),
+        "dist: the mesh checkpoint does not restore bit for bit")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res = {"mesh_losses": losses, "plain_losses": plain["losses"],
+           "loss_diff": diff,
+           "mesh_step_ms": [t * 1e3 for t in mesh_run["step_s"]],
+           "plain_step_ms": [t * 1e3 for t in plain["step_s"]],
+           "mesh_peak_gib": mesh_peak, "plain_peak_gib": plain_peak,
+           "mesh_run_s": mesh_s, "restore_s": restore_s}
+    print(f"[dist] tinyllama-1.1b train, {DIST_STEPS} steps at the "
+          f"launcher's defaults (8 x 128, 2 microbatches; {card}): "
+          f"--mesh 1,1 losses {[round(x, 6) for x in losses]}, step ms "
+          f"{[round(t, 1) for t in res['mesh_step_ms']]}, peak "
+          f"{mesh_peak:.2f} GiB (the launcher run with its checkpoint "
+          f"{mesh_s:.1f} s); plain losses "
+          f"{[round(x, 6) for x in plain['losses']]}, step ms "
+          f"{[round(t, 1) for t in res['plain_step_ms']]}, peak "
+          f"{plain_peak:.2f} GiB; max |diff| {diff:.2e} <= "
+          f"{DIST_LOSS_ATOL}; the mesh checkpoint restored into the plain "
+          f"layout bit for bit ({restore_s:.1f} s)")
+    return res
+
+
+def dist_dryrun():
+    """(c): the dry run's tinyllama-1.1b cells on the production mesh."""
+    from repro_torch import tree
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_arch("tinyllama-1.1b")
+    res = {}
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        for name, n_leaves in DIST_CELLS.items():
+            _, _, args, in_sh, _ = dryrun.build_cell(cfg, SHAPES[name], mesh)
+            counts = (len(tree.leaves(args)), len(tree.leaves(in_sh)))
+            check(counts == (n_leaves, n_leaves),
+                  f"dist: dry-run {name} leaf counts {counts}, want "
+                  f"{n_leaves}")
+            r = dryrun.measure_cell(cfg, SHAPES[name], mesh)
+            check(r["flops"] > 0 and r["argument_bytes"] > 0,
+                  f"dist: dry-run {name} {r}")
+            res[name] = r
+            print(f"[dist] dry run tinyllama-1.1b x {name} x 16x16: "
+                  f"{n_leaves} leaves, {r['argument_bytes'] / 2**20:.1f} MiB "
+                  f"of arguments a device, {r['flops']:.4e} flops "
+                  f"({r['flops_per_device']:.4e} a device), built in "
+                  f"{r['build_s']} s")
+    return res
+
+
+def phase_dist(dev, card):
+    """Phase 16: distribution on a one-rank nccl group (see the module
+    docstring): (a) ``dist_grad_compress``, (b) ``dist_train``, then,
+    with the group gone, (c) ``dist_dryrun`` on a fake one."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    check(dist.is_available() and dist.is_nccl_available(),
+          "dist: torch.distributed has no nccl")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        comp = dist_grad_compress(mesh, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = dist_train(dev, card)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = dist_dryrun()
+    print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"compress": comp, "train": train, "dryrun": dry}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -4081,6 +4305,7 @@ def main() -> int:
         moe = phase_moe(dev, card, flush)
         fam = phase_families(dev, card, flush)
         ssm = phase_ssm_train(dev, card, flush)
+        phase_dist(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

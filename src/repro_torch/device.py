@@ -21,6 +21,14 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def plain_route(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper runs its plain torch version on ``t``:
+    a tensor on the CPU, or a ``meta`` tensor (a shape walk such as the
+    dry run's, which allocates nothing).  A CUDA tensor launches the
+    kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of a card; the kernel wrappers size

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core import limbs
-from ..device import sm_count
+from ..device import plain_route, sm_count
 from . import bseg_common, build
 
 #: the kernel's limits (mirrors csrc/bseg1d.cu)
@@ -214,7 +214,7 @@ def bseg_conv1d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
       removed; the zero-point correction is the caller's).
     """
     check_operands(x_pad, kappa, plan, s_out=s_out)
-    if x_pad.device.type == "cpu":
+    if plain_route(x_pad):
         return bseg_conv1d_plain(x_pad, kappa, plan, s_out=s_out)
     out = launch(x_pad, kappa, plan, s_out=s_out)
     bseg_conv1d.launches += 1

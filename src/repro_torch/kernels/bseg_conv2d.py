@@ -32,7 +32,7 @@ from typing import List, NamedTuple
 import torch
 
 from ..core import limbs
-from ..device import sm_count
+from ..device import plain_route, sm_count
 from . import bseg_common, build
 
 #: the plans the kernel takes: at most MAX_LANES product lanes (plan_bseg
@@ -329,7 +329,7 @@ def bseg_conv2d(x_pad: torch.Tensor, kappa: torch.Tensor, *, plan,
       tap width ``plan_bseg`` admits.
     """
     check_operands(x_pad, kappa, plan, h_out=h_out, w_out=w_out)
-    if x_pad.device.type == "cpu":
+    if plain_route(x_pad):
         return bseg_conv2d_plain(x_pad, kappa, plan, h_out=h_out,
                                  w_out=w_out)
     out = launch(x_pad, kappa, plan, h_out=h_out, w_out=w_out)

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from ..device import sm_count
+from ..device import plain_route, sm_count
 from . import build, ref
 
 #: threads per block, and resident blocks per SM the grid-stride loop
@@ -98,7 +98,7 @@ def pack_words(vals: torch.Tensor, *, w: int) -> torch.Tensor:
                          f"fields of a W{w} word")
     if not vals.is_contiguous():
         raise ValueError("values must be contiguous")
-    if vals.device.type == "cpu":
+    if plain_route(vals):
         return pack_words_plain(vals, w=w)
     out = torch.empty((m, n // per), dtype=torch.int32, device=vals.device)
     if out.numel() == 0:
@@ -125,7 +125,7 @@ def unpack_words(packed: torch.Tensor, *, w: int) -> torch.Tensor:
                          f"{tuple(packed.shape)} {packed.dtype}")
     if not packed.is_contiguous():
         raise ValueError("words must be contiguous")
-    if packed.device.type == "cpu":
+    if plain_route(packed):
         return unpack_words_plain(packed, w=w)
     m, nw = packed.shape
     out = torch.empty((m, nw * per), dtype=torch.int8, device=packed.device)
@@ -236,7 +236,7 @@ def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, *, w: int,
     group of ``rows_per_scale`` rows a layer."""
     _check_dequant(words, scale, w=w, d_out=d_out,
                    rows_per_scale=rows_per_scale, dtype=dtype)
-    if words.device.type == "cpu":
+    if plain_route(words):
         return unpack_dequant_plain(words, scale, w=w, d_out=d_out,
                                     rows_per_scale=rows_per_scale,
                                     dtype=dtype)

@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import sm_count
+from ..device import plain_route, sm_count
 from . import build, ref
 
 #: activation dtypes the kernel reads (others are the caller's to widen)
@@ -294,7 +294,7 @@ def quant_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     """x [m, k] (bf16/f32) @ packed weights [k, n/(32/w)] int32 -> [m, n]
     float32 (kernel B5); ``scale`` is the per-output-channel
     dequantization scale [n] float32."""
-    if x.device.type == "cpu":
+    if plain_route(x):
         check_operands(x, w_packed, scale, w=w)
         return quant_matmul_plain(x, w_packed, scale, w=w)
     return quant_matmul_cuda(x, w_packed, scale, w=w)

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import limbs
-from ..device import sm_count
+from ..device import plain_route, sm_count
 from . import bseg_common, build
 
 #: the kernels' limits and tiles (mirrors csrc/sdv.cu): lane slots
@@ -310,7 +310,7 @@ def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
       [R, G, n] int32 — exact per-lane dot products (mod 2^32).  Any K.
     """
     r, k, g = check_operands(x_q, w_words, plan, k_axis=1)
-    if x_q.device.type == "cpu":
+    if plain_route(x_q):
         return sdv_matmul_plain(x_q, w_words, plan)
     out = launch("sdv_gemm", x_q, w_words, plan, r, k, g)
     sdv_matmul.launches += 1

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import plain_route
 from .sdv_matmul import (GEMV_MAX_ROWS, check_operands, launch,
                          sdv_matmul_plain)
 
@@ -35,7 +36,7 @@ def sdv_matvec(x_t: torch.Tensor, w_words: torch.Tensor, *,
     if b > GEMV_MAX_ROWS:
         raise ValueError(f"the GEMV takes at most {GEMV_MAX_ROWS} rows, "
                          f"got {b}")
-    if x_t.device.type == "cpu":
+    if plain_route(x_t):
         return sdv_matmul_plain(x_t.T, w_words, plan)
     out = launch("sdv_gemv", x_t, w_words, plan, b, k, g)
     sdv_matvec.launches += 1

@@ -27,6 +27,8 @@ import torch
 
 from ..device import constant
 from ..quant import quantizer
+from . import shard_ctx
+from .param import P, Rules
 from .quantized import is_packed, is_sdv, materialize, sdv_matmul_apply
 
 
@@ -37,64 +39,82 @@ class Init:
     model ``dtype``; a stacked init prepends its layer axis ``lead`` to
     every shape.  The numbers are not JAX's (``convert`` carries those
     over).  With ``gen=None`` (the ``meta`` device) nothing is drawn:
-    ``normal`` gives an empty tensor of the shape and dtype."""
+    ``normal`` gives an empty tensor of the shape and dtype.
+
+    Every call names the logical axes of its parameter, as the JAX
+    package's does (the stacked layer axis is never sharded).  With
+    ``rules`` (``param.Rules``) each call returns ``param.P(value,
+    spec)``, the spec resolved from those axes; without, the bare value.
+    The axes never change a draw."""
 
     def __init__(self, gen: Optional[torch.Generator], device: torch.device,
-                 dtype: torch.dtype, lead=()):
+                 dtype: torch.dtype, lead=(), rules: Optional[Rules] = None):
         self.gen, self.device, self.dtype, self.lead = gen, device, dtype, \
             tuple(lead)
+        self.rules = rules
 
     def stacked(self, n: int) -> "Init":
-        return Init(self.gen, self.device, self.dtype, (n,))
+        return Init(self.gen, self.device, self.dtype, (n,), self.rules)
 
-    def normal(self, shape, *, std: float, dtype=None):
+    def _leaf(self, value: torch.Tensor, axes):
+        if self.rules is None:
+            return value
+        return P(value, self.rules.resolve((None,) * len(self.lead)
+                                           + tuple(axes)))
+
+    def normal(self, shape, axes, *, std: float, dtype=None):
         if self.gen is None:
-            return torch.empty(self.lead + tuple(shape),
-                               dtype=dtype or self.dtype, device=self.device)
+            return self._leaf(torch.empty(self.lead + tuple(shape),
+                                          dtype=dtype or self.dtype,
+                                          device=self.device), axes)
         v = torch.randn(self.lead + tuple(shape), generator=self.gen,
                         dtype=torch.float32, device=self.device)
-        return (v * std).to(dtype or self.dtype)
+        return self._leaf((v * std).to(dtype or self.dtype), axes)
 
-    def full(self, shape, value: float, dtype=None):
-        return torch.full(self.lead + tuple(shape), value,
-                          dtype=dtype or self.dtype, device=self.device)
+    def full(self, shape, axes, value: float, *, dtype=None):
+        return self._leaf(torch.full(self.lead + tuple(shape), value,
+                                     dtype=dtype or self.dtype,
+                                     device=self.device), axes)
 
-    def zeros(self, shape, dtype=None):
-        return self.full(shape, 0.0, dtype)
+    def zeros(self, shape, axes, *, dtype=None):
+        return self.full(shape, axes, 0.0, dtype=dtype)
 
-    def ones(self, shape, dtype=None):
-        return self.full(shape, 1.0, dtype)
+    def ones(self, shape, axes, *, dtype=None):
+        return self.full(shape, axes, 1.0, dtype=dtype)
 
 
-def dense_init(ini: Init, d_in: int, d_out: int, *, bias: bool = False,
-               std: Optional[float] = None):
+def dense_init(ini: Init, d_in: int, d_out: int, axes, *,
+               bias: bool = False, std: Optional[float] = None):
     std = std if std is not None else 1.0 / math.sqrt(d_in)
-    p = {"kernel": ini.normal((d_in, d_out), std=std)}
+    p = {"kernel": ini.normal((d_in, d_out), axes, std=std)}
     if bias:
-        p["bias"] = ini.zeros((d_out,))
+        p["bias"] = ini.zeros((d_out,), (axes[1],))
     return p
 
 
 def rmsnorm_init(ini: Init, dim: int):
-    return {"scale": ini.ones((dim,), dtype=torch.float32)}
+    return {"scale": ini.ones((dim,), (None,), dtype=torch.float32)}
 
 
 def attention_init(ini: Init, cfg: "AttnConfig", d_model: int,
                    qkv_bias: bool = False):
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     return {
-        "wq": dense_init(ini, d_model, h * hd, bias=qkv_bias),
-        "wk": dense_init(ini, d_model, kv * hd, bias=qkv_bias),
-        "wv": dense_init(ini, d_model, kv * hd, bias=qkv_bias),
-        "wo": dense_init(ini, h * hd, d_model),
+        "wq": dense_init(ini, d_model, h * hd, ("fsdp", "tp"),
+                         bias=qkv_bias),
+        "wk": dense_init(ini, d_model, kv * hd, ("fsdp", "tp"),
+                         bias=qkv_bias),
+        "wv": dense_init(ini, d_model, kv * hd, ("fsdp", "tp"),
+                         bias=qkv_bias),
+        "wo": dense_init(ini, h * hd, d_model, ("tp", "fsdp")),
     }
 
 
 def mlp_init(ini: Init, d_model: int, d_ff: int):
     return {
-        "wi_gate": dense_init(ini, d_model, d_ff),
-        "wi_up": dense_init(ini, d_model, d_ff),
-        "wo": dense_init(ini, d_ff, d_model),
+        "wi_gate": dense_init(ini, d_model, d_ff, ("fsdp", "tp")),
+        "wi_up": dense_init(ini, d_model, d_ff, ("fsdp", "tp")),
+        "wo": dense_init(ini, d_ff, d_model, ("tp", "fsdp")),
     }
 
 
@@ -162,8 +182,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
                      * torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
     ang = positions[..., None].to(torch.float32) * freq         # [B,S,half]
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
+    cos = shard_ctx.replicated_like(torch.cos(ang)[:, :, None, :], x)
+    sin = shard_ctx.replicated_like(torch.sin(ang)[:, :, None, :], x)
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
@@ -182,6 +202,7 @@ class AttnConfig:
     head_dim: int
     rope_theta: float = 10000.0
     window: Optional[int] = None
+    free_qkv_sharding: bool = False  # skip explicit q/k/v constraints
 
 
 def _stream_step(qf, kch, vch, carry, *, qpos, kpos, sk: int,
@@ -290,10 +311,22 @@ def attention_apply(params, cfg: AttnConfig, x, *, positions,
         k_in, v_in = kv
         k = dense_apply(params["wk"], k_in).reshape(b, k_in.shape[1], g, hd)
         v = dense_apply(params["wv"], v_in).reshape(b, v_in.shape[1], g, hd)
+    tp = shard_ctx.tp_size()
+    if not cfg.free_qkv_sharding and h % tp == 0:
+        # head-parallel attention (heads divide the model axis); else
+        # the placement is left to the sharding propagation
+        q = shard_ctx.constrain(q, "batch", None, "tp", None)
+        k = shard_ctx.constrain(k, "batch", None,
+                                "tp" if g % tp == 0 else None, None)
+        v = shard_ctx.constrain(v, "batch", None,
+                                "tp" if g % tp == 0 else None, None)
     attend = _stream_attend_diff if differentiable else _stream_attend
-    out = attend(q.reshape(b, s, g, h // g, hd), k, v, q_start=0,
-                 causal=causal, window=cfg.window,
-                 chunk=min(chunk, max(s, 16)))
+    # on a mesh the chunk loop runs on each rank's batch rows
+    out = shard_ctx.batch_local(
+        lambda q5, k4, v4: attend(q5, k4, v4, q_start=0, causal=causal,
+                                  window=cfg.window,
+                                  chunk=min(chunk, max(s, 16))),
+        q.reshape(b, s, g, h // g, hd), k, v)
     return dense_apply(params["wo"], out.reshape(b, s, h * hd)), (k, v)
 
 
@@ -485,8 +518,10 @@ def decode_attention_ring(params, cfg: AttnConfig, x, *, k_cache, v_cache,
 
 
 def mlp_apply(params, x, *, act: str = "swiglu"):
-    gate = dense_apply(params["wi_gate"], x)
-    up = dense_apply(params["wi_up"], x)
+    gate = shard_ctx.constrain(dense_apply(params["wi_gate"], x),
+                               "batch", None, "tp")
+    up = shard_ctx.constrain(dense_apply(params["wi_up"], x),
+                             "batch", None, "tp")
     if act == "swiglu":
         a = silu(gate)
     elif act == "geglu":
@@ -517,10 +552,13 @@ def moe_init(ini: Init, cfg: MoEConfig):
     MLP where the config has one."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     p = {
-        "router": dense_init(ini, d, e, std=0.01),
-        "wi_gate": ini.normal((e, d, f), std=1.0 / math.sqrt(d)),
-        "wi_up": ini.normal((e, d, f), std=1.0 / math.sqrt(d)),
-        "wo": ini.normal((e, f, d), std=1.0 / math.sqrt(f)),
+        "router": dense_init(ini, d, e, (None, None), std=0.01),
+        "wi_gate": ini.normal((e, d, f), ("ep", "fsdp", None),
+                              std=1.0 / math.sqrt(d)),
+        "wi_up": ini.normal((e, d, f), ("ep", "fsdp", None),
+                            std=1.0 / math.sqrt(d)),
+        "wo": ini.normal((e, f, d), ("ep", None, "fsdp"),
+                         std=1.0 / math.sqrt(f)),
     }
     if cfg.shared_expert:
         p["shared"] = mlp_init(ini, d, f)
@@ -572,6 +610,7 @@ def moe_apply(params, cfg: MoEConfig, x):
                       device=x.device)
     src = xt.repeat_interleave(k, dim=0)                       # [T*k, d]
     buf.index_put_((flat_e[keep], slot[keep]), src[keep], accumulate=True)
+    buf = shard_ctx.constrain(buf, "ep", None, None)
     gate = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_gate"], x.dtype))
     up = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_up"], x.dtype))
     a = silu(gate) if cfg.act == "swiglu" else gelu_tanh(gate)

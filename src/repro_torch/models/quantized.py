@@ -481,3 +481,55 @@ def serve_params(params: Any, bits: int = 4, min_size: int = 1 << 16,
     if planner_ctx is not None and planner_ctx["cache"] is not None:
         planner_ctx["cache"].save()
     return out
+
+
+def serve_param_specs(shapes: Any, specs: Any, bits: int = 4,
+                      min_size: int = 1 << 16) -> Any:
+    """Mirror of ``serve_params`` (memory packing) over (value tree,
+    ``PartitionSpec`` tree): the spec tree of the packed layout, the JAX
+    package's ``serve_param_specs``.  ``shapes`` holds tensors (``meta``
+    ones do) or anything with ``shape`` and ``ndim``.
+
+    ``PackedLinear`` leaves keep the kernel's spec on ``words`` (the dim
+    names unchanged, the minor dim shrinks by 32/bits) and drop the
+    reduced (second-to-last) axis from the ``scale`` spec."""
+    from .param import PartitionSpec
+
+    def scale_spec(spec, ndim):
+        axes = list(spec) + [None] * (ndim - len(spec))
+        axes[-2] = None
+        return PartitionSpec(*axes)
+
+    def quantized_leaf(shape_leaf, spec_leaf, name):
+        return PackedLinear(words=spec_leaf,
+                            scale=scale_spec(spec_leaf, shape_leaf.ndim),
+                            bits=bits, d_out=shape_leaf.shape[-1],
+                            stacked=_stacked_leading_axis(name)
+                            and shape_leaf.ndim > 2)
+
+    def size(shape) -> int:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        return n
+
+    def walk(sh, sp, name):
+        out = {}
+        for k in sh:
+            path = f"{name}/{k}" if name else k
+            if k in _SKIP_CONTAINERS:
+                out[k] = sp[k]
+            elif isinstance(sh[k], dict):
+                out[k] = walk(sh[k], sp[k], path)
+            elif k in _QUANT_LEAF_NAMES and hasattr(sh[k], "ndim") \
+                    and sh[k].ndim >= 2 and size(sh[k].shape) >= min_size:
+                out[k] = quantized_leaf(sh[k], sp[k], path)
+            else:
+                out[k] = sp[k]
+        return out
+
+    out = walk(shapes, specs, "")
+    if "lm_head" in out and not isinstance(out["lm_head"], PackedLinear):
+        out["lm_head"] = quantized_leaf(shapes["lm_head"], specs["lm_head"],
+                                        "lm_head")
+    return out

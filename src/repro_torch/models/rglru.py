@@ -35,13 +35,15 @@ class RGLRUConfig:
 def rglru_init(ini: Init, cfg: RGLRUConfig):
     d, dr = cfg.d_model, cfg.d_rnn
     return {
-        "in_x": dense_init(ini, d, dr),
-        "in_gate": dense_init(ini, d, dr),
+        "in_x": dense_init(ini, d, dr, ("fsdp", "tp")),
+        "in_gate": dense_init(ini, d, dr, ("fsdp", "tp")),
         "conv": short_conv_init(ini, dr, cfg.d_conv),
-        "w_a": dense_init(ini, dr, dr, std=1.0 / math.sqrt(dr)),
-        "w_x": dense_init(ini, dr, dr, std=1.0 / math.sqrt(dr)),
-        "lam": ini.full((dr,), 2.0, dtype=torch.float32),
-        "out": dense_init(ini, dr, d),
+        "w_a": dense_init(ini, dr, dr, ("tp", None),
+                          std=1.0 / math.sqrt(dr)),
+        "w_x": dense_init(ini, dr, dr, ("tp", None),
+                          std=1.0 / math.sqrt(dr)),
+        "lam": ini.full((dr,), (None,), 2.0, dtype=torch.float32),
+        "out": dense_init(ini, dr, d, ("tp", "fsdp")),
     }
 
 

@@ -1,0 +1,148 @@
+"""Activation-sharding context — torch port of
+``repro.models.shard_ctx``.
+
+Launchers (train, dryrun) install the active ``Rules``; layers call
+``constrain(x, ...logical axes...)`` at the standard cut points.  With
+no rules installed (unit tests, one device), or on a plain tensor, it
+returns ``x`` unchanged, so model code never depends on a mesh being
+present and the single-device paths are untouched.  On a ``DTensor``
+it redistributes to the placements the rules resolve on the tensor's
+own ``DeviceMesh`` (``jax.lax.with_sharding_constraint``).
+
+The rest is the ``DTensor`` plumbing that GSPMD does implicitly:
+``placements`` (a spec as DTensor placements), ``replicated_like`` (a
+plain tensor the model makes, as a replicated operand), ``batch_local``
+(a function run per rank on its batch rows), ``gather_to_batch`` (the
+all-gather before an op with no sharding rule) and ``placed_as`` (a
+gradient reduced into its parameter's placements).  Each returns a
+plain tensor unchanged.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Sequence
+
+import torch
+
+from .param import PartitionSpec, Rules
+
+_ACTIVE: list = [None]
+
+
+@contextlib.contextmanager
+def use_rules(rules: Optional[Rules]):
+    _ACTIVE.append(rules)
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+def active_rules() -> Optional[Rules]:
+    return _ACTIVE[-1]
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def placements(dim_names: Sequence[str], spec: PartitionSpec, ndim: int):
+    """A spec on a tensor of ``ndim`` dimensions -> one DTensor placement
+    per mesh dimension (``dim_names``): ``Shard(d)`` on each mesh
+    dimension that entry ``d`` names (an entry of several names shards
+    that tensor dimension over each of them, major first), else
+    ``Replicate()``.  A name the mesh lacks is not sharded over."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(dim_names)
+    for d, entry in enumerate(tuple(spec)[:ndim]):
+        for name in (entry,) if isinstance(entry, str) else (entry or ()):
+            if name in dim_names:
+                i = list(dim_names).index(name)
+                if out[i] != Replicate():
+                    raise ValueError(f"mesh axis {name!r} shards two "
+                                     f"dimensions of {spec}")
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def constrain(x, *axes):
+    """with_sharding_constraint on logical axes (no-op without rules or
+    on a plain tensor)."""
+    rules = active_rules()
+    if rules is None or not _is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    want = placements(mesh.mesh_dim_names, rules.resolve(axes), x.ndim)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def replicated_like(t: torch.Tensor, ref):
+    """``t`` (a plain tensor the model code makes: positions, masks, the
+    streaming softmax's running state) as a replicated ``DTensor`` on
+    ``ref``'s mesh when ``ref`` is a ``DTensor``, else ``t`` itself: a
+    DTensor op refuses a plain operand that is not a scalar."""
+    if not _is_dtensor(ref) or _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _batch_placements(x):
+    """``x``'s placements with every mesh dimension replicated but those
+    that shard its batch dimension (0)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+
+
+def gather_to_batch(x):
+    """A ``DTensor`` sharded on its batch dimension alone (every other
+    mesh dimension replicated); a plain tensor as it is.  For the ops
+    that have no sharding rule on a sharded inner dimension (the cross
+    entropy's gather over a vocab-sharded logits tensor): GSPMD inserts
+    the same all-gather."""
+    if not _is_dtensor(x):
+        return x
+    want = _batch_placements(x)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def batch_local(fn, *xs):
+    """``fn(*xs)`` on the batch rows this rank holds, for a function that
+    treats its inputs' batch rows (dimension 0) independently.  Plain
+    tensors go straight in.  ``DTensor``s are first replicated on every
+    mesh dimension but those that shard the first one's batch dimension
+    (GSPMD inserts the same all-gather), then ``fn`` runs on the local
+    tensors and its output becomes a ``DTensor`` of those placements —
+    a ``shard_map`` over the batch axes.  The streaming attention goes
+    through here: its chunk loop (padding, slicing, masks, running
+    state) has no sharding rules to propagate."""
+    if not _is_dtensor(xs[0]):
+        return fn(*xs)
+    from torch.distributed.tensor import DTensor
+    mesh = xs[0].device_mesh
+    want = _batch_placements(xs[0])
+    local = [x.redistribute(mesh, want).to_local() for x in xs]
+    return DTensor.from_local(fn(*local), mesh, want, run_check=False)
+
+
+def placed_as(g, p):
+    """``g`` (a gradient) with the placements of ``p`` (its parameter)
+    when both are ``DTensor``s: a gradient comes out of autograd partial
+    over the axes its parameter is replicated on, and the optimizer
+    keeps every state in the parameter's placements (GSPMD's
+    out_shardings do the same reduction).  Else ``g`` itself."""
+    if not _is_dtensor(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def tp_size() -> int:
+    r = active_rules()
+    return getattr(r, "tp_degree", 1) if r is not None else 1

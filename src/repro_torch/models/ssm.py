@@ -24,8 +24,9 @@ from .quantized import BSEGConv, bseg_conv_apply
 
 
 def short_conv_init(ini: Init, channels: int, taps: int):
-    return {"w": ini.normal((channels, taps), std=1.0 / math.sqrt(taps)),
-            "b": ini.zeros((channels,))}
+    return {"w": ini.normal((channels, taps), ("tp", None),
+                            std=1.0 / math.sqrt(taps)),
+            "b": ini.zeros((channels,), ("tp",))}
 
 
 def short_conv_apply(params, x, *, state: Optional[torch.Tensor] = None):
@@ -76,16 +77,16 @@ def ssm_init(ini: Init, cfg: SSMConfig):
     d, di, h = cfg.d_model, cfg.d_inner, cfg.n_heads
     gn = cfg.n_groups * cfg.d_state
     return {
-        "in_z": dense_init(ini, d, di),
-        "in_x": dense_init(ini, d, di),
-        "in_bc": dense_init(ini, d, 2 * gn),
-        "in_dt": dense_init(ini, d, h),
+        "in_z": dense_init(ini, d, di, ("fsdp", "tp")),
+        "in_x": dense_init(ini, d, di, ("fsdp", "tp")),
+        "in_bc": dense_init(ini, d, 2 * gn, ("fsdp", "tp")),
+        "in_dt": dense_init(ini, d, h, ("fsdp", None)),
         "conv": short_conv_init(ini, di + 2 * gn, cfg.d_conv),
-        "a_log": ini.zeros((h,), dtype=torch.float32),
-        "d_skip": ini.ones((h,), dtype=torch.float32),
-        "dt_bias": ini.zeros((h,), dtype=torch.float32),
+        "a_log": ini.zeros((h,), (None,), dtype=torch.float32),
+        "d_skip": ini.ones((h,), (None,), dtype=torch.float32),
+        "dt_bias": ini.zeros((h,), (None,), dtype=torch.float32),
         "norm": rmsnorm_init(ini, di),
-        "out_proj": dense_init(ini, di, d),
+        "out_proj": dense_init(ini, di, d, ("tp", "fsdp")),
     }
 
 

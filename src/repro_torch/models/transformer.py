@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -68,14 +68,17 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import layers as L
 from . import rglru as R
+from . import shard_ctx
 from . import ssm as S
+from .param import PartitionSpec, Rules, specs
 from .quantized import BSEGConv, PackedLinear, SDVLinear
 
 
 def _attn_cfg(cfg: ArchConfig, *, window=None) -> L.AttnConfig:
     return L.AttnConfig(n_heads=cfg.n_heads, n_kv=cfg.n_kv,
                         head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-                        window=window)
+                        window=window,
+                        free_qkv_sharding=cfg.free_qkv_sharding)
 
 
 def _moe_cfg(cfg: ArchConfig) -> L.MoEConfig:
@@ -136,13 +139,15 @@ def _top_params(cfg: ArchConfig, ini: L.Init) -> Dict[str, Any]:
     patch-embedding projection ahead of the text)."""
     d = cfg.d_model
     p: Dict[str, Any] = {
-        "embed": ini.normal((cfg.vocab_padded, d), std=0.02),
+        "embed": ini.normal((cfg.vocab_padded, d), ("tp", "fsdp"),
+                            std=0.02),
         "ln_f": L.rmsnorm_init(ini, d),
     }
     if not cfg.tie_embeddings:
-        p["lm_head"] = ini.normal((d, cfg.vocab_padded), std=0.02)
+        p["lm_head"] = ini.normal((d, cfg.vocab_padded), ("fsdp", "tp"),
+                                  std=0.02)
     if cfg.frontend == "vision":
-        p["proj_patches"] = L.dense_init(ini, d, d)
+        p["proj_patches"] = L.dense_init(ini, d, d, (None, None))
     return p
 
 
@@ -185,17 +190,19 @@ def _decoder_stacks(cfg: ArchConfig, ini: L.Init, n: int):
     return p
 
 
-def init_params(cfg: ArchConfig, seed: int = 0,
-                device="cuda") -> Dict[str, Any]:
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
+                rules: Optional[Rules] = None) -> Dict[str, Any]:
     """Random parameters with the JAX package's shapes, dtypes and stds
     (``transformer.init_params`` and the block inits), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  The numbers
     are not JAX's; ``convert.params_from_numpy`` carries JAX's over.
     On ``device="meta"`` the tree holds shapes and dtypes only: nothing
-    is drawn or allocated (the planner's shape walk)."""
+    is drawn or allocated (the planner's shape walk).  With ``rules``
+    every leaf is a ``param.P(value, spec)`` (the JAX package's P-tree;
+    ``param.values`` / ``param.specs`` split it), the same draws."""
     _require_family(cfg, "init_params")
     gen, dev = _init(seed, device)
-    ini = L.Init(gen, dev, cfg.dtype)
+    ini = L.Init(gen, dev, cfg.dtype, rules=rules)
     d = cfg.d_model
     p = _top_params(cfg, ini)
     if cfg.family in _KV_FAMILIES:
@@ -281,7 +288,7 @@ def _embed(cfg: ArchConfig, params, tokens):
     x = params["embed"][tokens.long()]
     if cfg.act == "geglu":                 # gemma family scales embeddings
         x = x * L.scalar_like(math.sqrt(cfg.d_model), x)
-    return x.to(cfg.dtype)
+    return shard_ctx.constrain(x.to(cfg.dtype), "batch", None, None)
 
 
 def unembed_hidden(cfg: ArchConfig, params, h):
@@ -295,7 +302,8 @@ def unembed_hidden(cfg: ArchConfig, params, h):
         logits = params["lm_head"].qat_apply(h)   # QAT STE (train/qat)
     else:
         logits = h @ L.mat(params["lm_head"], h.dtype)
-    return logits.to(torch.float32)
+    return shard_ctx.constrain(logits.to(torch.float32),
+                               "batch", None, "tp")
 
 
 def _unembed(cfg: ArchConfig, params, x):
@@ -489,6 +497,53 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
                 cache[f"{pref}_rnn{r}"] = zeros((n, b, cfg.d_rnn),
                                                 torch.float32)
     return cache
+
+
+def param_specs(cfg: ArchConfig, rules: Rules):
+    """The ``PartitionSpec`` tree of ``init_params`` under ``rules`` (the
+    JAX package's ``specs(init_params(cfg, rules, None))``), built on the
+    ``meta`` device: nothing is drawn or allocated."""
+    return specs(init_params(cfg, device="meta", rules=rules))
+
+
+def cache_specs(cfg: ArchConfig, rules: Rules, batch_size: int,
+                s_max: int) -> Dict[str, PartitionSpec]:
+    """The ``PartitionSpec`` of each leaf of ``init_cache(cfg,
+    batch_size, s_max)`` (the JAX package's ``specs(init_cache(cfg,
+    rules, b, s, abstract=True))``).  The TP axis lands on whichever KV
+    dimension it divides: the KV heads when ``n_kv`` is a multiple of
+    the TP degree, else ``head_dim``, else none; likewise the SSM state
+    on its heads, else its state dimension."""
+    _require_family(cfg, "cache_specs")
+    del batch_size, s_max                 # the specs do not depend on them
+    tp = max(1, rules.tp_degree)
+    hd, kv = cfg.hd, cfg.n_kv
+    kv_ax = ("tp", None) if kv and kv % tp == 0 else \
+        ((None, "tp") if hd and hd % tp == 0 else (None, None))
+
+    def spec(*axes):
+        return rules.resolve(axes)
+
+    kv_spec = spec(None, "batch", None, *kv_ax)
+    out = {"index": spec(None)}
+    if cfg.family in _KV_FAMILIES:
+        scale = spec(None, "batch", None, kv_ax[0])
+        out.update(k=kv_spec, v=kv_spec, k_scale=scale, v_scale=scale)
+    elif cfg.family == "encdec":
+        out.update(k=kv_spec, v=kv_spec, cross_k=kv_spec, cross_v=kv_spec)
+    elif cfg.family == "ssm":
+        nh = _ssm_cfg(cfg).n_heads
+        out["conv"] = spec(None, "batch", None, "tp")
+        out["ssm"] = spec(None, "batch", *(("tp", None, None)
+                                           if nh % tp == 0
+                                           else (None, "tp", None)))
+    else:                                       # hybrid
+        out.update(k=kv_spec, v=kv_spec)
+        for pref, reps in (("g", 2), ("t", 1)):
+            for r in range(reps):
+                out[f"{pref}_conv{r}"] = spec(None, "batch", None, "tp")
+                out[f"{pref}_rnn{r}"] = spec(None, "batch", "tp")
+    return out
 
 
 def _layer_cache(cache, i: int, scaled: bool = True):

@@ -1,7 +1,6 @@
 """Training substrate of the torch port: optimizer, loop,
-checkpointing, straggler policy, and packed QAT (``train.qat``).  The
-gradient compression of the JAX package (``grad_compress``) is
-distribution work and is not ported."""
-from . import checkpoint, loop, optimizer, straggler
+checkpointing, straggler policy, the int8 SDV-packed gradient
+all-reduce (``grad_compress``), and packed QAT (``train.qat``)."""
+from . import checkpoint, grad_compress, loop, optimizer, straggler
 
-__all__ = ["checkpoint", "loop", "optimizer", "straggler"]
+__all__ = ["checkpoint", "grad_compress", "loop", "optimizer", "straggler"]

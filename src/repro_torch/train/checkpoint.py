@@ -8,7 +8,12 @@ package restores the other's checkpoints.
     step, the leaf count, each leaf's dtype name, ``extra`` and the
     sha256 of ``leaves.npz``;
   * device-count independent: leaves are saved as full logical arrays
-    and placed on the template's devices on restore;
+    and placed on the template's devices on restore, or by
+    ``shardings`` as ``DTensor`` shards of another mesh (elastic
+    resharding: save on one mesh, restore on another).  A tree of
+    ``DTensor`` leaves is saved collectively: every rank calls ``save``
+    (the full tensors are gathered), rank 0 writes, and every rank
+    returns once the write is done;
   * atomic: write to ``<dir>/tmp.<step>`` then ``os.replace`` — a crash
     mid-write never corrupts the latest checkpoint;
   * validated: ``restore`` verifies the checksum and raises the typed
@@ -35,6 +40,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 
 from .. import tree as tree_util
 
@@ -57,18 +63,36 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _full(x):
+    """A leaf as one full tensor: a ``DTensor`` gathered from its shards
+    (a collective every rank of its mesh joins), else as it is."""
+    return x.full_tensor() if _is_dtensor(x) else x
+
+
 def _snapshot(x) -> Any:
-    """A copy of a leaf on the host: torch tensors copied to the CPU,
-    the rest as numpy arrays."""
+    """A copy of a leaf on the host: torch tensors (a ``DTensor``
+    gathered) copied to the CPU, the rest as numpy arrays."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True)
+        return _full(x.detach()).to("cpu", copy=True)
     return np.asarray(x)
+
+
+def _writer(leaves) -> bool:
+    """Whether this process writes a checkpoint of these leaves: every
+    process, unless they hold ``DTensor`` shards; then rank 0."""
+    return not (any(_is_dtensor(x) for x in leaves)
+                and torch.distributed.get_rank() != 0)
 
 
 def _encode(x):
     """A leaf -> (numpy array for the npz, dtype name)."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        x = _full(x.detach()).cpu()
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         a = x.numpy()
@@ -91,12 +115,22 @@ def _decode(a: np.ndarray, name: Optional[str]) -> torch.Tensor:
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
          keep: int = 3) -> str:
     """Synchronous atomic checkpoint write. Returns the final path."""
+    leaves = tree_util.leaves(tree)
+    encoded = [_encode(x) for x in leaves]      # gathers DTensor leaves
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if _writer(leaves):
+        _write(ckpt_dir, step, final, encoded, extra, keep)
+    if any(_is_dtensor(x) for x in leaves):
+        torch.distributed.barrier()        # every rank sees the write
+    return final
+
+
+def _write(ckpt_dir: str, step: int, final: str, encoded,
+           extra: Optional[dict], keep: int):
     os.makedirs(ckpt_dir, exist_ok=True)
-    encoded = [_encode(x) for x in tree_util.leaves(tree)]
     host_leaves = [e[0] for e in encoded]
     dtypes = [e[1] for e in encoded]
     tmp = os.path.join(ckpt_dir, f"tmp.{step}")
-    final = os.path.join(ckpt_dir, f"step_{step:09d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -111,7 +145,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
         shutil.rmtree(final)
     os.replace(tmp, final)
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -127,10 +160,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return int(steps[-1].split("_")[1]) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template: Any):
+def restore(ckpt_dir: str, step: int, template: Any, *,
+            shardings: Any = None):
     """Restore into the structure of ``template``.  Each leaf goes to
     the device of the template's leaf in its place (the CPU where that
-    is not a tensor).
+    is not a tensor; a ``DTensor`` template leaf gets this rank's shard
+    on its mesh); if ``shardings`` is given (a tree of
+    ``launch.mesh.Sharding``), each becomes a ``DTensor`` on its mesh
+    instead, every rank keeping its own shard — this is where elastic
+    resharding happens.
 
     A *missing* checkpoint raises ``FileNotFoundError`` (absence is
     not corruption); a *present-but-invalid* one — torn meta.json,
@@ -164,10 +202,33 @@ def restore(ckpt_dir: str, step: int, template: Any):
                       for i in range(meta["n_leaves"])]
     except Exception as e:       # zipfile/KeyError/ValueError zoo
         raise CheckpointCorrupt(f"{path}: bad leaves.npz: {e}") from e
-    targets = tree_util.leaves(template)
-    placed = [a.to(t.device if isinstance(t, torch.Tensor) else "cpu")
-              for a, t in zip(leaves, targets)]
+    if shardings is not None:
+        def put(a, s):
+            dev = torch.device(s.mesh.device_type)
+            if dev.type == "cuda":
+                dev = torch.device("cuda", torch.cuda.current_device())
+            return _shard(a.to(dev), s.mesh, s.placements)
+        placed = [put(a, s) for a, s in
+                  zip(leaves, tree_util.leaves(shardings))]
+    else:
+        placed = [_like(a, t) for a, t in
+                  zip(leaves, tree_util.leaves(template))]
     return tree_util.unflatten(template, placed), meta
+
+
+def _like(a: torch.Tensor, t) -> torch.Tensor:
+    """A restored leaf placed as the template's leaf ``t``: on its
+    device, or, for a ``DTensor``, as this rank's shard of it."""
+    if _is_dtensor(t):
+        return _shard(a.to(t.device), t.device_mesh, t.placements)
+    return a.to(t.device if isinstance(t, torch.Tensor) else "cpu")
+
+
+def _shard(a: torch.Tensor, mesh, placements):
+    """This rank's shard of the full tensor ``a`` (which every rank
+    holds) as a ``DTensor``: sliced locally, no collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(a, mesh, list(placements), src_data_rank=None)
 
 
 class AsyncCheckpointer:
@@ -186,8 +247,11 @@ class AsyncCheckpointer:
     def save_async(self, step: int, tree: Any, *,
                    extra: Optional[dict] = None):
         self.wait()
-        # synchronous device->host snapshot (consistent view) …
+        # synchronous device->host snapshot (consistent view; a DTensor
+        # is gathered, by every rank) …
         host_tree = tree_util.tree_map(_snapshot, tree)
+        if not _writer(tree_util.leaves(tree)):
+            return
         # … asynchronous disk write.
         self._thread = threading.Thread(
             target=save, args=(self.ckpt_dir, step, host_tree),

@@ -22,7 +22,7 @@ import torch
 from .. import tree
 from ..configs.base import ArchConfig
 from ..device import constant
-from ..models import forward
+from ..models import forward, shard_ctx
 from ..quant.quantizer import div
 from . import optimizer, straggler
 
@@ -43,7 +43,10 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     n_chunks = sm1 // c
 
     def ce_of(h_chunk, t_chunk):
-        logits = unembed_hidden(cfg, params, h_chunk)     # [B,c,V] f32
+        # [B,c,V] f32; on a mesh the vocab-sharded logits are gathered
+        # first: the gather of the gold logit has no sharding rule there
+        logits = shard_ctx.gather_to_batch(
+            unembed_hidden(cfg, params, h_chunk))
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, t_chunk[..., None])[..., 0]
         return torch.sum(logz - gold)
@@ -69,7 +72,8 @@ def make_train_step(cfg: ArchConfig, ocfg: optimizer.OptConfig,
                   for p in tree.leaves(params)]
         loss = loss_fn(cfg, tree.unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
+        return loss.detach(), [torch.zeros_like(p) if g is None
+                               else shard_ctx.placed_as(g, p)
                                for p, g in zip(leaves, grads)]
 
     def train_step(params, opt_state, batch):
@@ -81,8 +85,7 @@ def make_train_step(cfg: ArchConfig, ocfg: optimizer.OptConfig,
                                  + tuple(x.shape[1:]))
             mb = {k: split(v) for k, v in batch.items()}
             loss_sum = None
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree.leaves(params)]
             for i in range(microbatches):
                 loss, g = grads_of(params, {k: v[i] for k, v in mb.items()})

@@ -82,7 +82,8 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init(cfg: OptConfig, params: Any) -> Any:
     def zeros_like_state(p):
-        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        # zeros_like keeps a DTensor parameter's mesh and placements
+        z = torch.zeros_like(p, dtype=torch.float32)
         if cfg.moments_8bit and p.ndim >= 1 and p.numel() >= 4096:
             return _q8(z)
         return z

@@ -37,7 +37,7 @@ def test_port_imports_without_jax_or_reference():
                           capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 36      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 69      # every module imported
 
 
 def _entry_points():
@@ -99,6 +99,8 @@ def _entry_points():
         "train_cli": lambda: train.main(["--smoke", "--steps", "1"]),
         "train_cli_qat": lambda: train.main(["--smoke", "--steps", "1",
                                              "--qat"]),
+        "train_cli_mesh": lambda: train.main(["--smoke", "--steps", "1",
+                                              "--mesh", "1,1"]),
     }
 
 
@@ -118,7 +120,8 @@ def _entry_points():
                                   "serve_cli_speculative",
                                   "autotune_layer", "opt_state_from_numpy",
                                   "device_batch", "init_run", "run_qat",
-                                  "train_cli", "train_cli_qat"])
+                                  "train_cli", "train_cli_qat",
+                                  "train_cli_mesh"])
 def test_entry_points_refuse_to_fall_back_to_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device exists")

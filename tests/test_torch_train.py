@@ -330,7 +330,7 @@ def test_run_training_sync_inside_timed_region():
 def test_train_cli_float_and_qat(tmp_path, capsys):
     """``python -m repro_torch.launch.train`` on the CPU: float training
     with a checkpoint and a resume, then ``--qat`` with ``--export`` and
-    a QAT resume; ``--mesh`` refuses."""
+    a QAT resume; ``--mesh 2,2`` refuses on a one-rank process group."""
     import signal
 
     from repro_torch.launch import train
@@ -360,7 +360,7 @@ def _train_cli(train, tmp_path, capsys):
     train.main(qat + ["--steps", "3", "--resume"])
     assert "[qat] resumed at step 2" in capsys.readouterr().out
     assert checkpoint.latest_step(str(tmp_path / "qat")) == 3
-    with pytest.raises(NotImplementedError, match="Queue A6"):
+    with pytest.raises(ValueError, match="2 x 2 ranks"):
         train.main(["--mesh", "2,2", "--device", "cpu"])
 
 
