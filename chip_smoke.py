@@ -252,6 +252,25 @@ exit at the first failure:
      run's ``build_cell`` for tinyllama-1.1b ``train_4k`` and
      ``decode_32k`` on the 16 x 16 production mesh (a fake process group
      of 256 ranks): leaf counts, per-device argument bytes and flops.
+ 17. kv — the bf16 KV cache (``serve_kv_bits = 16``: K and V in bf16,
+     no scales) of the dense, moe and vlm families (after the earlier
+     phases' memory is freed): (a) reduced tinyllama-1.1b, phi3.5-moe
+     and llava-next-mistral-7b in SDV and memory modes on the card
+     against the CPU, a 5-token prefill and 8 decode steps: logits within
+     ``LOGIT_ATOL``, the bf16 K/V within one bf16 rounding of their scale
+     (the entries that differ counted); (b) full-width tinyllama-1.1b
+     (``serve_params``, min_size 1024) on the bf16 and on the int8 cache
+     in the same call, SDV and memory: a prefill of 8 x 16 tokens and 16
+     greedy steps (154 B2 a prefill and 154 B1 a step / 154 and 155 B7,
+     nothing else and no plain call), ms/step, tok/s, peak memory, the
+     cache's bytes, one decode step's busy share split into B1 or B7, the
+     KV write and attention (a profiler range) and the rest; on the bf16
+     cache ``single_batch_loop`` as the CLI runs it, and speculative
+     decoding (k = 3, the W4A4 draft, round by round as the engine runs
+     it), whose tokens must equal plain decode's; (c)
+     ``examples_torch/quickstart.py`` and ``ultranet_bseg.py`` (64x64),
+     each in a subprocess of its own on the card: exit 0 and their
+     "bit-exact ... True" lines.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -426,6 +445,13 @@ DIST_SLICE = 1 << 20
 DIST_STEPS = 3
 DIST_LOSS_ATOL = 2e-3
 DIST_CELLS = {"train_4k": 38, "decode_32k": 26}
+#: phase 17: the reduced models held card against CPU on the bf16 KV
+#: cache (``serve_kv_bits = KV_BITS``), their decode steps, and the
+#: profiler range of the decode step's KV write and attention
+KV_ARCHS = ("tinyllama-1.1b", "phi3.5-moe", "llava-next-mistral-7b")
+KV_BITS = 16
+KV_REFERENCE_STEPS = 8
+KV_RANGE = "kv_write_and_attend"
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -4260,6 +4286,346 @@ def phase_dist(dev, card):
     return {"compress": comp, "train": train, "dryrun": dry}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the bf16 KV cache of the dense, moe and vlm families; examples
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def labelled_kv_attention():
+    """Run the decode step's KV write and softmax attention
+    (``layers._write_kv``, ``layers._attend``: torch ops) inside a
+    profiler range named ``KV_RANGE``."""
+    import torch
+    from repro_torch.models import layers
+    orig = layers._write_kv, layers._attend
+
+    def labelled(fn):
+        def run(*args, **kwargs):
+            with torch.profiler.record_function(KV_RANGE):
+                return fn(*args, **kwargs)
+        return run
+    layers._write_kv, layers._attend = map(labelled, orig)
+    try:
+        yield
+    finally:
+        layers._write_kv, layers._attend = orig
+
+
+def kv_card_vs_cpu(dev):
+    """Reduced ``KV_ARCHS`` at ``serve_kv_bits = KV_BITS`` in SDV and
+    memory modes on the card against the same models on the CPU (plain
+    kernel versions): a 5-token prefill and ``KV_REFERENCE_STEPS`` decode
+    steps.  Logits within ``LOGIT_ATOL``, ``index`` bit for bit, the
+    bf16 K/V (no scale leaves) within one bf16 rounding of their scale
+    (``CACHE_SCALE_RTOL``); the entries that differ are counted."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step, serve_params)
+    cpu = torch.device("cpu")
+    for arch in KV_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch).reduced(),
+                                  serve_kv_bits=KV_BITS)
+        params = init_params(cfg, seed=1, device=cpu)
+        rng = np.random.default_rng(1)
+        prompt = rng.integers(0, cfg.vocab, (3, 5))
+        tokens = rng.integers(0, cfg.vocab, (KV_REFERENCE_STEPS, 3, 1))
+        for compute in ("sdv", "memory"):
+            outs, caches = {}, {}
+            for d in (cpu, dev):
+                q = serve_params(_to(params, d), bits=4, min_size=1024,
+                                 compute=compute)
+                i32 = dict(dtype=torch.int32, device=d)
+                cache = init_cache(cfg, 3, 16, device=d)
+                cache = prefill_step(cfg, q, cache,
+                                     torch.tensor(prompt, **i32),
+                                     torch.tensor([5, 3, 0], **i32))
+                logits = []
+                for t in tokens:
+                    out, cache = decode_step(cfg, q, cache,
+                                             torch.tensor(t, **i32))
+                    logits.append(out.cpu())
+                outs[d.type] = torch.stack(logits)
+                caches[d.type] = {k: v.cpu() for k, v in cache.items()}
+            err = float((outs["cuda"] - outs["cpu"]).abs().max())
+            check(err <= LOGIT_ATOL, f"reduced {cfg.name} bf16 KV ({compute}) "
+                                     f"card vs CPU logits differ by {err}")
+            card, host = caches["cuda"], caches["cpu"]
+            check(sorted(card) == ["index", "k", "v"]
+                  and card["k"].dtype == card["v"].dtype == torch.bfloat16,
+                  f"reduced {cfg.name}: cache leaves "
+                  f"{ {k: v.dtype for k, v in card.items()} }")
+            check(torch.equal(card["index"], host["index"]),
+                  f"reduced {cfg.name} ({compute}): index card vs CPU")
+            rel = {k: float((card[k].float() - host[k].float()).abs().max()
+                            / host[k].float().abs().max()) for k in ("k", "v")}
+            check(max(rel.values()) <= CACHE_SCALE_RTOL,
+                  f"reduced {cfg.name} ({compute}): bf16 K/V card vs CPU "
+                  f"{rel} of their scale > {CACHE_SCALE_RTOL}")
+            differ = {k: (int((card[k] != host[k]).sum()), host[k].numel())
+                      for k in ("k", "v")}
+            print(f"[kv] reduced {cfg.name}, bf16 KV cache ({compute}), "
+                  f"prefill + {KV_REFERENCE_STEPS} decode steps, card vs CPU: "
+                  f"max |dlogit| {err:.4g} (tolerance {LOGIT_ATOL}); index bit "
+                  "for bit; "
+                  + ", ".join(f"{k} within {v:.3g} of its scale"
+                              for k, v in rel.items())
+                  + "; entries that differ (of all): "
+                  + ", ".join(f"{k} {n} of {m}"
+                              for k, (n, m) in differ.items()))
+
+
+def kv_prompts(cfg, dev):
+    """The serve phase's seeded prompts [BATCH, PROMPT] and the prefill's
+    n_valid (the last prompt token opens decode)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
+                           dtype=torch.int32, device=dev)
+    return prompts, torch.full((BATCH,), PROMPT - 1, dtype=torch.int32,
+                               device=dev)
+
+
+def kv_decode_run(cfg, qparams, dev, card, compute, profiled=True):
+    """Full-width ``cfg`` on its own cache (int8 or bf16 by
+    ``serve_kv_bits``): a prefill of the first PROMPT-1 tokens of 8
+    prompts and NEW greedy decode steps at batch 8, each with exactly
+    the expected launches (SDV 154 B2 / 154 B1 a step, memory 154 / 155
+    B7) and no plain call; ms/step, tok/s, peak memory, the cache's
+    bytes and (``profiled``) one decode step's busy share split into B1 or
+    B7, the KV write and attention (a profiler range, ``KV_RANGE``) and
+    the rest.  Returns the readings and the greedy tokens [BATCH, NEW]."""
+    import torch
+    from repro_torch.launch.serve import cache_note
+    from repro_torch.models import decode_step, init_cache, prefill_step
+
+    per_step = 7 * cfg.n_layers
+    if compute == "sdv":
+        want_pre, want_dec = expect(B2=per_step), expect(B1=NEW * per_step)
+        kern = {"B1": "sdv_gemv_kernel"}
+    else:
+        want_pre = expect(B7=per_step)
+        want_dec = expect(B7=NEW * (per_step + 1))
+        kern = {"B7": "unpack_dequant_kernel"}
+    label = f"{cache_note(init_cache(cfg, 1, 1, device=dev))}, {compute}"
+    prompts, n_prompt = kv_prompts(cfg, dev)
+    # warm-up on a throwaway cache (first calls of the allocator, cuBLAS)
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    decode_step(cfg, qparams, cache, prompts[:, -1:])
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cache = prefill_step(cfg, qparams, cache, prompts, n_prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    c_pre = counts()
+    check(c_pre == want_pre, f"{label}: prefill launches {c_pre}")
+    reset_counts()
+    tok = prompts[:, -1:]
+    gen = []
+    t0 = time.perf_counter()
+    for _ in range(NEW):
+        logits, cache = decode_step(cfg, qparams, cache, tok)
+        tok = torch.argmax(logits[:, -1:, :cfg.vocab], dim=-1).to(torch.int32)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    c_dec = counts()
+    check(c_dec == want_dec, f"{label}: decode launches {c_dec}")
+    check(bool(torch.isfinite(logits).all()), f"{label}: non-finite logits")
+    check(cache["index"].tolist() == [PROMPT - 1 + NEW] * BATCH,
+          f"{label}: index {cache['index'].tolist()}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    kv_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()
+                if k != "index"}
+    ms = t_decode / NEW * 1e3
+    state = {"cache": {k: v.clone() for k, v in cache.items()}}
+
+    def step():
+        _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
+    split = None
+    if profiled:
+        with labelled_kv_attention():
+            split = step_split("kv", f"{cfg.name} {label}: one decode step "
+                               f"at batch {BATCH}", step, ms, card, kern,
+                               {"KV write + attention (torch)":
+                                lambda e: e.key == KV_RANGE})
+    print(f"[kv] {cfg.name} {label}: prefill {BATCH}x{PROMPT} "
+          f"{t_prefill * 1e3:.1f} ms, decode {ms:.3f} ms/step "
+          f"({BATCH * NEW / t_decode:.1f} tok/s), peak {peak:.3f} GiB, cache "
+          + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in kv_bytes.items())
+          + f" ({sum(kv_bytes.values()) / 1e6:.3f} MB); launches prefill "
+          f"{c_pre}, decode {c_dec} ({card})")
+    return {"prefill": c_pre, "decode": c_dec, "ms_step": ms,
+            "tok_s": BATCH * NEW / t_decode, "peak_gib": peak,
+            "kv_mb": sum(kv_bytes.values()) / 1e6, "split": split,
+            "tokens": torch.cat(gen, 1).cpu()}
+
+
+def kv_spec(cfg, params, qparams, dev, card, plain):
+    """Speculative decoding (k = ``SPEC_K``, the W4A4 self-speculation
+    draft of ``SpecDecoder``) of the serve prompts on ``cfg``'s cache,
+    round by round as the engine runs it (the draft on a fork, one
+    verify wave, acceptance and rollback on the device) until every row
+    has NEW tokens: 3 x 154 B1 + 154 B2 a round and nothing else, and
+    every row's tokens == ``plain`` (greedy decode's) — the gate of the
+    int8 spec phase.  A mismatch fails with the rows and positions that
+    differ (a fault for ROADMAP Queue C).  Returns the launch counts."""
+    import torch
+    from repro_torch.models import init_cache, prefill_step
+    from repro_torch.serving import SpecDecoder
+
+    per_step = 7 * cfg.n_layers
+    spec = SpecDecoder(cfg, params)
+    dqp = spec.draft_qparams(BATCH)
+    prompts, n_prompt = kv_prompts(cfg, dev)
+    s_max = PROMPT + NEW + SPEC_K + 1
+    cache = prefill_step(cfg, qparams, init_cache(cfg, BATCH, s_max,
+                                                  device=dev),
+                         prompts, n_prompt)
+    fork = init_cache(cfg, BATCH, s_max, device=dev)
+    pending = prompts[:, -1].clone()
+    remaining = torch.full((BATCH,), NEW, dtype=torch.int32, device=dev)
+    out = [[] for _ in range(BATCH)]
+    accepted = []
+    rounds = 0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    while int(remaining.max()) > 0:
+        adv = (remaining > 0).to(torch.int32)
+        props = spec.draft(dqp, cache, pending, adv, fork)
+        greedy, t, cache = spec.verify(qparams, cache, pending, props, adv,
+                                       remaining)
+        g, tt = greedy.cpu(), t.cpu()
+        for r in range(BATCH):
+            n = int(tt[r])
+            out[r] += g[r, :n].tolist()
+            if n:
+                pending[r] = g[r, n - 1]
+        accepted += [int(n) for n in tt if n]
+        remaining -= t
+        rounds += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    check(c == expect(B1=SPEC_K * per_step * rounds,
+                                     B2=per_step * rounds),
+          f"bf16 spec: launches {c}, want {rounds} rounds x ({SPEC_K} x "
+          f"{per_step} B1 + {per_step} B2)")
+    plain = plain.tolist()
+    bad = {r: [j for j, (a, b) in enumerate(zip(out[r], plain[r])) if a != b]
+           for r in range(BATCH) if out[r] != plain[r]}
+    check(not bad, "Queue C fault: speculative tokens on the bf16 cache != "
+          f"plain decode's (batch {BATCH}, prompt {PROMPT}, {NEW} new, k "
+          f"{SPEC_K}); rows: positions that differ {bad}")
+    print(f"[kv] {cfg.name} speculative k={SPEC_K} on the bf16 KV cache: "
+          f"every row's {NEW} tokens == plain decode's; {rounds} rounds, "
+          f"mean accepted {sum(accepted) / len(accepted):.3f}, "
+          f"{wall / rounds * 1e3:.2f} ms a round, launches {c} ({card})")
+    return c
+
+
+def kv_examples():
+    """``examples_torch/quickstart.py`` and ``ultranet_bseg.py`` (its
+    default 64x64 frame), each in a subprocess of its own on the card,
+    the two at once: exit code 0 and their "bit-exact ... True" lines."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+
+    def run(name):
+        return subprocess.run(
+            [sys.executable, str(ROOT / "examples_torch" / f"{name}.py")],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    want = {"quickstart": 3, "ultranet_bseg": 1}
+    with ThreadPoolExecutor(len(want)) as pool:
+        procs = dict(zip(want, pool.map(run, want)))
+    for name, proc in procs.items():
+        exact = [line for line in proc.stdout.splitlines()
+                 if re.search(r"bit-exact.*True", line)]
+        check(proc.returncode == 0 and len(exact) == want[name],
+              f"examples_torch/{name}.py: exit {proc.returncode}, "
+              f"{len(exact)} bit-exact lines of {want[name]}:\n"
+              f"{proc.stdout}{proc.stderr[-2000:]}")
+        print(f"[kv] examples_torch/{name}.py on the card: exit 0; "
+              + " | ".join(exact))
+    print(f"[kv] both examples in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_kv_bf16(dev, card):
+    """Phase 17: the bf16 KV cache (``serve_kv_bits = 16``) of the dense,
+    moe and vlm families and the examples (see the module docstring).
+    Frees what earlier phases left on the card first."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import single_batch_loop
+    from repro_torch.models import init_cache, init_params, serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    kv_card_vs_cpu(dev)
+    base = get_arch("tinyllama-1.1b")
+    cfgs = {8: base, KV_BITS: dataclasses.replace(base,
+                                                  serve_kv_bits=KV_BITS)}
+    per_step = 7 * base.n_layers
+    steps = PROMPT + NEW - 1
+    params = init_params(base, seed=0, device=dev)
+    runs, loops = {}, {}
+    spec = None
+    for compute in ("sdv", "memory"):
+        qparams = serve_params(params, bits=4, min_size=1024, compute=compute)
+        # int8, bf16, bf16, int8: host-bound walls drift within a call
+        for i, bits in enumerate((8, KV_BITS, KV_BITS, 8)):
+            run = kv_decode_run(cfgs[bits], qparams, dev, card, compute,
+                                profiled=i < 2)
+            if (compute, bits) in runs:
+                runs[compute, bits]["ms_again"] = run["ms_step"]
+            else:
+                runs[compute, bits] = run
+        # the serve CLI's loop on the bf16 cache
+        cfg = cfgs[KV_BITS]
+        reset_counts()
+        toks, dt = single_batch_loop(
+            cfg, qparams, init_cache(cfg, BATCH, PROMPT + NEW, device=dev),
+            kv_prompts(cfg, dev)[0], NEW)
+        loops[compute] = counts()
+        want = (expect(B1=steps * per_step) if compute == "sdv"
+                else expect(B7=steps * (per_step + 1)))
+        check(loops[compute] == want and toks.shape == (BATCH, NEW),
+              f"bf16 single_batch_loop ({compute}): launches "
+              f"{loops[compute]}, tokens {toks.shape}")
+        print(f"[kv] single_batch_loop on the bf16 KV cache ({compute}): "
+              f"{BATCH * steps / dt:.1f} tok/s ({steps} steps), launches "
+              f"{loops[compute]}")
+        if compute == "sdv":
+            spec = kv_spec(cfg, params, qparams, dev, card,
+                           runs[compute, KV_BITS]["tokens"])
+        del qparams
+    for compute in ("sdv", "memory"):
+        a, b = runs[compute, 8], runs[compute, KV_BITS]
+        print(f"[kv] {compute}, bf16 against int8 KV cache in this call: "
+              f"{b['ms_step']:.3f} and {b['ms_again']:.3f} / "
+              f"{a['ms_step']:.3f} and {a['ms_again']:.3f} ms/step (runs "
+              "int8, bf16, bf16, int8), "
+              f"{b['tok_s']:.1f} / {a['tok_s']:.1f} tok/s, peak "
+              f"{b['peak_gib']:.3f} / {a['peak_gib']:.3f} GiB, cache "
+              f"{b['kv_mb']:.3f} / {a['kv_mb']:.3f} MB ({card})")
+    del params
+    kv_examples()
+    print(f"[kv] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "loops": loops, "spec": spec}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -4306,6 +4672,7 @@ def main() -> int:
         fam = phase_families(dev, card, flush)
         ssm = phase_ssm_train(dev, card, flush)
         phase_dist(dev, card)
+        kv = phase_kv_bf16(dev, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4325,7 +4692,13 @@ def main() -> int:
                       **{f"{a} SDV decode": fam["runs"][a, "sdv"]["decode"]
                          ["B1"] for a in FAMILY_ARCHS},
                       "mamba2-130m QAT export decode":
-                          ssm["mamba_qat"]["b1_decode"]},
+                          ssm["mamba_qat"]["b1_decode"],
+                      "tinyllama bf16-KV SDV decode":
+                          kv["runs"]["sdv", KV_BITS]["decode"]["B1"],
+                      "tinyllama bf16-KV single_batch_loop":
+                          kv["loops"]["sdv"]["B1"],
+                      "tinyllama bf16-KV speculative (draft)":
+                          kv["spec"]["B1"]},
                "B2": {"tinyllama prefill": launches["B2"],
                       "ultranet int32": ultra["int32"]["B2"],
                       "tinyllama spec engine": spec["B2"],
@@ -4346,7 +4719,11 @@ def main() -> int:
                       "mamba2-130m QAT export eval":
                           ssm["mamba_qat"]["b2_export_eval"],
                       f"recurrentgemma-2b ({ssm['hybrid_qat']['n_layers']} "
-                      "layers) QAT train": ssm["hybrid_qat"]["b2_run"]}}
+                      "layers) QAT train": ssm["hybrid_qat"]["b2_run"],
+                      "tinyllama bf16-KV SDV prefill":
+                          kv["runs"]["sdv", KV_BITS]["prefill"]["B2"],
+                      "tinyllama bf16-KV speculative (verify)":
+                          kv["spec"]["B2"]}}
     kernels = []
     for kname in ("B1", "B2"):
         acc = layer[kname]
@@ -4477,7 +4854,13 @@ def main() -> int:
                    for a in FAMILY_ARCHS
                    for path in ("prefill", "decode", "forward")},
                 **{f"{a} memory forward": ssm["forward"][a, "memory"]
-                   ["launches"]["B7"] for a in SSM_ARCHS}},
+                   ["launches"]["B7"] for a in SSM_ARCHS},
+                "tinyllama bf16-KV memory prefill":
+                    kv["runs"]["memory", KV_BITS]["prefill"]["B7"],
+                "tinyllama bf16-KV memory decode":
+                    kv["runs"]["memory", KV_BITS]["decode"]["B7"],
+                "tinyllama bf16-KV memory single_batch_loop":
+                    kv["loops"]["memory"]["B7"]},
                ("one tinyllama memory decode step: 154 W4 projections + the "
                 "LM head, unpacked and dequantized to bf16 in one pass "
                 "(unpack_dequant_kernel); before_ms: the route it replaced "

@@ -100,9 +100,11 @@ def cache_note(cache) -> str:
         return (f"{str(cache['k'].dtype).removeprefix('torch.')} "
                 f"self-attention KV cache and cross cache of "
                 f"{cache['k'].shape[2]} entries")
-    if "k" in cache:
+    if "g_rnn0" in cache:
         return (f"{str(cache['k'].dtype).removeprefix('torch.')} KV ring "
                 f"cache of {cache['k'].shape[2]} entries")
+    if "k" in cache:
+        return f"{str(cache['k'].dtype).removeprefix('torch.')} KV cache"
     return "recurrent-state cache (no KV)"
 
 

@@ -26,9 +26,9 @@ WEIGHT_SEED = 0
 FRAME_SEED = 1
 
 
-def main(argv=None):
+def main(argv=None, default_size: int = 416):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--size", type=int, default=416,
+    ap.add_argument("--size", type=int, default=default_size,
                     help="input resolution (paper: 416)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "

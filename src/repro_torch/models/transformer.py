@@ -99,8 +99,9 @@ def _rg_cfg(cfg: ArchConfig) -> R.RGLRUConfig:
 
 #: the families each entry point runs
 _DECODE_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
-#: the decoder-only families with an int8 KV cache, chunked prefill and
-#: speculative verification
+#: the decoder-only families with a KV cache (int8 at ``serve_kv_bits ==
+#: 8``, else the model dtype), chunked prefill and speculative
+#: verification
 _KV_FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -109,8 +110,12 @@ def _require_family(cfg: ArchConfig, what: str):
         raise NotImplementedError(
             f"{what}: family {cfg.family!r} is not ported yet (ported: "
             f"{', '.join(_DECODE_FAMILIES)})")
-    if cfg.family in _KV_FAMILIES and cfg.serve_kv_bits != 8:
-        raise NotImplementedError("only the int8 KV cache is ported")
+
+
+def _kv8(cfg: ArchConfig) -> bool:
+    """Whether the cache of ``cfg`` is int8 with per-(position, head)
+    scales: the decoder-only families at ``serve_kv_bits == 8``."""
+    return cfg.family in _KV_FAMILIES and cfg.serve_kv_bits == 8
 
 
 # ---------------------------------------------------------------------------
@@ -447,8 +452,10 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
     """The decode cache, stacked layer axis first, with per-slot
     positions ``index[B]``:
 
-      * dense, moe and vlm: int8 KV [L, B, S_max, KV, hd] with
-        per-(position, head) f32 scales [L, B, S_max, KV];
+      * dense, moe and vlm: KV [L, B, S_max, KV, hd], int8 with
+        per-(position, head) f32 scales ``k_scale``/``v_scale``
+        [L, B, S_max, KV] at ``serve_kv_bits == 8``, else in the model
+        dtype without scales;
       * encdec: the decoder's self-attention KV ``k``/``v`` [L_dec, B,
         S_max, KV, hd] in the model dtype (bf16: the JAX package
         quantizes only the decoder-only families' caches) and the cross
@@ -472,9 +479,13 @@ def init_cache(cfg: ArchConfig, batch_size: int, s_max: int,
     cache = {"index": zeros((b,), torch.int32)}
     if cfg.family in _KV_FAMILIES:
         shape = (cfg.n_layers, b, s_max, cfg.n_kv, cfg.hd)
-        cache.update(k=zeros(shape, torch.int8), v=zeros(shape, torch.int8),
-                     k_scale=zeros(shape[:-1], torch.float32),
-                     v_scale=zeros(shape[:-1], torch.float32))
+        if _kv8(cfg):
+            cache.update(k=zeros(shape, torch.int8),
+                         v=zeros(shape, torch.int8),
+                         k_scale=zeros(shape[:-1], torch.float32),
+                         v_scale=zeros(shape[:-1], torch.float32))
+        else:
+            cache.update(k=zeros(shape), v=zeros(shape))
     elif cfg.family == "encdec":
         shape = (cfg.n_dec_layers, b, s_max, cfg.n_kv, cfg.hd)
         cache.update(k=zeros(shape), v=zeros(shape), cross_k=zeros(shape),
@@ -527,8 +538,10 @@ def cache_specs(cfg: ArchConfig, rules: Rules, batch_size: int,
     kv_spec = spec(None, "batch", None, *kv_ax)
     out = {"index": spec(None)}
     if cfg.family in _KV_FAMILIES:
-        scale = spec(None, "batch", None, kv_ax[0])
-        out.update(k=kv_spec, v=kv_spec, k_scale=scale, v_scale=scale)
+        out.update(k=kv_spec, v=kv_spec)
+        if _kv8(cfg):
+            scale = spec(None, "batch", None, kv_ax[0])
+            out.update(k_scale=scale, v_scale=scale)
     elif cfg.family == "encdec":
         out.update(k=kv_spec, v=kv_spec, cross_k=kv_spec, cross_v=kv_spec)
     elif cfg.family == "ssm":
@@ -548,28 +561,33 @@ def cache_specs(cfg: ArchConfig, rules: Rules, batch_size: int,
 
 def _layer_cache(cache, i: int, scaled: bool = True):
     """Layer ``i``'s (k, v, k_scale, v_scale); the scales None where the
-    layer writes and reads its int8 K/V unscaled."""
+    layer writes and reads its K/V unscaled (an int8 cache's unscaled
+    layers, or a cache in the model dtype)."""
     k, v = cache["k"][i], cache["v"][i]
     if not scaled:
         return k, v, None, None
     return k, v, cache["k_scale"][i], cache["v_scale"][i]
 
 
-def _decoder_layers(cfg: ArchConfig, params):
+def _decoder_layers(cfg: ArchConfig, params, cache=None):
     """(cache layer, block params, scaled) of each layer of the dense and
     moe families, in order.  Under ``moe_every = me > 1`` layer
     ``g*me + j`` is member j of group g: member 0 takes ``blocks[g]``
     (its MoE FFN), member j >= 1 ``blocks_dense{j}[g]`` (its MLP); the
     JAX package calls their attention without the int8 cache's scales,
     so they write K/V truncated to int8, read it unscaled and leave the
-    scales at zero (ROADMAP Queue C, reference property (e)):
-    ``scaled`` is False for them."""
+    scales at zero (ROADMAP Queue C, reference property (e)): ``scaled``
+    is False for them.  As in the JAX package, a layer is scaled only
+    where the cache has scales (``"k_scale" in cache``): a cache in the
+    model dtype (``serve_kv_bits != 8``) is written in that dtype by
+    every layer (``forward`` passes no cache)."""
     me = _moe_every(cfg)
+    scaled = me == 1 and cache is not None and "k_scale" in cache
     stacks = [params["blocks"]] + [params[f"blocks_dense{j}"]
                                    for j in range(1, me)]
     for g in range(cfg.n_layers // me):
         for j, stack in enumerate(stacks):
-            yield g * me + j, layer_params(stack, g), me == 1
+            yield g * me + j, layer_params(stack, g), scaled
 
 
 def _mlp_residual(cfg: ArchConfig, bp, y):
@@ -622,7 +640,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     # the written rows, selected once for every layer
     writes = L.decode_writes(index, wmask, cache["k"].shape[2])
     acfg = _attn_cfg(cfg)
-    for i, bp, scaled in _decoder_layers(cfg, params):
+    for i, bp, scaled in _decoder_layers(cfg, params, cache):
         h = L.decode_attention(
             bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
             cache=_layer_cache(cache, i, scaled), cache_index=index,
@@ -742,7 +760,7 @@ def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                               cache["k"].shape[2])
     acfg = _attn_cfg(cfg)          # same attention config as decode_step
     x = _embed(cfg, params, tokens)
-    for i, bp, scaled in _decoder_layers(cfg, params):
+    for i, bp, scaled in _decoder_layers(cfg, params, cache):
         h = L.prefill_attention(
             bp["attn"], acfg, L.rmsnorm_apply(bp["ln_attn"], x),
             cache=_layer_cache(cache, i, scaled), cache_index=index,

@@ -44,6 +44,8 @@ from .faults import (FAULT_CLASSES, FaultPlan, InjectedFault, WaveFaults,
                      corrupt_json_file)
 from .metrics import (EngineMetrics, latency_summary, packed_layer_stats,
                       packed_utilization, write_snapshot)
+from .spec import (SpecConfig, SpecDecoder, accept_length,
+                   calibrated_params)
 
 __all__ = [
     "Backpressure", "BucketShape", "BucketUnavailable",
@@ -55,4 +57,5 @@ __all__ = [
     "corrupt_json_file",
     "EngineMetrics", "latency_summary", "packed_layer_stats",
     "packed_utilization", "write_snapshot",
+    "SpecConfig", "SpecDecoder", "accept_length", "calibrated_params",
 ]

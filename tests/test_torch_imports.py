@@ -1,5 +1,6 @@
-"""The torch port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports jax or the ``repro`` package, importing them
+"""The torch port stands alone: no module of ``repro_torch``, no file of
+``examples_torch/``, and not ``chip_smoke.py``, imports jax or the
+``repro`` package, importing them
 builds no kernel, and an entry point called without a device raises on
 a machine without CUDA instead of quietly running on the CPU."""
 import os
@@ -23,6 +24,12 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+import importlib.util, pathlib
+examples = sorted(pathlib.Path(sys.argv[1], "examples_torch").glob("*.py"))
+assert len(examples) == 5, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location(f"ex_{path.stem}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 from repro_torch.kernels import build
 assert build.build_seconds == {}, build.build_seconds
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro")

@@ -14,6 +14,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.models as tm
 from repro_torch.configs.registry import get_arch
@@ -32,6 +33,19 @@ class FakeClock:
 
     def __call__(self):
         return self.t
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for these small CPU tensors: more only contend
+    with the test workers running beside this one (the 120 calibration
+    steps took 476.8 s under six workers at torch's default thread
+    count) and are slower here even alone.  The tests assert properties
+    of the runs, not bits, so the order of the sums may change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
