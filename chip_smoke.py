@@ -156,10 +156,13 @@ exit at the first failure:
      launcher's ``--qat`` defaults (W4A8, plan_policy "auto", batch 8 x
      128 in 2 microbatches) for 2 steps, saving its checkpoint, and step
      3 from memory: finite losses, every wrapped leaf on the planner's
-     plan, 310 B2 a step and 155 an eval batch and nothing else, step
-     walls, peak memory and one profiled step split into B2,
-     ``prepare_sdv_weights`` (a profiler range) and the rest (``qat_run``,
-     which phase 15 runs too); the
+     plan, 898 B2 a step (2 microbatches of 155 in the forward and 294 in
+     the backward's recompute under the registry's remat, ``qat_launches``)
+     and 155 an eval batch and nothing else, step walls, peak memory and
+     one profiled step split into B2, ``prepare_sdv_weights`` (a profiler
+     range) and the rest (``qat_run``, which phase 15 runs too); one more
+     step from the last state with ``remat=False``, bit for bit the
+     remat step's loss and parameters; the
      checkpoint restored bit for bit and step 3 run from it with the
      same loss; the step-3 parameters exported by ``export_for_serving``
      evaluate within 0.1 of the QAT eval (154 B2) and decode through
@@ -228,10 +231,12 @@ exit at the first failure:
      split (B2, B4, B7, the SSD scan, the RG-LRU scan, the rest); packed
      QAT of full-size mamba2-130m (``run_qat`` with the launcher's
      ``--qat`` defaults, a checkpoint at step 2, step 3 from memory and
-     from the restored checkpoint with the same loss, 240 B2 a step and
-     120 an eval batch, the export decoded on B1 + B4) and of
+     from the restored checkpoint with the same loss, 480 B2 a step (its
+     blocks recomputed) and 120 an eval batch, the export decoded on B1 +
+     B4) and of
      recurrentgemma-2b at full width cut to the depth whose reckoned peak
-     is under ``QAT_PEAK_LIMIT_GIB`` (2 steps, its B2 a step checked);
+     is under ``QAT_PEAK_LIMIT_GIB`` (2 steps, 432 B2 a step at 14
+     layers);
      then the int64 oracles on the card bit for bit against the kernels:
      ``core.sdv.sdv_matvec`` against B1 and B2, ``core.bseg.bseg_conv1d``
      against B4, UltraNet ``mode="bseg_jnp"`` against ``mode="bseg"``;
@@ -248,10 +253,14 @@ exit at the first failure:
      microbatches) at full width, and the same steps without a mesh
      from the same seed (``loop.init_run``): losses finite and within
      ``DIST_LOSS_ATOL``, step walls and peak memory, the mesh run's
-     checkpoint restored into the plain layout bit for bit; (c) the dry
-     run's ``build_cell`` for tinyllama-1.1b ``train_4k`` and
-     ``decode_32k`` on the 16 x 16 production mesh (a fake process group
-     of 256 ranks): leaf counts, per-device argument bytes and flops.
+     checkpoint restored into the plain layout bit for bit, the plain
+     step's peak above what was held before it; (c) the dry run's
+     ``build_cell`` for tinyllama-1.1b ``train_4k`` and ``decode_32k`` on
+     the 16 x 16 production mesh (a fake process group of 256 ranks): leaf
+     counts, and from ``measure_cell`` (reckoned by ``HostDryRun``'s
+     worker process, started with the script, beside the card's phases)
+     per-device argument bytes and flops, and for ``train_4k`` a rank's
+     peak, temporaries, outputs, collectives and bytes.
  17. kv — the bf16 KV cache (``serve_kv_bits = 16``: K and V in bf16,
      no scales) of the dense, moe and vlm families (after the earlier
      phases' memory is freed): (a) reduced tinyllama-1.1b, phi3.5-moe
@@ -271,6 +280,20 @@ exit at the first failure:
      ``examples_torch/quickstart.py`` and ``ultranet_bseg.py`` (64x64),
      each in a subprocess of its own on the card: exit 0 and their
      "bit-exact ... True" lines.
+ 18. remat — rematerialization of the full-sequence forward (after the
+     earlier phases' memory is freed): (a) full-width tinyllama-1.1b float
+     training through ``make_train_step``, 2 steps at 4 x 1024 tokens in
+     4 microbatches from one state with ``remat=False``, per-block remat
+     and the registry's ``remat_group`` 11: every loss and layer 0's
+     updated parameters bit for bit alike, step walls and peaks; (b) 3
+     steps at 4 x 4096 in 4 microbatches of one sequence on the
+     registry's remat: finite losses, step 1's within 1e-6 of a
+     ``no_grad`` ``loss_fn`` over the same microbatches, step walls and
+     the peak above what was held before; (c) the dry run's one-rank
+     (1, 1) ``measure_cell`` of (b)'s step (the worker's): with remat its
+     peak within 15% of (b)'s, without remat against the card's 80 GB,
+     and the reckoned peak of phase 16's plain step against its measured
+     one; (d) the QAT phases' B2 a step (checked there) and walls.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -285,6 +308,7 @@ import gc
 import json
 import math
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -354,15 +378,17 @@ ENGINE_MEMORY_REQUESTS = 8
 #: take BATCH x (k + 1) = 32 rows (B2); bursts of 8 of the engine
 #: phase's requests through a plain and a speculative engine on the
 #: engine phase's buckets and chunk; the full-width calibration run's
-#: Adam steps and rate (so the phase stays near 90 s; at lr 1e-3 the
-#: loss rose) and the reduced one's (the
+#: Adam steps and rate (120 steps since its forward recomputes under the
+#: registry's remat, 0.5 s a step on the H100, so the script stays well
+#: inside its time limit; at lr 1e-3 the loss rose) and the reduced
+#: one's (the
 #: reference's test: 120 steps at 1e-2); a run's loss "falls" when the
 #: mean of its last LOSS_WINDOW steps is below that of its first (one
 #: step's loss on a fresh random batch is noisy)
 SPEC_K = 3
 VERIFY_ROWS = BATCH * (SPEC_K + 1)
 SPEC_REQUESTS = 8
-SPEC_CALIBRATION = {"steps": 200, "lr": 1e-4}
+SPEC_CALIBRATION = {"steps": 120, "lr": 1e-4}
 SPEC_REDUCED_CALIBRATION = {"steps": 120, "lr": 1e-2}
 LOSS_WINDOW = 10
 #: the train phase: packed QAT of full-width tinyllama-1.1b as the
@@ -445,6 +471,27 @@ DIST_SLICE = 1 << 20
 DIST_STEPS = 3
 DIST_LOSS_ATOL = 2e-3
 DIST_CELLS = {"train_4k": 38, "decode_32k": 26}
+#: phase 18: rematerialization of full-width REMAT_ARCH float training:
+#: (a) REMAT_EXACT_STEPS steps at REMAT_EXACT = (global batch, seq,
+#: microbatches) under each of REMAT_SETTINGS, bit for bit alike; (b) the
+#: long step REMAT_LONG, REMAT_LONG_STEPS steps on the registry's remat,
+#: its first loss within REMAT_LOSS_RTOL of a no_grad ``loss_fn`` over the
+#: same microbatches; (c) the dry run's one-rank peak within
+#: REMAT_PEAK_RTOL of (b)'s measured one (the tolerances fixed before the
+#: first reading); the card's memory for the remat-off reckoning
+REMAT_ARCH = "tinyllama-1.1b"
+REMAT_EXACT, REMAT_EXACT_STEPS = (4, 1024, 4), 2
+REMAT_SETTINGS = {"off": dict(remat=False, remat_group=0),
+                  "block": dict(remat=True, remat_group=0),
+                  "registry": {}}
+REMAT_LONG, REMAT_LONG_STEPS = (4, 4096, 4), 3
+REMAT_LOSS_RTOL = 1e-6
+REMAT_PEAK_RTOL = 0.15
+CARD_BYTES = 80e9
+#: the dry run's cells are reckoned on the host by a worker process
+#: started with the script (``HostDryRun``); the phases that read them
+#: wait at most this long
+DRYRUN_WAIT_S = 900
 #: phase 17: the reduced models held card against CPU on the bf16 KV
 #: cache (``serve_kv_bits = KV_BITS``), their decode steps, and the
 #: profiler range of the decode step's KV write and attention
@@ -2659,13 +2706,14 @@ def phase_train(dev, card, flush):
     b3 = ste_card_checks(dev, plan)
     print(f"[train] kernel checks {time.perf_counter() - t_phase:.1f} s")
     run = qat_run("tinyllama-1.1b", dev, card, steps=QAT_STEPS,
-                  ckpt_step=QAT_CKPT_STEP, export=True, tag="train")
+                  ckpt_step=QAT_CKPT_STEP, export=True, remat_check=True,
+                  tag="train")
     check(run["qat_layers"] == 8 and run["plans"] == {plan},
           f"tinyllama QAT: {run['qat_layers']} wrapped leaves on "
           f"{run['plans']}, want 8 on {plan}")
     print(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
     return dict(b2=b2, split=run["split"], step_ms=run["step_ms"],
-                peak=run["peak_gib"],
+                peak=run["peak_gib"], remat_vs_off_ms=run["remat_vs_off_ms"],
                 launches={"B2 train": run["b2_run"],
                           "B2 resume": run["b2_resume"],
                           "B2 export eval": run["b2_export_eval"],
@@ -3716,22 +3764,63 @@ def ssm_forward(cfg, dev, card, compute):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def qat_launches(params):
-    """B2 launches of one microbatch's STE forward: one a wrapped
-    projection and layer."""
+def remat_loops(cfg):
+    """The layer loops of ``cfg``'s full-sequence forward: (the stacks one
+    remat unit draws on, whether the loop groups under ``remat_group``),
+    as ``models.transformer.forward`` runs them."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        me = cfg.moe_every if cfg.family == "moe" else 1
+        return [(("blocks",) + tuple(f"blocks_dense{j}"
+                                     for j in range(1, me)), True)]
+    if cfg.family == "ssm":
+        return [(("blocks",), True)]
+    if cfg.family == "hybrid":
+        return [(("groups",), True), (("tail",), False)]
+    return [(("enc_blocks",), True), (("dec_blocks",), True)]
+
+
+def qat_launches(params, cfg):
+    """B2 launches of one microbatch: (its forward, its forward and
+    backward).  The forward makes one a wrapped projection and layer.
+    The backward recomputes as ``cfg``'s remat says: under ``cfg.remat``
+    every block once more; under ``remat_group = g`` (the JAX package's
+    condition) every group once more, which stops at its last block's
+    input when the blocks are rematerialized (``torch.utils.checkpoint``
+    stops a recompute once it has every tensor it saved; the last block's
+    input is the group's last) and at its last block's saved tensors
+    otherwise; the LM head runs once."""
     from repro_torch.train.qat import is_qat
 
-    def walk(t, path):
+    def walk(t):
         if is_qat(t):
             return t.kernel.shape[0] if t.kernel.ndim == 3 else 1
         if isinstance(t, dict):
-            return sum(walk(v, path + (k,)) for k, v in t.items())
+            return sum(walk(v) for v in t.values())
         return 0
-    return walk(params, ())
+
+    def per_layer(t):
+        if is_qat(t):
+            return 1
+        if isinstance(t, dict):
+            return sum(per_layer(v) for v in t.values())
+        return 0
+    forward = walk(params)
+    step, g = forward, cfg.remat_group
+    for keys, grouped in remat_loops(cfg):
+        stacks = [params[k] for k in keys if k in params]
+        if not stacks or not per_layer(stacks[0]):
+            continue
+        n = walk(stacks[0]) // per_layer(stacks[0])       # the loop's units
+        unit = sum(per_layer(st) for st in stacks)
+        if cfg.remat:
+            step += n * unit
+        if grouped and cfg.scan_layers and 1 < g < n and n % g == 0:
+            step += (n // g) * (g - 1) * unit if cfg.remat else n * unit
+    return forward, step
 
 
 def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
-            tag="ssm"):
+            remat_check=False, tag="ssm"):
     """``run_qat`` of full-width ``arch`` with the launcher's ``--qat``
     defaults (W4A8, plan_policy "auto", batch 8 x 128 in 2 microbatches
     of 512 rows, so B2) for ``ckpt_step`` steps saving a checkpoint, then
@@ -3743,7 +3832,11 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
     the last step run from it with the same loss.  With ``export``: the
     trained tree exported (``export_for_serving``) evaluates within
     ``EXPORT_ATOL`` of the QAT eval (B2) and decodes through
-    ``single_batch_loop`` (B1, and B4 on the short convs)."""
+    ``single_batch_loop`` (B1, and B4 on the short convs).  With
+    ``remat_check``: one more step from the run's last state, on the
+    registry's remat and with ``remat=False``, bit for bit alike in the
+    loss and every updated parameter, and their walls."""
+    import dataclasses
     import math
     import shutil
     import statistics
@@ -3796,7 +3889,7 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
                 on_step=on_step)
         c_total = counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        per_mb = qat_launches(params)
+        per_mb, per_mb_step = qat_launches(params, cfg)
         n_run = ckpt_step or steps
         check(len(losses) == steps and all(math.isfinite(x) for x in losses)
               and math.isfinite(res["qat_eval"]),
@@ -3806,9 +3899,10 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
         steps_c = [_sub_counts(b, a) for a, b in zip(
             [zero] + snaps[:n_run - 1] + [c_run], snaps)]
         for i, c in enumerate(steps_c):
-            check(c == expect(B2=QAT_MICRO * per_mb),
+            check(c == expect(B2=QAT_MICRO * per_mb_step),
                   f"{arch} QAT step {i + 1} launches {c}, want B2="
-                  f"{QAT_MICRO * per_mb}")
+                  f"{QAT_MICRO * per_mb_step} ({QAT_MICRO} microbatches x "
+                  f"{per_mb} forward + recompute {per_mb_step - per_mb})")
         check(c_eval == expect(B2=per_mb), f"{arch} QAT eval {c_eval}")
         wrapped = {}
 
@@ -3831,7 +3925,9 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
               f"{sum(x.numel() for x in tree.leaves(params)) / 1e9:.3f}e9 "
               f"parameters; {QAT_BATCH}x{QAT_SEQ} tokens in {QAT_MICRO} "
               f"microbatches of {QAT_ROWS} rows; {len(wrapped)} wrapped "
-              f"leaves = {per_mb} projections a microbatch on "
+              f"leaves = {per_mb} projections a microbatch's forward, "
+              f"{per_mb_step} with its backward's recompute (remat "
+              f"{cfg.remat}, remat_group {cfg.remat_group}), on "
               f"{sorted(f'{p.spec.name} n={p.n}' for p in plans)}) "
               f"{wall:.1f} s with its evals"
               f"{' and checkpoint' if ckpt_step else ''}; losses "
@@ -3842,7 +3938,8 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
               f"{steps_c[0]}, an eval batch {c_eval}; peak memory "
               f"{peak:.2f} GiB ({card})")
         out.update(b2_run=c_total["B2"], b2_eval=c_eval["B2"],
-                   per_mb=per_mb, step_ms=step_ms, peak_gib=peak,
+                   per_mb=per_mb, per_mb_step=per_mb_step,
+                   step_ms=step_ms, peak_gib=peak,
                    losses=losses, plans=plans, qat_layers=len(wrapped))
 
         step_fn = loop.make_train_step(cfg, ocfg, microbatches=QAT_MICRO)
@@ -3852,6 +3949,30 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
             f"{cfg.name} QAT train step ({QAT_MICRO} x {QAT_ROWS} rows)",
             lambda: step_fn(params, res["opt"], batch), wall_ms, card,
             tag=tag)
+        if remat_check:
+            runs = {}
+            for name, c in (("remat", cfg), ("off", dataclasses.replace(
+                    cfg, remat=False, remat_group=0))):
+                fn = loop.make_train_step(c, ocfg, microbatches=QAT_MICRO)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                new_p, _, m = fn(params, res["opt"], batch)
+                torch.cuda.synchronize(dev)
+                runs[name] = (m["loss"], tree.leaves(new_p),
+                              (time.perf_counter() - t0) * 1e3)
+                del new_p, m
+            (la, pa, ma), (lb, pb, mb) = runs["remat"], runs["off"]
+            check(same_bits(la, lb) and all(
+                same_bits(a, b) for a, b in zip(pa, pb)),
+                f"{arch} QAT step: remat loss {float(la)!r}, remat=False "
+                f"{float(lb)!r}, or an updated parameter differs")
+            print(f"[{tag}] {cfg.name} QAT step from the run's last state: "
+                  f"remat (remat_group {cfg.remat_group}) loss "
+                  f"{float(la)!r} == remat=False {float(lb)!r}, all "
+                  f"{len(pa)} updated parameter leaves bit for bit; walls "
+                  f"{ma:.1f} / {mb:.1f} ms ({card})")
+            out["remat_vs_off_ms"] = (ma, mb)
+            del runs, pa, pb
 
         if ckpt_step:
             check(checkpoint.latest_step(str(ckpt)) == ckpt_step,
@@ -3873,8 +3994,9 @@ def qat_run(arch, dev, card, *, steps, ckpt_step=None, export=False,
                 resumed.append(float(m["loss"])))
             c_b = counts()
             del o_r
-            check(c_b == expect(B2=(steps - ckpt_step) * QAT_MICRO * per_mb),
-                  f"{arch} resumed launches {c_b}")
+            check(c_b == expect(
+                B2=(steps - ckpt_step) * QAT_MICRO * per_mb_step),
+                f"{arch} resumed launches {c_b}")
             check(resumed == losses[ckpt_step:], f"{arch} step {steps} loss "
                   f"resumed {resumed} != from memory {losses[ckpt_step:]}")
             pa, pb = tree.leaves(params), tree.leaves(p_b)
@@ -4169,9 +4291,16 @@ def dist_train(dev, card):
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    mesh_run = launcher.main(["--arch", "tinyllama-1.1b", "--mesh", "1,1",
-                              "--steps", str(DIST_STEPS), "--device",
-                              str(dev), "--ckpt-dir", str(ckpt)])
+    # the launcher's emergency-checkpoint handler holds the run's state:
+    # restored after it, so the state is freed
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        mesh_run = launcher.main(["--arch", "tinyllama-1.1b", "--mesh",
+                                  "1,1", "--steps", str(DIST_STEPS),
+                                  "--device", str(dev), "--ckpt-dir",
+                                  str(ckpt)])
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
     mesh_s = time.perf_counter() - t0
     mesh_peak = torch.cuda.max_memory_allocated(dev) / 2**30
     mesh_params = [x.full_tensor() for x in tree.leaves(mesh_run["params"])]
@@ -4179,6 +4308,7 @@ def dist_train(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     cfg, ocfg, params, opt, data = loop.init_run(
         "tinyllama-1.1b", steps=DIST_STEPS, device=dev)
     plain = {"losses": [], "step_s": []}
@@ -4190,6 +4320,7 @@ def dist_train(dev, card):
         cfg, ocfg, params, opt, data, steps=DIST_STEPS, microbatches=2,
         on_step=on_step)
     plain_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    plain_own = plain_peak - held / 2**30
     losses = mesh_run["losses"]
     check(len(losses) == DIST_STEPS
           and all(math.isfinite(x) for x in losses + plain["losses"]),
@@ -4211,6 +4342,7 @@ def dist_train(dev, card):
            "mesh_step_ms": [t * 1e3 for t in mesh_run["step_s"]],
            "plain_step_ms": [t * 1e3 for t in plain["step_s"]],
            "mesh_peak_gib": mesh_peak, "plain_peak_gib": plain_peak,
+           "plain_own_peak_gib": plain_own,
            "mesh_run_s": mesh_s, "restore_s": restore_s}
     print(f"[dist] tinyllama-1.1b train, {DIST_STEPS} steps at the "
           f"launcher's defaults (8 x 128, 2 microbatches; {card}): "
@@ -4220,21 +4352,126 @@ def dist_train(dev, card):
           f"{mesh_s:.1f} s); plain losses "
           f"{[round(x, 6) for x in plain['losses']]}, step ms "
           f"{[round(t, 1) for t in res['plain_step_ms']]}, peak "
-          f"{plain_peak:.2f} GiB; max |diff| {diff:.2e} <= "
+          f"{plain_peak:.2f} GiB ({plain_own:.3f} GiB above the "
+          f"{held / 2**30:.3f} GiB held before it); max |diff| "
+          f"{diff:.2e} <= "
           f"{DIST_LOSS_ATOL}; the mesh checkpoint restored into the plain "
           f"layout bit for bit ({restore_s:.1f} s)")
     return res
 
 
-def dist_dryrun():
-    """(c): the dry run's tinyllama-1.1b cells on the production mesh."""
+def dryrun_cells():
+    """The dry run's cells that phases 16 and 18 read (on the host, no
+    card): ``measure_cell`` of REMAT_ARCH's DIST_CELLS on the 16 x 16
+    production mesh (256 fake ranks), and on a one-rank (1, 1) mesh of
+    phase 18's long step (REMAT_LONG) with the registry's remat and
+    without, and of phase 16's plain step (the launcher's 8 x 128 in 2
+    microbatches)."""
+    import dataclasses
+
+    from repro_torch.configs.base import SHAPES, ShapeCell
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg = get_arch(REMAT_ARCH)
+    out = {}
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        for name in DIST_CELLS:
+            out[name] = dryrun.measure_cell(cfg, SHAPES[name], mesh)
+    b, s, mb = REMAT_LONG
+    long_cfg = dataclasses.replace(cfg, train_microbatches=mb)
+    long_cell = ShapeCell("remat_long", s, b, "train")
+    cells = {
+        "long_remat": (long_cfg, long_cell),
+        "long_no_remat": (dataclasses.replace(long_cfg, remat=False,
+                                              remat_group=0), long_cell),
+        "dist_plain": (dataclasses.replace(cfg, train_microbatches=2),
+                       ShapeCell("dist_plain", 128, 8, "train"))}
+    with dryrun.fake_world(1):
+        one = init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+        for name, (c, shape) in cells.items():
+            out[name] = dryrun.measure_cell(c, shape, one)
+    return out
+
+
+def _dryrun_worker(conn):
+    """``dryrun_cells`` in a worker process; sends ("ok", cells) or
+    ("fail", the error)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    torch.set_num_threads(1)
+    try:
+        conn.send(("ok", dryrun_cells()))
+    except Exception as e:                  # noqa: BLE001 — the parent fails
+        conn.send(("fail", f"{type(e).__name__}: {e}"))
+    finally:
+        conn.close()
+
+
+class HostDryRun:
+    """``dryrun_cells`` reckoned by a worker process started with the
+    script: the dry run is host work on ``meta`` tensors (minutes at full
+    width), so it runs beside the card's phases.  While it runs this
+    process keeps one thread fewer, so the worker has a core of its own
+    (oversubscribed, each parallel region waits for its slowest thread).
+    ``result`` waits for it; ``stop`` ends the worker."""
+
+    def __init__(self):
+        import multiprocessing
+
+        import torch
+        self._threads = torch.get_num_threads()
+        torch.set_num_threads(max(1, self._threads - 1))
+        ctx = multiprocessing.get_context("spawn")
+        self._recv, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_dryrun_worker, args=(send,),
+                                 daemon=True)
+        self._t0 = time.perf_counter()
+        self._proc.start()
+        send.close()
+        self._res = None
+
+    def result(self):
+        if self._res is None:
+            t0 = time.perf_counter()
+            check(self._recv.poll(DRYRUN_WAIT_S),
+                  f"dry run: no result after {DRYRUN_WAIT_S} s")
+            status, res = self._recv.recv()
+            self._restore_threads()
+            check(status == "ok", f"dry run worker: {res}")
+            print(f"[dryrun] the worker's cells ready "
+                  f"{time.perf_counter() - self._t0:.1f} s after its start "
+                  f"(waited {time.perf_counter() - t0:.1f} s)")
+            self._res = res
+        return self._res
+
+    def _restore_threads(self):
+        import torch
+        torch.set_num_threads(self._threads)
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+        self._restore_threads()
+
+
+def gib(n):
+    return n / 2**30
+
+
+def dist_dryrun(dry):
+    """(c): the dry run's tinyllama-1.1b cells on the production mesh:
+    the leaf counts of ``build_cell`` here, the numbers from ``dry``."""
     from repro_torch import tree
     from repro_torch.configs.base import SHAPES
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     cfg = get_arch("tinyllama-1.1b")
-    res = {}
     with dryrun.fake_world(256):
         mesh = make_production_mesh(device_type="cpu")
         for name, n_leaves in DIST_CELLS.items():
@@ -4243,19 +4480,39 @@ def dist_dryrun():
             check(counts == (n_leaves, n_leaves),
                   f"dist: dry-run {name} leaf counts {counts}, want "
                   f"{n_leaves}")
-            r = dryrun.measure_cell(cfg, SHAPES[name], mesh)
-            check(r["flops"] > 0 and r["argument_bytes"] > 0,
+    cells = dry.result()
+    res = {}
+    for name, n_leaves in DIST_CELLS.items():
+        r = cells[name]
+        check(r["flops"] > 0 and r["argument_bytes"] > 0,
+              f"dist: dry-run {name} {r}")
+        rank = ""
+        if SHAPES[name].kind == "train":
+            check(r["peak_bytes"] >= r["argument_bytes"]
+                  and r["temp_bytes"] == r["peak_bytes"] - r["argument_bytes"]
+                  and r["collectives"].get("all-gather", 0) > 0
+                  and r["collectives"].get("reduce-scatter", 0) > 0,
                   f"dist: dry-run {name} {r}")
-            res[name] = r
-            print(f"[dist] dry run tinyllama-1.1b x {name} x 16x16: "
-                  f"{n_leaves} leaves, {r['argument_bytes'] / 2**20:.1f} MiB "
-                  f"of arguments a device, {r['flops']:.4e} flops "
-                  f"({r['flops_per_device']:.4e} a device), built in "
-                  f"{r['build_s']} s")
+            rank = (f"; a rank's peak {gib(r['peak_bytes']):.3f} GiB "
+                    f"(temp {gib(r['temp_bytes']):.3f}), outputs "
+                    f"{gib(r['output_bytes']):.3f} GiB, collectives "
+                    + ", ".join(f"{k} {gib(v):.3f}" for k, v in
+                                r["collectives"].items())
+                    + f" GiB, bytes accessed (unfused) "
+                    f"{r['bytes_per_device']:.4e}")
+        else:
+            check(r["peak_bytes"] is None and "null_reasons" in r,
+                  f"dist: dry-run {name} {r}")
+        res[name] = r
+        print(f"[dist] dry run tinyllama-1.1b x {name} x 16x16: "
+              f"{n_leaves} leaves, {r['argument_bytes'] / 2**20:.1f} MiB "
+              f"of arguments a device, {r['flops']:.4e} flops "
+              f"({r['flops_per_device']:.4e} a device){rank}; built in "
+              f"{r['build_s']} s (the worker, beside the card's phases)")
     return res
 
 
-def phase_dist(dev, card):
+def phase_dist(dev, card, dry):
     """Phase 16: distribution on a one-rank nccl group (see the module
     docstring): (a) ``dist_grad_compress``, (b) ``dist_train``, then,
     with the group gone, (c) ``dist_dryrun`` on a fake one."""
@@ -4281,9 +4538,9 @@ def phase_dist(dev, card):
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    dry = dist_dryrun()
+    dry_cells = dist_dryrun(dry)
     print(f"[dist] phase {time.perf_counter() - t_phase:.1f} s")
-    return {"compress": comp, "train": train, "dryrun": dry}
+    return {"compress": comp, "train": train, "dryrun": dry_cells}
 
 
 # ---------------------------------------------------------------------------
@@ -4626,6 +4883,220 @@ def phase_kv_bf16(dev, card):
     return {"runs": runs, "loops": loops, "spec": spec}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: rematerialization; the dry run against the card
+# ---------------------------------------------------------------------------
+
+def remat_setup(dev, shape, steps):
+    """Full-width REMAT_ARCH's seeded parameters and AdamW state on the
+    card and the first ``steps`` batches of ``shape`` = (global batch,
+    seq, microbatches), with the bytes allocated before them."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import init_params
+    from repro_torch.train import optimizer
+    b, s, _ = shape
+    cfg = get_arch(REMAT_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    params = init_params(cfg, seed=0, device=dev)
+    ocfg = optimizer.OptConfig(lr=3e-4, warmup=10, total_steps=steps)
+    opt = optimizer.init(ocfg, params)
+    data = SyntheticLMData(vocab=cfg.vocab, seq_len=s, global_batch=b,
+                           seed=0)
+    batches = [data.device_batch(i, dev) for i in range(steps)]
+    return cfg, ocfg, params, opt, batches, held
+
+
+def remat_steps(cfg, ocfg, state, batches, microbatches, dev, held):
+    """``make_train_step`` of ``cfg`` over ``batches`` from ``state`` =
+    [params, opt] (the list is emptied, so the first step's arguments
+    are freed after it where the caller holds them nowhere else, as a
+    training loop frees them): each step's loss tensor and wall ms, the
+    last parameters, the peak of the steps above ``held`` and above what
+    was allocated when they began."""
+    import torch
+    from repro_torch.train import loop
+    step = loop.make_train_step(cfg, ocfg, microbatches=microbatches)
+    p, o = state
+    state.clear()
+    losses, ms = [], []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for bt in batches:
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, bt)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    top = torch.cuda.max_memory_allocated(dev)
+    del o
+    return losses, ms, p, (top - held, top - base)
+
+
+def remat_exact(dev, card):
+    """(a): REMAT_EXACT_STEPS steps of full-width REMAT_ARCH at
+    REMAT_EXACT under each of REMAT_SETTINGS from the same state (held
+    for all three runs, so in each run's peak): every loss and layer 0's
+    updated parameters bit for bit alike; step walls and peaks."""
+    import dataclasses
+
+    from repro_torch import tree
+    b, s, mb = REMAT_EXACT
+    base, ocfg, params, opt, batches, held = remat_setup(
+        dev, REMAT_EXACT, REMAT_EXACT_STEPS)
+    runs = {}
+    for name, over in REMAT_SETTINGS.items():
+        cfg = dataclasses.replace(base, **over)
+        losses, ms, p, (peak, own) = remat_steps(
+            cfg, ocfg, [params, opt], batches, mb, dev, held)
+        runs[name] = {"losses": losses, "ms": ms, "peak": peak, "own": own,
+                      "remat": cfg.remat, "remat_group": cfg.remat_group,
+                      "layer": [x[0].clone() for x in
+                                tree.leaves(p["blocks"])]}
+        del p
+        print(f"[remat] (a) {REMAT_ARCH} {REMAT_EXACT_STEPS} steps at {b} x "
+              f"{s} in {mb} microbatches, remat {cfg.remat}, remat_group "
+              f"{cfg.remat_group}: losses "
+              f"{[float(x) for x in losses]}, step ms "
+              f"{[round(t, 1) for t in ms]}, peak {gib(peak):.3f} GiB "
+              f"above the {gib(held):.3f} GiB held before the state, "
+              f"{gib(own):.3f} GiB above the state ({card})")
+    del params, opt
+    ref = runs["off"]
+    for name, r in runs.items():
+        check(all(same_bits(a, c) for a, c in zip(r["losses"],
+                                                  ref["losses"]))
+              and all(same_bits(a, c) for a, c in zip(r["layer"],
+                                                      ref["layer"])),
+              f"remat (a): {name}'s losses or layer 0 differ from remat "
+              f"off's")
+    print(f"[remat] (a) every loss and layer 0's {len(ref['layer'])} updated "
+          f"parameter leaves bit for bit alike under "
+          f"{', '.join(REMAT_SETTINGS)}")
+    return {name: {k: v for k, v in r.items() if k != "layer"}
+            for name, r in runs.items()}
+
+
+def remat_long(dev, card):
+    """(b): REMAT_LONG_STEPS steps of full-width REMAT_ARCH at REMAT_LONG
+    on the registry's remat: finite losses, the first within
+    REMAT_LOSS_RTOL of ``loss_fn`` under ``no_grad`` over the same
+    microbatches, averaged as the step averages them; step walls and
+    the peak above what was held before the state was built."""
+    import torch
+    from repro_torch.models import shard_ctx
+    from repro_torch.quant.quantizer import div
+    from repro_torch.train import loop
+    b, s, mb = REMAT_LONG
+    cfg, ocfg, params, opt, batches, held = remat_setup(dev, REMAT_LONG,
+                                                        REMAT_LONG_STEPS)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        split = {k: shard_ctx.split_microbatches(v, mb)
+                 for k, v in batches[0].items()}
+        total = None
+        for i in range(mb):
+            li = loop.loss_fn(cfg, params, {k: v[i] for k, v in
+                                            split.items()})
+            total = li if total is None else total + li
+        ref = float(div(total, mb))
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    del split, total
+    state = [params, opt]
+    del params, opt                   # freed after step 1, as a loop does
+    losses, ms, p, (peak, own) = remat_steps(cfg, ocfg, state, batches, mb,
+                                             dev, held)
+    del p
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"remat (b): losses {losses}")
+    rel = abs(losses[0] - ref) / abs(ref)
+    check(rel <= REMAT_LOSS_RTOL,
+          f"remat (b): step 1 loss {losses[0]!r} vs no_grad {ref!r}")
+    print(f"[remat] (b) {REMAT_ARCH} {REMAT_LONG_STEPS} steps at {b} x {s} "
+          f"in {mb} microbatches of {b // mb} x {s} tokens (remat "
+          f"{cfg.remat}, remat_group {cfg.remat_group}): losses {losses}; "
+          f"step 1 {losses[0]!r} vs the no_grad loss_fn {ref!r} (rel "
+          f"{rel:.2e} <= {REMAT_LOSS_RTOL}; {ref_ms:.1f} ms); step ms "
+          f"{[round(t, 1) for t in ms]}; peak {gib(peak):.3f} GiB above the "
+          f"{gib(held):.3f} GiB held before the state, {gib(own):.3f} GiB "
+          f"above the state ({card})")
+    return {"losses": losses, "ms": ms, "peak": peak, "own": own,
+            "ref_loss": ref, "rel": rel}
+
+
+def remat_dryrun(long, dist, dry, card):
+    """(c): the dry run's one-rank reckonings (the worker's) against the
+    card: the long step's peak with the registry's remat within
+    REMAT_PEAK_RTOL of (b)'s; without remat against the card; phase
+    16's plain step against its measured peak."""
+    cells = dry.result()
+    on, off, plain = (cells[k] for k in ("long_remat", "long_no_remat",
+                                         "dist_plain"))
+    ratio = on["peak_bytes"] / long["peak"]
+    check(abs(ratio - 1) <= REMAT_PEAK_RTOL,
+          f"remat (c): reckoned peak {on['peak_bytes']} vs measured "
+          f"{long['peak']}")
+    own = dist["train"]["plain_own_peak_gib"] * 2**30
+    print(f"[remat] (c) the dry run on a (1, 1) mesh, {REMAT_ARCH} at "
+          f"{REMAT_LONG[0]} x {REMAT_LONG[1]} in {REMAT_LONG[2]} "
+          f"microbatches: with remat a rank's peak "
+          f"{gib(on['peak_bytes']):.3f} GiB (arguments "
+          f"{gib(on['argument_bytes']):.3f}, temp "
+          f"{gib(on['temp_bytes']):.3f}, the card's above its state "
+          f"{gib(long['own']):.3f}) against the card's "
+          f"{gib(long['peak']):.3f}: reckoned / measured {ratio:.4f}, "
+          f"measured / reckoned {1 / ratio:.4f} (within "
+          f"{REMAT_PEAK_RTOL:.0%}); without remat "
+          f"{gib(off['peak_bytes']):.3f} GiB, "
+          f"{off['peak_bytes'] / CARD_BYTES:.2f} x the card's "
+          f"{CARD_BYTES / 1e9:.0f} GB, so not run; the dist phase's plain "
+          f"step (8 x 128, 2 microbatches) reckoned "
+          f"{gib(plain['peak_bytes']):.3f} GiB (arguments "
+          f"{gib(plain['argument_bytes']):.3f}) against its measured "
+          f"{gib(own):.3f} GiB above what was held before it (the loop's "
+          f"caller holds the first state through every step; peak "
+          f"{dist['train']['plain_peak_gib']:.2f} GiB with what was held); "
+          f"built in "
+          f"{on['build_s']} / {off['build_s']} / {plain['build_s']} s "
+          f"({card})")
+    return {"on": on, "off": off, "plain": plain, "ratio": ratio}
+
+
+def phase_remat(dev, card, dry, train, ssm, dist):
+    """Phase 18: rematerialization (see the module docstring), after the
+    earlier phases' memory is freed: (a) ``remat_exact``, (b)
+    ``remat_long``, (c) ``remat_dryrun``, (d) the QAT phases' B2 a step
+    under the registry's remat (checked there) and walls."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    exact = remat_exact(dev, card)
+    long = remat_long(dev, card)
+    dryc = remat_dryrun(long, dist, dry, card)
+    qat = {"tinyllama-1.1b": (train["launches"]["B2 train"],
+                              train["step_ms"], "1024.0-1052.6"),
+           "mamba2-130m": (ssm["mamba_qat"]["b2_run"],
+                           ssm["mamba_qat"]["step_ms"], "611-698"),
+           f"recurrentgemma-2b ({ssm['hybrid_qat']['n_layers']} layers)": (
+               ssm["hybrid_qat"]["b2_run"], ssm["hybrid_qat"]["step_ms"],
+               "936-1104")}
+    for arch, (b2, ms, before) in qat.items():
+        print(f"[remat] (d) {arch} packed QAT under the registry's remat: "
+              f"{b2} B2 in the run, step ms {[round(t, 1) for t in ms]} "
+              f"(earlier runs without remat: {before} ms) ({card})")
+    a, o = train["remat_vs_off_ms"]
+    print(f"[remat] (d) tinyllama-1.1b QAT step from one state: remat "
+          f"{a:.1f} ms, remat=False {o:.1f} ms ({card})")
+    print(f"[remat] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"exact": exact, "long": long, "dryrun": dryc}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
@@ -4651,6 +5122,7 @@ def main() -> int:
     print(f"[card] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    dry = HostDryRun()
     try:
         phase_build()
         flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -4671,11 +5143,14 @@ def main() -> int:
         moe = phase_moe(dev, card, flush)
         fam = phase_families(dev, card, flush)
         ssm = phase_ssm_train(dev, card, flush)
-        phase_dist(dev, card)
+        dist = phase_dist(dev, card, dry)
         kv = phase_kv_bf16(dev, card)
+        phase_remat(dev, card, dry, train, ssm, dist)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        dry.stop()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     sources = {"B1": ("sdv_matvec", "src/repro/kernels/sdv_matvec.py:46"),
                "B2": ("sdv_matmul", "src/repro/kernels/sdv_matmul.py:178")}

@@ -3,7 +3,8 @@
 Builds each (arch x shape) cell for the production meshes — a (16, 16)
 ("data", "model") mesh of 256 ranks and a (2, 16, 16) ("pod", "data",
 "model") mesh of 512 — as ``meta`` tensors (nothing is allocated) with
-the ``Sharding`` of every argument, and reports what maps to torch:
+the ``Sharding`` of every argument, and reckons the JAX package's
+fields, which it reads from XLA's partitioned program, from torch's own:
 
   * ``argument_bytes``: the bytes of the arguments one rank holds,
     reckoned from each leaf's placements (a dimension sharded over mesh
@@ -16,15 +17,26 @@ the ``Sharding`` of every argument, and reports what maps to torch:
     memory-packed trees (``serve_params(bits=cfg.serve_weight_bits)``);
     on ``meta`` tensors the packed dispatch takes the plain route, as on
     the CPU (a shape walk, no card), and its unpack does no matmul;
+  * one rank's memory, bytes and collectives (``reckon_rank``): the
+    cell's function runs once more on the arguments placed as ``meta``
+    ``DTensor``s by their shardings, as the mesh step runs, and
+    ``RankReckoner`` sees every op of rank 0's program on its local
+    tensors.  ``peak_bytes``: the most bytes of live storage, the
+    arguments included, at any op — autograd's saved tensors stay live
+    until the backward pass frees them, so rematerialization shows
+    here; ``temp_bytes`` = ``peak_bytes - argument_bytes``;
+    ``output_bytes``: the storages of the function's outputs;
+    ``collectives``: the operand bytes of each collective op, under the
+    reference's HLO names (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``all-to-all``), summed in
+    ``collective_bytes_per_device``; ``bytes_per_device``: every
+    op's operands and results, each tensor once an op, views excluded
+    — unfused, so an upper bound on XLA's fused "bytes accessed";
   * the skip rules (``cfg.shape_supported``).
 
-The JAX package's other fields come from XLA's partitioned program
-(``compiled.cost_analysis()``, the collective ops of the optimized HLO,
-``memory_analysis()``); torch has no partitioned program of the cell to
-read them from, so they are ``null`` here, with the reason in
-``null_reasons``.  The meshes are ``DeviceMesh``es over torch's fake
-process group (``torch.testing._internal.distributed.fake_pg``): one
-process stands in for every rank, and no collective runs.
+The meshes are ``DeviceMesh``es over torch's fake process group
+(``torch.testing._internal.distributed.fake_pg``): one process stands in
+for every rank (rank 0), and no collective moves data.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
       tinyllama-1.1b --shape train_4k --mesh single
@@ -38,8 +50,13 @@ import json
 import math
 import sys
 import time
+import weakref
 
 import torch
+from torch._guards import active_fake_mode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import tree
 from ..configs.base import SHAPES, ArchConfig, ShapeCell
@@ -49,24 +66,28 @@ from ..models import (cache_specs, decode_step, forward, init_cache,
                       shard_ctx)
 from ..models.param import PartitionSpec, is_p, specs, values
 from ..train import loop, optimizer
-from .mesh import (axis_sizes, batch_shardings, make_production_mesh,
-                   rules_for_mesh, shardings_of)
+from .mesh import (axis_sizes, batch_shardings, distribute,
+                   make_production_mesh, rules_for_mesh, shardings_of)
 
 META = torch.device("meta")
 
-#: the JAX package's fields that only XLA's partitioned program gives
+#: the fields ``reckon_rank`` cannot give a decode cell, and why
 NULL_REASONS = {
-    "bytes_per_device": "XLA cost_analysis 'bytes accessed' of the "
-                        "partitioned program; torch has no partitioned "
-                        "program of the cell",
-    "collective_bytes_per_device": "summed from the collective ops of "
-                                   "XLA's optimized HLO; no torch "
-                                   "counterpart",
-    "collectives": "per-op collective bytes from XLA's optimized HLO; no "
-                   "torch counterpart",
-    "output_bytes": "XLA memory_analysis of the partitioned program",
-    "temp_bytes": "XLA memory_analysis of the partitioned program",
-    "peak_bytes": "XLA memory_analysis of the partitioned program",
+    key: "a decode step selects the cache rows it writes with nonzero "
+         "and writes them by index, which DTensor cannot run on a sharded "
+         "cache (the port serves on one device; no sharded decode)"
+    for key in ("peak_bytes", "temp_bytes", "output_bytes", "collectives",
+                "collective_bytes_per_device", "bytes_per_device")}
+
+#: the functional collectives DTensor runs, by the reference's HLO names
+COLLECTIVE_NAMES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
 }
 
 
@@ -108,10 +129,11 @@ def build_cell(cfg: ArchConfig, shape: ShapeCell, mesh):
     rules = rules_for_mesh(mesh, fsdp=cfg.fsdp)
     # batch=1 cells (long_500k) cannot shard the batch axis; degrade to
     # replicated batch (the O(1)-state archs this shape targets don't
-    # need it).
+    # need it).  Batch axes of one rank shard nothing: replicated too (a
+    # DTensor cannot squeeze a sharded batch dimension of one row).
     sizes = axis_sizes(mesh)
     bsize = math.prod(sizes[ax] for ax in rules.batch)
-    if shape.global_batch % max(1, bsize):
+    if shape.global_batch % max(1, bsize) or bsize == 1:
         rules = dataclasses.replace(rules, batch=(), batch_degree=1)
     params_p = init_params(cfg, device=META, rules=rules)
     pvals, pspecs = values(params_p), specs(params_p)
@@ -184,6 +206,117 @@ def count_flops(fn, args) -> int:
     return int(counter.get_total_flops())
 
 
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+_WAIT = torch.ops._c10d_functional.wait_tensor.default
+
+
+def _tensors(xs):
+    """The tensors among ``xs`` and in its lists and tuples (an op's
+    arguments or results)."""
+    out = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif isinstance(x, (list, tuple)):
+            out.extend(t for t in x if isinstance(t, torch.Tensor))
+    return out
+
+
+class RankReckoner(TorchDispatchMode):
+    """One rank's memory, bytes and collectives of a function run on
+    ``meta`` ``DTensor``s (or plain ``meta`` tensors).  A ``DTensor`` op
+    is handed back to ``DTensor`` (``NotImplemented``), whose local ops —
+    the rank's own program, the functional collectives included — then
+    come here; ops under ``DTensor``'s sharding propagation (a fake mode
+    of its own) are not the program's and are skipped.
+
+    ``live`` counts the storages ``hold`` has seen (every op's outputs,
+    and what the caller holds before) until each is freed; ``peak`` is
+    its largest value.  ``bytes`` sums every op's operands and results,
+    each tensor once an op, views and the collectives' waits excluded;
+    ``collectives`` the operand bytes of each collective op by its
+    reference name."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = self.bytes = 0
+        self.collectives = {}
+        self._held = WeakIdKeyDictionary()
+
+    def hold(self, t):
+        """Count the storage of the ``meta`` tensor ``t`` as live until
+        it is freed (at its new size where an op resized it)."""
+        if t.device != META:
+            return
+        st = t.untyped_storage()
+        size = self._held.get(st)
+        if size is None:
+            size = self._held[st] = [0]
+            weakref.finalize(st, self._free, size)
+        n = st.nbytes()
+        if n != size[0]:
+            self.live += n - size[0]
+            size[0] = n
+            self.peak = max(self.peak, self.live)
+
+    def _free(self, size):
+        self.live -= size[0]
+
+    def __enter__(self):
+        self._fake = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if active_fake_mode() is not self._fake:
+            return out
+        outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
+        for t in outs:
+            self.hold(t)
+        if func.is_view or func == _WAIT:
+            return out
+        ins = _tensors(args) + _tensors(kwargs.values())
+        seen = {}
+        for t in ins + outs:
+            seen.setdefault(id(t), t.numel() * t.element_size())
+        self.bytes += sum(seen.values())
+        name = COLLECTIVE_NAMES.get(func._overloadpacket.__name__) \
+            if func.namespace == "_c10d_functional" else None
+        if name is not None:
+            self.collectives[name] = self.collectives.get(name, 0) + sum(
+                t.numel() * t.element_size() for t in ins)
+        return out
+
+
+def reckon_rank(rules, fn, args, in_sh) -> dict:
+    """One rank's ``peak_bytes``, ``output_bytes``, ``collectives``,
+    ``collective_bytes_per_device`` and ``bytes_per_device`` of
+    ``fn(*args)``, run on ``args`` placed by ``in_sh`` as ``meta``
+    ``DTensor``s under ``rules`` (``RankReckoner``)."""
+    dargs = distribute(args, in_sh)
+    rk = RankReckoner()
+    for leaf in tree.leaves(dargs):
+        rk.hold(_local(leaf))
+    with shard_ctx.use_rules(rules), rk:
+        out = fn(*dargs)
+    stores = {}
+    for leaf in tree.leaves(out):
+        if isinstance(leaf, torch.Tensor):
+            st = _local(leaf).untyped_storage()
+            stores[id(st)] = st.nbytes()
+    return {"peak_bytes": rk.peak,
+            "output_bytes": sum(stores.values()),
+            "collectives": dict(sorted(rk.collectives.items())),
+            "collective_bytes_per_device": sum(rk.collectives.values()),
+            "bytes_per_device": rk.bytes}
+
+
 @contextlib.contextmanager
 def fake_world(n_ranks: int):
     """A fake process group of ``n_ranks`` ranks for this process (rank
@@ -203,10 +336,18 @@ def measure_cell(cfg: ArchConfig, shape: ShapeCell, mesh) -> dict:
     """Build one cell on ``mesh`` and reckon its numbers."""
     t0 = time.time()
     rules, fn, args, in_sh, donate = build_cell(cfg, shape, mesh)
-    with shard_ctx.use_rules(rules), torch.set_grad_enabled(
-            shape.kind == "train"):
-        flops = count_flops(fn, args)
+    train = shape.kind == "train"
+    with torch.set_grad_enabled(train):
+        with shard_ctx.use_rules(rules):
+            flops = count_flops(fn, args)
+        if shape.kind == "decode":
+            rank = {k: None for k in NULL_REASONS}
+        else:
+            rank = reckon_rank(rules, fn, args, in_sh)
     n_dev = math.prod(tuple(mesh.shape))
+    arg_bytes = per_device_bytes(args, in_sh)
+    temp = None if rank["peak_bytes"] is None \
+        else rank["peak_bytes"] - arg_bytes
     return {
         "status": "ok",
         "build_s": round(time.time() - t0, 1),
@@ -214,16 +355,31 @@ def measure_cell(cfg: ArchConfig, shape: ShapeCell, mesh) -> dict:
         "donate": list(donate),
         "flops": flops,
         "flops_per_device": flops / n_dev,
-        "argument_bytes": per_device_bytes(args, in_sh),
-        **{k: None for k in NULL_REASONS},
-        "null_reasons": NULL_REASONS,
+        "argument_bytes": arg_bytes,
+        **rank,
+        "temp_bytes": temp,
+        **({"null_reasons": NULL_REASONS} if shape.kind == "decode"
+           else {}),
         "notes": ("flops: matmul-class ops of the whole global batch "
                   "(torch.utils.flop_counter), per device an even split; "
                   + ("forward and backward of every microbatch, the "
                      "optimizer update is elementwise (not counted)"
-                     if shape.kind == "train" else
+                     if train else
                      "the packed weights are dequantized by the plain "
-                     "route on meta tensors, which does no matmul")),
+                     "route on meta tensors, which does no matmul")
+                  + ". Memory, bytes and collectives (not of a decode "
+                  "cell: null_reasons): rank 0's program "
+                  "run once on meta DTensors over the fake process "
+                  "group; peak_bytes the most live storage at any op, "
+                  "the arguments included (the step's arguments stay "
+                  "live beside its outputs: nothing is donated), "
+                  "temp_bytes the peak less argument_bytes, "
+                  "output_bytes the outputs' storages; collectives: "
+                  "each collective op's operand bytes on the rank (a "
+                  "CPU mesh: DTensor gathers where a card's mesh would "
+                  "all-to-all); bytes_per_device: every op's operands "
+                  "and results once each, views excluded, unfused, so "
+                  "an upper bound on XLA's fused bytes accessed"),
     }
 
 
@@ -244,7 +400,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         print(f"[{res['arch']} x {shape_name} x {mesh_name}] "
               f"build {res['build_s']}s  flops {res['flops']:.3e} "
               f"(/dev {res['flops_per_device']:.3e})  "
-              f"args/dev {res['argument_bytes'] / 2**30:.2f} GiB")
+              f"args/dev {res['argument_bytes'] / 2**30:.2f} GiB"
+              + ("" if res["peak_bytes"] is None else
+                 f"  peak/dev {res['peak_bytes'] / 2**30:.2f} GiB  "
+                 f"collectives/dev "
+                 f"{res['collective_bytes_per_device'] / 2**30:.2f} GiB"))
     return res
 
 

@@ -307,10 +307,10 @@ def attention_apply(params, cfg: AttnConfig, x, *, positions,
     if kv is None:
         q, k, v = _qkv(params, cfg, x, positions)
     else:
-        q = dense_apply(params["wq"], x).reshape(b, s, h, hd)
+        q = shard_ctx.split_heads(dense_apply(params["wq"], x), h, hd)
         k_in, v_in = kv
-        k = dense_apply(params["wk"], k_in).reshape(b, k_in.shape[1], g, hd)
-        v = dense_apply(params["wv"], v_in).reshape(b, v_in.shape[1], g, hd)
+        k = shard_ctx.split_heads(dense_apply(params["wk"], k_in), g, hd)
+        v = shard_ctx.split_heads(dense_apply(params["wv"], v_in), g, hd)
     tp = shard_ctx.tp_size()
     if not cfg.free_qkv_sharding and h % tp == 0:
         # head-parallel attention (heads divide the model axis); else
@@ -323,10 +323,11 @@ def attention_apply(params, cfg: AttnConfig, x, *, positions,
     attend = _stream_attend_diff if differentiable else _stream_attend
     # on a mesh the chunk loop runs on each rank's batch rows
     out = shard_ctx.batch_local(
-        lambda q5, k4, v4: attend(q5, k4, v4, q_start=0, causal=causal,
+        lambda q4, k4, v4: attend(q4.reshape(q4.shape[0], s, g, h // g, hd),
+                                  k4, v4, q_start=0, causal=causal,
                                   window=cfg.window,
                                   chunk=min(chunk, max(s, 16))),
-        q.reshape(b, s, g, h // g, hd), k, v)
+        q, k, v)
     return dense_apply(params["wo"], out.reshape(b, s, h * hd)), (k, v)
 
 
@@ -365,11 +366,10 @@ def prefill_writes(cache_index, n_valid, c: int, s_max: int):
 
 
 def _qkv(params, cfg: AttnConfig, x, pos):
-    b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = dense_apply(params["wq"], x).reshape(b, s, h, hd)
-    k = dense_apply(params["wk"], x).reshape(b, s, g, hd)
-    v = dense_apply(params["wv"], x).reshape(b, s, g, hd)
+    q = shard_ctx.split_heads(dense_apply(params["wq"], x), h, hd)
+    k = shard_ctx.split_heads(dense_apply(params["wk"], x), g, hd)
+    v = shard_ctx.split_heads(dense_apply(params["wv"], x), g, hd)
     return (rope(q, pos, theta=cfg.rope_theta),
             rope(k, pos, theta=cfg.rope_theta), v)
 

@@ -12,10 +12,13 @@ own ``DeviceMesh`` (``jax.lax.with_sharding_constraint``).
 The rest is the ``DTensor`` plumbing that GSPMD does implicitly:
 ``placements`` (a spec as DTensor placements), ``replicated_like`` (a
 plain tensor the model makes, as a replicated operand), ``batch_local``
-(a function run per rank on its batch rows), ``gather_to_batch`` (the
-all-gather before an op with no sharding rule) and ``placed_as`` (a
-gradient reduced into its parameter's placements).  Each returns a
-plain tensor unchanged.
+(a function run per rank on its batch rows), ``replicate`` and
+``gather_to_batch`` (the all-gathers before an op that has no sharding
+rule for a sharded operand), ``split_heads`` (a projection's output as
+heads), ``split_microbatches`` (each rank's batch rows split into
+microbatches) and ``placed_as`` (a gradient reduced into its
+parameter's placements).  Each but the two splits returns a plain
+tensor unchanged.
 """
 from __future__ import annotations
 
@@ -99,6 +102,19 @@ def _batch_placements(x):
     return tuple(p if p == Shard(0) else Replicate() for p in x.placements)
 
 
+def replicate(x):
+    """A ``DTensor`` replicated on every mesh dimension (the all-gather
+    before an op whose sharding rule a sharded operand breaks: the
+    embedding lookup's indices); a plain tensor as it is."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    want = (Replicate(),) * x.device_mesh.ndim
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
 def gather_to_batch(x):
     """A ``DTensor`` sharded on its batch dimension alone (every other
     mesh dimension replicated); a plain tensor as it is.  For the ops
@@ -130,6 +146,48 @@ def batch_local(fn, *xs):
     want = _batch_placements(xs[0])
     local = [x.redistribute(mesh, want).to_local() for x in xs]
     return DTensor.from_local(fn(*local), mesh, want, run_check=False)
+
+
+def split_heads(x, n: int, hd: int):
+    """x [..., n * hd] as [..., n, hd].  A ``DTensor`` sharded along its
+    last dimension over a mesh dimension that does not divide n is first
+    replicated along that mesh dimension: GSPMD shards the heads and the
+    head dimension together there, a ``DTensor`` placement names one
+    dimension (the all-gather ``batch_local`` makes next)."""
+    if _is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh, last = x.device_mesh, x.ndim - 1
+        want = tuple(Replicate() if p == Shard(last) and n % mesh.size(i)
+                     else p for i, p in enumerate(x.placements))
+        if want != tuple(x.placements):
+            x = x.redistribute(mesh, want)
+    return x.reshape(tuple(x.shape[:-1]) + (n, hd))
+
+
+def split_microbatches(x, n: int):
+    """``x`` [B, ...] as [n, B / n, ...], microbatch i in row i.  A plain
+    tensor is reshaped: microbatch i holds rows i B / n ... of it.  A
+    ``DTensor`` is split on each rank, no collective: microbatch i holds
+    rows i b / n ... of the b rows each rank holds, the batch placements
+    moved to dimension 1, so every microbatch is sharded along the batch
+    axes as the batch was (data-parallel microbatching; on a one-rank
+    mesh the plain split)."""
+    if not _is_dtensor(x):
+        b = x.shape[0]
+        assert b % n == 0, (b, n)
+        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+    from torch.distributed.tensor import DTensor, Shard
+    local = x.to_local()
+    lb = local.shape[0]
+    assert lb % n == 0, (tuple(x.shape), lb, n)
+    local = local.reshape((n, lb // n) + tuple(local.shape[1:]))
+    moved = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+             for p in x.placements]
+    shape = (n, x.shape[0] // n) + tuple(x.shape[1:])
+    return DTensor.from_local(local, x.device_mesh, moved, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 def placed_as(g, p):

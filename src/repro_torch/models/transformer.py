@@ -47,9 +47,13 @@ associative scan, differentiable by autograd.
 
 Parameters are a plain dict tree with the JAX package's keys and the
 stacked layer axis first; the JAX package's ``lax.scan`` over layers
-is a Python loop over that axis here (and ``forward`` does not
-rematerialize: the JAX package's ``remat`` only trades memory).  The
-cache is updated in place.
+is a Python loop over that axis here (``_layer_loop``).  ``forward``
+rematerializes as the JAX package does when autograd records:
+``cfg.remat`` checkpoints every block (``_maybe_remat``), and
+``cfg.remat_group = g > 1`` under ``cfg.scan_layers`` checkpoints each
+run of g blocks as well, so only the block (group) boundaries are kept
+and the backward pass recomputes the rest.  The cache is updated in
+place.
 
 ``init_top_params`` and ``init_group_params`` draw a decoder's tree in
 parts (the leaves outside the layer stacks, then one layer group at a
@@ -59,10 +63,12 @@ be packed group by group (``launch/serve.py::packed_params_layerwise``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -274,11 +280,14 @@ def init_group_params(cfg: ArchConfig, group: int, seed: int = 0,
 
 
 def layer_params(stacked, i: int):
-    """Slice layer ``i`` off a stacked parameter tree.  A container
-    (``PackedLinear``, ``SDVLinear``, ``BSEGConv``, the QAT
-    ``QATLinear``) slices itself with ``layer(i)``."""
+    """Slice layer ``i`` off a stacked parameter tree (a list of trees:
+    off each).  A container (``PackedLinear``, ``SDVLinear``,
+    ``BSEGConv``, the QAT ``QATLinear``) slices itself with
+    ``layer(i)``."""
     if isinstance(stacked, dict):
         return {k: layer_params(v, i) for k, v in stacked.items()}
+    if type(stacked) is list:
+        return [layer_params(v, i) for v in stacked]
     if isinstance(stacked, (PackedLinear, SDVLinear, BSEGConv)) \
             or hasattr(stacked, "qat_apply"):
         return stacked.layer(i)
@@ -290,7 +299,9 @@ def layer_params(stacked, i: int):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg: ArchConfig, params, tokens):
-    x = params["embed"][tokens.long()]
+    # on a mesh the lookup takes every rank's tokens: torch's DTensor
+    # cannot yet differentiate it on batch-sharded indices everywhere
+    x = params["embed"][shard_ctx.replicate(tokens).long()]
     if cfg.act == "geglu":                 # gemma family scales embeddings
         x = x * L.scalar_like(math.sqrt(cfg.d_model), x)
     return shard_ctx.constrain(x.to(cfg.dtype), "batch", None, None)
@@ -353,6 +364,48 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 
 
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are dropped and recomputed in the backward pass.
+    The forward draws no random numbers, so no RNG state is stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` rematerialized (the JAX package's ``jax.checkpoint``) when
+    ``cfg.remat`` is set and autograd is recording; else ``fn`` itself,
+    so a forward under ``no_grad`` runs exactly its own ops."""
+    if cfg.remat and torch.is_grad_enabled():
+        return functools.partial(_remat, fn)
+    return fn
+
+
+def _layer_loop(cfg: ArchConfig, body, x, stacked, n: int,
+                allow_group: bool = False):
+    """``x = body(x, layer_params(stacked, i))`` for i in 0..n-1: the
+    JAX package's ``lax.scan`` over the stacked layer axis.
+
+    ``cfg.remat_group = g > 1`` enables sqrt-L checkpointing under the
+    JAX package's condition (``allow_group``, ``cfg.scan_layers``, ``n %
+    g == 0``, ``n > g``), when autograd records: each run of g layers is
+    rematerialized as one group, ``body``'s own ``_maybe_remat`` nested
+    inside, so only the n / g group-boundary activations are kept across
+    the forward."""
+    def run(xx, lo: int, hi: int):
+        for i in range(lo, hi):
+            xx = body(xx, layer_params(stacked, i))
+        return xx
+
+    g = cfg.remat_group
+    if (allow_group and cfg.scan_layers and g > 1 and n % g == 0 and n > g
+            and torch.is_grad_enabled()):
+        for lo in range(0, n, g):
+            x = _remat(run, x, lo, lo + g)
+        return x
+    return run(x, 0, n)
+
+
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
             diff: bool = True, mode: str = "logits"):
     """Full-sequence forward of every family.  batch: {"tokens": [B, S]};
@@ -372,7 +425,13 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
     runs each Mamba2 block over the sequence (the chunked SSD scan), the
     hybrid family its groups (two RG-LRU layers, each an associative
     scan, and a windowed attention layer, each with its MLP) and then
-    its trailing RG-LRU layers, every recurrence from a zero state."""
+    its trailing RG-LRU layers, every recurrence from a zero state.
+    When autograd records, the blocks are rematerialized by
+    ``_maybe_remat`` and ``_layer_loop`` at the JAX package's
+    boundaries: a block (a layer group under ``moe_every > 1``, a
+    Griffin group, a trailing RG-LRU layer, an encoder or decoder
+    block), and groups of ``cfg.remat_group`` of them but for the
+    trailing layers.  The values are those of ``remat=False``."""
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, batch, diff=diff, mode=mode)
     x = _embed(cfg, params, batch["tokens"])
@@ -383,21 +442,45 @@ def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor], *,
     positions = _positions(x.shape[0], x.shape[1], x.device)
     if cfg.family == "ssm":
         scfg = _ssm_cfg(cfg)
-        for i in range(cfg.n_layers):
-            bp = layer_params(params["blocks"], i)
-            h, _ = S.ssm_apply(bp["ssm"], scfg, L.rmsnorm_apply(bp["ln"], x))
-            x = x + h
+
+        def body(xc, bp):
+            def blk(xx):
+                h, _ = S.ssm_apply(bp["ssm"], scfg,
+                                   L.rmsnorm_apply(bp["ln"], xx))
+                return xx + h
+            return _maybe_remat(blk, cfg)(xc)
+        x = _layer_loop(cfg, body, x, params["blocks"], cfg.n_layers,
+                        allow_group=True)
     elif cfg.family == "hybrid":
-        for i in range(cfg.n_layers // 3):
-            x = _hybrid_group_apply(layer_params(params["groups"], i), cfg,
-                                    x, positions, diff=diff)
-        for i in range(cfg.n_layers % 3):
-            x, _ = _rec_layer_apply(layer_params(params["tail"], i), cfg, x)
+        def body(xc, gp):
+            return _maybe_remat(lambda xx: _hybrid_group_apply(
+                gp, cfg, xx, positions, diff=diff), cfg)(xc)
+        x = _layer_loop(cfg, body, x, params["groups"], cfg.n_layers // 3,
+                        allow_group=True)
+        if "tail" in params:
+            def tbody(xc, tp):
+                return _maybe_remat(
+                    lambda xx: _rec_layer_apply(tp, cfg, xx)[0], cfg)(xc)
+            x = _layer_loop(cfg, tbody, x, params["tail"], cfg.n_layers % 3)
     elif cfg.family in _KV_FAMILIES:
-        for _, bp, _ in _decoder_layers(cfg, params):
-            dense = cfg.family in ("dense", "moe") and "moe" not in bp
-            x = _block_apply(cfg, bp, x, positions, diff=diff,
-                             window=cfg.window if dense else None)
+        # one remat unit a layer group: under moe_every > 1 the MoE block
+        # and its dense members (``_decoder_layers``' order), as in the
+        # JAX package
+        me = _moe_every(cfg)
+
+        def body(xc, bps):
+            def blk(xx):
+                for bp in bps:
+                    dense = cfg.family in ("dense", "moe") \
+                        and "moe" not in bp
+                    xx = _block_apply(cfg, bp, xx, positions, diff=diff,
+                                      window=cfg.window if dense else None)
+                return xx
+            return _maybe_remat(blk, cfg)(xc)
+        stacks = [params["blocks"]] + [params[f"blocks_dense{j}"]
+                                       for j in range(1, me)]
+        x = _layer_loop(cfg, body, x, stacks, cfg.n_layers // me,
+                        allow_group=True)
     else:
         raise ValueError(f"forward: unknown family {cfg.family!r}")
     return _finish(cfg, params, x, mode)
@@ -431,15 +514,21 @@ def _forward_encdec(cfg: ArchConfig, params, batch, *, diff: bool,
     to the encoder output."""
     enc = batch["src"].to(cfg.dtype)
     pos_src = _positions(enc.shape[0], enc.shape[1], enc.device)
-    for i in range(cfg.n_enc_layers):
-        enc = _block_apply(cfg, layer_params(params["enc_blocks"], i), enc,
-                           pos_src, diff=diff, causal=False)
+
+    def enc_body(xc, bp):
+        return _maybe_remat(lambda xx: _block_apply(
+            cfg, bp, xx, pos_src, diff=diff, causal=False), cfg)(xc)
+    enc = _layer_loop(cfg, enc_body, enc, params["enc_blocks"],
+                      cfg.n_enc_layers, allow_group=True)
     enc = L.rmsnorm_apply(params["ln_enc"], enc)
     x = _embed(cfg, params, batch["tokens"])
     pos = _positions(x.shape[0], x.shape[1], x.device)
-    for i in range(cfg.n_dec_layers):
-        x = _block_apply(cfg, layer_params(params["dec_blocks"], i), x, pos,
-                         diff=diff, cross_kv=(enc, enc))
+
+    def dec_body(xc, bp):
+        return _maybe_remat(lambda xx: _block_apply(
+            cfg, bp, xx, pos, diff=diff, cross_kv=(enc, enc)), cfg)(xc)
+    x = _layer_loop(cfg, dec_body, x, params["dec_blocks"],
+                    cfg.n_dec_layers, allow_group=True)
     return _finish(cfg, params, x, mode)
 
 

@@ -78,12 +78,8 @@ def make_train_step(cfg: ArchConfig, ocfg: optimizer.OptConfig,
 
     def train_step(params, opt_state, batch):
         if microbatches > 1:
-            def split(x):
-                b = x.shape[0]
-                assert b % microbatches == 0, (b, microbatches)
-                return x.reshape((microbatches, b // microbatches)
-                                 + tuple(x.shape[1:]))
-            mb = {k: split(v) for k, v in batch.items()}
+            mb = {k: shard_ctx.split_microbatches(v, microbatches)
+                  for k, v in batch.items()}
             loss_sum = None
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree.leaves(params)]

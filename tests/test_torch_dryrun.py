@@ -6,9 +6,12 @@ mamba2-130m and phi3.5-moe reduced in width, ``train_4k`` and
 sharding trees of equal leaf counts — the reference's counts, 38/22,
 44/21 and 41/23 — with every argument on the ``meta`` device; the
 ``long_500k`` skip set equals the reference's; a cell's numbers are
-reckoned (flops > 0, per-device argument bytes from the placements) and
-the fields without a torch counterpart are ``null`` with a reason; the
-CLI runs a production-mesh cell (256 fake ranks) and a skipped one."""
+reckoned (flops > 0, per-device argument bytes from the placements); a
+train cell's one-rank memory, bytes and collectives are reckoned on
+``meta`` DTensors (the peak holds the arguments, ``fsdp`` gathers and
+reduce-scatters, a one-rank mesh has no collective, remat lowers the
+peak), a decode cell's are ``null`` with a reason; the CLI runs a
+production-mesh cell (256 fake ranks) and a skipped one."""
 import dataclasses
 import json
 
@@ -78,7 +81,50 @@ def test_batch_one_degrades_to_a_replicated_batch(mesh):
     assert in_sh[-1]["tokens"].spec == PartitionSpec(None, None)
 
 
+def _train_cell(**over):
+    """Reduced tinyllama-1.1b's ``train_4k`` cell at seq 64 with ``fsdp``
+    and a global batch of 16: 4 microbatches of one row a data rank."""
+    cfg, shape = _cell("tinyllama-1.1b", "train_4k")
+    return (dataclasses.replace(cfg, fsdp=True, **over),
+            dataclasses.replace(shape, global_batch=16))
+
+
 def test_measure_cell_reckons_and_leaves_no_invented_numbers(mesh):
+    """A train cell's one-rank fields, reckoned on the 8-rank mesh: the
+    peak holds the arguments, the temporaries are the rest; the
+    ``fsdp`` parameters are gathered and their gradients reduce-scattered;
+    rematerialization lowers the peak."""
+    res = {}
+    for remat in (True, False):
+        cfg, shape = _train_cell(remat=remat,
+                                 remat_group=2 if remat else 0)
+        r = DR.measure_cell(cfg, shape, mesh)
+        assert r["status"] == "ok" and r["devices"] == 8
+        assert "null_reasons" not in r
+        _, _, args, in_sh, _ = DR.build_cell(cfg, shape, mesh)
+        assert r["argument_bytes"] == DR.per_device_bytes(args, in_sh)
+        assert r["peak_bytes"] >= r["argument_bytes"] > 0
+        assert r["temp_bytes"] == r["peak_bytes"] - r["argument_bytes"]
+        assert r["output_bytes"] > 0 and r["bytes_per_device"] > 0
+        coll = r["collectives"]
+        assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+        assert r["collective_bytes_per_device"] == sum(coll.values())
+        res[remat] = r
+    assert res[True]["peak_bytes"] < res[False]["peak_bytes"]
+
+
+def test_one_rank_cell_has_no_collectives():
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg, shape = _train_cell()
+    with DR.fake_world(1):
+        one = init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+        r = DR.measure_cell(cfg, shape, one)
+    assert r["collectives"] == {} and r["collective_bytes_per_device"] == 0
+    assert r["peak_bytes"] > r["argument_bytes"] > 0
+
+
+def test_decode_cell_leaves_its_memory_fields_null(mesh):
     cfg, shape = _cell("tinyllama-1.1b", "decode_32k")
     res = DR.measure_cell(cfg, shape, mesh)
     assert res["status"] == "ok" and res["devices"] == 8
