@@ -154,17 +154,16 @@ exit at the first failure:
      the W4A4 BSEG plan (B3) == ``plan=None`` at UltraNet's 64 -> 64 3x3
      stage; then ``run_qat`` on full-width tinyllama-1.1b with the
      launcher's ``--qat`` defaults (W4A8, plan_policy "auto", batch 8 x
-     128 in 2 microbatches) for 2 steps, saving its checkpoint, and step
-     3 from memory: finite losses, every wrapped leaf on the planner's
+     128 in 2 microbatches) for 3 steps (no checkpoint: phase 15 restores
+     mamba2-130m's and phase 16 the launcher's full-width one): finite
+     losses, every wrapped leaf on the planner's
      plan, 898 B2 a step (2 microbatches of 155 in the forward and 294 in
      the backward's recompute under the registry's remat, ``qat_launches``)
      and 155 an eval batch and nothing else, step walls, peak memory and
      one profiled step split into B2, ``prepare_sdv_weights`` (a profiler
      range) and the rest (``qat_run``, which phase 15 runs too); one more
      step from the last state with ``remat=False``, bit for bit the
-     remat step's loss and parameters; the
-     checkpoint restored bit for bit and step 3 run from it with the
-     same loss; the step-3 parameters exported by ``export_for_serving``
+     remat step's loss and parameters; the step-3 parameters exported by ``export_for_serving``
      evaluate within 0.1 of the QAT eval (154 B2) and decode through
      ``single_batch_loop`` (154 B1 a step);
  13. moe — the MoE family at full-width phi3.5-moe-42b-a6.6b (32 layers,
@@ -259,7 +258,7 @@ exit at the first failure:
      the 16 x 16 production mesh (a fake process group of 256 ranks): leaf
      counts, and from ``measure_cell`` (reckoned by ``HostDryRun``'s
      worker process, started with the script, beside the card's phases)
-     per-device argument bytes and flops, and for ``train_4k`` a rank's
+     per-device argument bytes and flops, and for both cells a rank's
      peak, temporaries, outputs, collectives and bytes.
  17. kv — the bf16 KV cache (``serve_kv_bits = 16``: K and V in bf16,
      no scales) of the dense, moe and vlm families (after the earlier
@@ -285,7 +284,7 @@ exit at the first failure:
      training through ``make_train_step``, 2 steps at 4 x 1024 tokens in
      4 microbatches from one state with ``remat=False``, per-block remat
      and the registry's ``remat_group`` 11: every loss and layer 0's
-     updated parameters bit for bit alike, step walls and peaks; (b) 3
+     updated parameters bit for bit alike, step walls and peaks; (b) 2
      steps at 4 x 4096 in 4 microbatches of one sequence on the
      registry's remat: finite losses, step 1's within 1e-6 of a
      ``no_grad`` ``loss_fn`` over the same microbatches, step walls and
@@ -294,6 +293,23 @@ exit at the first failure:
      peak within 15% of (b)'s, without remat against the card's 80 GB,
      and the reckoned peak of phase 16's plain step against its measured
      one; (d) the QAT phases' B2 a step (checked there) and walls.
+ 19. sharded — the sharded decode (after the earlier phases' memory is
+     freed), on a one-rank ``nccl`` group and a (1, 1) ("data", "model")
+     mesh, full-width tinyllama-1.1b from its W4 memory-packed tree
+     placed by ``launch/mesh.place_decode``: (a) a prefill of 8 x 15
+     tokens and 16 greedy steps at batch 8, plainly and on the mesh, on
+     the int8 and the bf16 cache: tokens, every step's logits and every
+     cache leaf bit for bit alike, 154 B7 a prefill and 155 a step on
+     both paths; (b) one SDV and one memory decode step under
+     ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing op
+     left, by source line, none in the cache writes; (c) ``decode_32k``
+     on the mesh (batch 128, ``s_max`` 32768, int8 cache): 127 rows at
+     32767 write it in every layer, one at 32768 under ``advance`` 0
+     writes nothing, finite logits, 155 B7, two step walls, the peak
+     against the worker's one-rank reckoning within 5%; (d) the
+     worker's ``decode_32k`` and recurrentgemma-2b ``long_500k`` on the
+     16 x 16 mesh: a rank's memory and collectives, none on a layer's
+     cache shard.
 
 The last two lines of standard output are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``; the card's name and power limit come
@@ -378,7 +394,7 @@ ENGINE_MEMORY_REQUESTS = 8
 #: take BATCH x (k + 1) = 32 rows (B2); bursts of 8 of the engine
 #: phase's requests through a plain and a speculative engine on the
 #: engine phase's buckets and chunk; the full-width calibration run's
-#: Adam steps and rate (120 steps since its forward recomputes under the
+#: Adam steps and rate (40 steps since its forward recomputes under the
 #: registry's remat, 0.5 s a step on the H100, so the script stays well
 #: inside its time limit; at lr 1e-3 the loss rose) and the reduced
 #: one's (the
@@ -388,16 +404,16 @@ ENGINE_MEMORY_REQUESTS = 8
 SPEC_K = 3
 VERIFY_ROWS = BATCH * (SPEC_K + 1)
 SPEC_REQUESTS = 8
-SPEC_CALIBRATION = {"steps": 120, "lr": 1e-4}
+SPEC_CALIBRATION = {"steps": 40, "lr": 1e-4}
 SPEC_REDUCED_CALIBRATION = {"steps": 120, "lr": 1e-2}
 LOSS_WINDOW = 10
 #: the train phase: packed QAT of full-width tinyllama-1.1b as the
 #: launcher runs it by default (``python -m repro_torch.launch.train
 #: --qat``: W4A8, plan_policy "auto", a global batch of 8 x 128 tokens
 #: in 2 microbatches, so every STE forward GEMM takes 4 x 128 = 512 rows
-#: (B2) and the eval batch 8 x 128 = 1024), QAT_STEPS steps with a
-#: checkpoint at QAT_CKPT_STEP that a second run resumes from; the
-#: exported model decodes QAT_DECODE = (prompt, new) tokens at batch 8
+#: (B2) and the eval batch 8 x 128 = 1024), QAT_STEPS steps (the ssm
+#: phase's mamba2-130m with a checkpoint at QAT_CKPT_STEP that a second
+#: run resumes from); the exported model decodes QAT_DECODE = (prompt, new) tokens at batch 8
 QAT_STEPS, QAT_BATCH, QAT_SEQ, QAT_MICRO = 3, 8, 128, 2
 QAT_ROWS = QAT_BATCH // QAT_MICRO * QAT_SEQ
 QAT_CKPT_STEP = 2
@@ -484,7 +500,7 @@ REMAT_EXACT, REMAT_EXACT_STEPS = (4, 1024, 4), 2
 REMAT_SETTINGS = {"off": dict(remat=False, remat_group=0),
                   "block": dict(remat=True, remat_group=0),
                   "registry": {}}
-REMAT_LONG, REMAT_LONG_STEPS = (4, 4096, 4), 3
+REMAT_LONG, REMAT_LONG_STEPS = (4, 4096, 4), 2
 REMAT_LOSS_RTOL = 1e-6
 REMAT_PEAK_RTOL = 0.15
 CARD_BYTES = 80e9
@@ -492,6 +508,14 @@ CARD_BYTES = 80e9
 #: started with the script (``HostDryRun``); the phases that read them
 #: wait at most this long
 DRYRUN_WAIT_S = 900
+#: phase 19: the sharded decode of full-width SHARDED_ARCH on a one-rank
+#: (1, 1) mesh; LONG_DECODE = (batch, s_max) of the reference's decode_32k
+#: cell, its reckoned peak within LONG_PEAK_RTOL of the card's (fixed
+#: before the first reading); the hybrid cell the worker also reckons
+SHARDED_ARCH = "tinyllama-1.1b"
+LONG_DECODE = (128, 32768)
+LONG_PEAK_RTOL = 0.05
+LONG_ARCH = "recurrentgemma-2b"
 #: phase 17: the reduced models held card against CPU on the bf16 KV
 #: cache (``serve_kv_bits = KV_BITS``), their decode steps, and the
 #: profiler range of the decode step's KV write and attention
@@ -1125,6 +1149,77 @@ def phase_serve(dev):
     return {"B1": c_decode["B1"], "B2": c_prefill["B2"]}
 
 
+class _HostOp:
+    """A host event of the profiler's raw (kineto) trace as ``host_ops``'
+    predicates see it: ``key`` (its name) and ``input_shapes`` (read only
+    when a predicate asks)."""
+    __slots__ = ("_e",)
+
+    def __init__(self, e):
+        self._e = e
+
+    @property
+    def key(self):
+        return self._e.name()
+
+    @property
+    def input_shapes(self):
+        return self._e.shapes()
+
+
+def device_events(prof):
+    """The profiled run's device events (kernels, copies, memsets) as
+    (name, ms, the host op that launched them or None), and the host ops
+    by correlation id, read from the raw kineto trace.  The profiler's
+    ``key_averages`` builds a Python event tree first, which takes about
+    0.5 ms an event on the host: minutes for a train step.  A range's own
+    device-side copy (a user annotation, not a kernel) is left out."""
+    from torch.autograd import DeviceType
+    host, dev = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if not e.is_async() and e.linked_correlation_id() == 0:
+                host[e.correlation_id()] = e
+        else:
+            dev.append(e)
+    ranges = {HEAD_DECODE, KV_RANGE, *SSM_RANGES} | {
+        e.name() for e in host.values()
+        if getattr(e, "is_user_annotation", lambda: False)()}
+    return [(e.name(), e.duration_ns() / 1e6,
+             host.get(e.linked_correlation_id()))
+            for e in dev if e.name() not in ranges], host
+
+
+def device_ms_under(events, host, pick):
+    """Device ms of ``events`` launched inside a host op that ``pick``
+    (a predicate on a ``_HostOp``) selects: the launching op is that op
+    or runs within it on the same thread."""
+    import bisect
+    spans = {}
+    for e in host.values():
+        if pick(_HostOp(e)):
+            spans.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+    merged = {}
+    for tid, iv in spans.items():
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        merged[tid] = ([a for a, _ in out], [b for _, b in out])
+    total = 0.0
+    for _, ms, op in events:
+        if op is None or op.start_thread_id() not in merged:
+            continue
+        starts, ends = merged[op.start_thread_id()]
+        i = bisect.bisect_right(starts, op.start_ns()) - 1
+        if i >= 0 and op.end_ns() <= ends[i]:
+            total += ms
+    return total
+
+
 def profile(label, fn, steps, wall_ms):
     """Device busy time per call of ``fn`` (torch.profiler) against
     ``wall_ms``, the unprofiled wall time per call, and the kernels that
@@ -1133,7 +1228,6 @@ def profile(label, fn, steps, wall_ms):
     appear as device events too.  Returns (busy ms, {device event: ms})
     per call, or None when the profiler saw no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
@@ -1142,29 +1236,30 @@ def profile(label, fn, steps, wall_ms):
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA}
-    busy_ms = sum(dev_us.values()) / 1e3 / steps
+    dev_ms = {}
+    for name, ms, _ in device_events(prof)[0]:
+        dev_ms[name] = dev_ms.get(name, 0.0) + ms / steps
+    busy_ms = sum(dev_ms.values())
     if busy_ms == 0.0:
         print(f"[profile] {label}: the profiler saw no device time; "
               "device busy share not measured")
         return None
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
     # each event goes to the longest port kernel name in it
     # (pack_words_kernel is a substring of unpack_words_kernel)
     ours = dict.fromkeys(PORT_KERNELS, 0.0)
-    for k, v in dev_us.items():
+    for k, v in dev_ms.items():
         hits = [name for name in PORT_KERNELS if name in k]
         if hits:
-            ours[max(hits, key=len)] += v / 1e3 / steps
+            ours[max(hits, key=len)] += v
     print(f"[profile] {label}: unprofiled wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}) over "
-          f"{len(dev_us)} distinct device events; the port's kernels "
+          f"{len(dev_ms)} distinct device events; the port's kernels "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ours.items() if v)
           + f", the rest {busy_ms - sum(ours.values()):.3f} ms; top device "
           "time per call: "
-          + "; ".join(f"{k[:60]} {v / 1e3 / steps:.3f} ms" for k, v in top))
-    return busy_ms, {k: v / 1e3 / steps for k, v in dev_us.items()}
+          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    return busy_ms, dev_ms
 
 
 def phase_reference(dev, compute="sdv"):
@@ -2696,9 +2791,8 @@ def ste_card_checks(dev, plan):
 def phase_train(dev, card, flush):
     """Packed QAT of full-width tinyllama-1.1b: B2 at the QAT shapes and
     the STE layers on the card (``qat_b2_cases``, ``ste_card_checks``),
-    then ``qat_run`` with the launcher's ``--qat`` defaults: a checkpoint
-    at QAT_CKPT_STEP, step QAT_STEPS from memory and from the restored
-    checkpoint, the export evaluated and decoded on B1; every wrapped
+    then ``qat_run`` with the launcher's ``--qat`` defaults for QAT_STEPS
+    steps, the export evaluated and decoded on B1; every wrapped
     leaf on the dsp48e2 n=3 plan ``qat_b2_cases`` times.  Returns the
     phase's kernel numbers and launch counts."""
     t_phase = time.perf_counter()
@@ -2706,7 +2800,7 @@ def phase_train(dev, card, flush):
     b3 = ste_card_checks(dev, plan)
     print(f"[train] kernel checks {time.perf_counter() - t_phase:.1f} s")
     run = qat_run("tinyllama-1.1b", dev, card, steps=QAT_STEPS,
-                  ckpt_step=QAT_CKPT_STEP, export=True, remat_check=True,
+                  export=True, remat_check=True,
                   tag="train")
     check(run["qat_layers"] == 8 and run["plans"] == {plan},
           f"tinyllama QAT: {run['qat_layers']} wrapped leaves on "
@@ -2715,7 +2809,6 @@ def phase_train(dev, card, flush):
     return dict(b2=b2, split=run["split"], step_ms=run["step_ms"],
                 peak=run["peak_gib"], remat_vs_off_ms=run["remat_vs_off_ms"],
                 launches={"B2 train": run["b2_run"],
-                          "B2 resume": run["b2_resume"],
                           "B2 export eval": run["b2_export_eval"],
                           "B1 export decode": run["b1_decode"],
                           "B3 conv": b3})
@@ -2877,42 +2970,33 @@ def moe_card_vs_cpu(dev):
                   f"{float(host['k_scale'].sum()):.4g}")
 
 
-def step_split(tag, label, fn, wall_ms, card, kernels, host_ops):
+def step_split(tag, label, fn, wall_ms, card, kernels, host_ops,
+               shapes=False):
     """One profiled call of ``fn``: device busy ms and its split into the
     port's ``kernels`` ({name: kernel function name}, by the device
-    events' names), the device time under the host events ``host_ops``
-    picks ({name: predicate on an event of ``key_averages
-    (group_by_input_shape=True)``}, e.g. ``aten::bmm`` on a bank, or a
-    profiler range) and the rest; a range's own device-side copy (a user
-    annotation, not a kernel) is left out of busy.  Returns the split, or
-    None when the profiler saw no device time."""
+    events' names), the device time under the host ops ``host_ops``
+    picks ({name: predicate on a ``_HostOp``, e.g. ``aten::bmm`` on a
+    bank (``shapes``: the profiler records input shapes), or a profiler
+    range}) and the rest (``device_events``, ``device_ms_under``).
+    Returns the split, or None when the profiler saw no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA],
-                       record_shapes=True) as prof:
+                       record_shapes=shapes) as prof:
         fn()
         torch.cuda.synchronize()
-    events = prof.key_averages(group_by_input_shape=True)
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    ranges = {HEAD_DECODE} | {e.key for e in host
-                              if getattr(e, "is_user_annotation", False)}
-    dev_ms = {}
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.key not in ranges:
-            dev_ms[e.key] = dev_ms.get(e.key, 0.0) \
-                + e.self_device_time_total / 1e3
-    busy = sum(dev_ms.values())
+    events, host = device_events(prof)
+    busy = sum(ms for _, ms, _ in events)
     if busy == 0.0:
         print(f"[{tag}] {label}: the profiler saw no device time; split "
               "not measured")
         return None
-    split = {k: sum(v for n, v in dev_ms.items() if name in n)
+    split = {k: sum(ms for n, ms, _ in events if name in n)
              for k, name in kernels.items()}
-    split.update({k: sum(e.device_time_total / 1e3 for e in host if pick(e))
+    split.update({k: device_ms_under(events, host, pick)
                   for k, pick in host_ops.items()})
     split["rest"] = busy - sum(split.values())
     print(f"[{tag}] {label}: unprofiled wall {wall_ms:.3f} ms, device busy "
@@ -3026,7 +3110,8 @@ def moe_serve(cfg, dev, card, compute):
         card, {"B7": "unpack_dequant_kernel", "B1": "sdv_gemv_kernel",
                "B2": "sdv_gemm_kernel"},
         {"expert GEMMs": lambda e: e.key == "aten::bmm"
-         and len(e.input_shapes) > 1 and list(e.input_shapes[1]) in banks})
+         and len(e.input_shapes) > 1 and list(e.input_shapes[1]) in banks},
+        shapes=True)
     del state
 
     reset_counts()
@@ -4360,13 +4445,27 @@ def dist_train(dev, card):
     return res
 
 
+def _decode_cell(dryrun, cfg, shape, mesh):
+    """``measure_cell`` of a decode cell, with the collective operands
+    shaped like a layer's local cache shard (``cache_collectives``)."""
+    rk = dryrun.RankReckoner()
+    res = dryrun.measure_cell(cfg, shape, mesh, rk)
+    _, _, args, in_sh, _ = dryrun.build_cell(cfg, shape, mesh)
+    res["cache_collectives"] = [list(map(str, op)) for op in
+                                dryrun.cache_collectives(rk, args[1],
+                                                         in_sh[1])]
+    return res
+
+
 def dryrun_cells():
-    """The dry run's cells that phases 16 and 18 read (on the host, no
-    card): ``measure_cell`` of REMAT_ARCH's DIST_CELLS on the 16 x 16
-    production mesh (256 fake ranks), and on a one-rank (1, 1) mesh of
-    phase 18's long step (REMAT_LONG) with the registry's remat and
-    without, and of phase 16's plain step (the launcher's 8 x 128 in 2
-    microbatches)."""
+    """The dry run's cells that phases 16, 18 and 19 read (on the host,
+    no card), yielded as (name, cell) in the order the phases read
+    them: ``measure_cell`` of REMAT_ARCH's DIST_CELLS on the 16 x 16
+    production mesh (256 fake ranks); on a one-rank (1, 1) mesh, phase
+    18's long step (REMAT_LONG) with the registry's remat and without,
+    and phase 16's plain step (the launcher's 8 x 128 in 2 microbatches);
+    LONG_ARCH's long_500k on the production mesh; SHARDED_ARCH's decode
+    step at LONG_DECODE on the one-rank mesh."""
     import dataclasses
 
     from repro_torch.configs.base import SHAPES, ShapeCell
@@ -4375,11 +4474,13 @@ def dryrun_cells():
     from repro_torch.launch.mesh import make_production_mesh
     from torch.distributed.device_mesh import init_device_mesh
     cfg = get_arch(REMAT_ARCH)
-    out = {}
     with dryrun.fake_world(256):
         mesh = make_production_mesh(device_type="cpu")
         for name in DIST_CELLS:
-            out[name] = dryrun.measure_cell(cfg, SHAPES[name], mesh)
+            shape = SHAPES[name]
+            yield name, (_decode_cell(dryrun, cfg, shape, mesh)
+                         if shape.kind == "decode" else
+                         dryrun.measure_cell(cfg, shape, mesh))
     b, s, mb = REMAT_LONG
     long_cfg = dataclasses.replace(cfg, train_microbatches=mb)
     long_cell = ShapeCell("remat_long", s, b, "train")
@@ -4393,20 +4494,35 @@ def dryrun_cells():
         one = init_device_mesh("cpu", (1, 1),
                                mesh_dim_names=("data", "model"))
         for name, (c, shape) in cells.items():
-            out[name] = dryrun.measure_cell(c, shape, one)
-    return out
+            yield name, dryrun.measure_cell(c, shape, one)
+    with dryrun.fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        yield "long_500k", _decode_cell(dryrun, get_arch(LONG_ARCH),
+                                        SHAPES["long_500k"], mesh)
+    b, s = LONG_DECODE
+    with dryrun.fake_world(1):
+        one = init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+        yield "decode_one", dryrun.measure_cell(
+            get_arch(SHARDED_ARCH), ShapeCell("decode_32k", s, b, "decode"),
+            one)
 
 
 def _dryrun_worker(conn):
-    """``dryrun_cells`` in a worker process; sends ("ok", cells) or
-    ("fail", the error)."""
+    """``dryrun_cells`` in a worker process; sends ("ok", name, cell) for
+    each cell, then ("done", None, None), or ("fail", None, the error)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     torch.set_num_threads(1)
+    t0 = time.perf_counter()
     try:
-        conn.send(("ok", dryrun_cells()))
+        for name, cell in dryrun_cells():
+            conn.send(("ok", name, cell))
+            print(f"[dryrun] worker: {name} ready {time.perf_counter() - t0:.1f}"
+                  f" s after its start", flush=True)
+        conn.send(("done", None, None))
     except Exception as e:                  # noqa: BLE001 — the parent fails
-        conn.send(("fail", f"{type(e).__name__}: {e}"))
+        conn.send(("fail", None, f"{type(e).__name__}: {e}"))
     finally:
         conn.close()
 
@@ -4417,7 +4533,8 @@ class HostDryRun:
     width), so it runs beside the card's phases.  While it runs this
     process keeps one thread fewer, so the worker has a core of its own
     (oversubscribed, each parallel region waits for its slowest thread).
-    ``result`` waits for it; ``stop`` ends the worker."""
+    ``result(*names)`` waits for those cells (every cell by default);
+    ``stop`` ends the worker."""
 
     def __init__(self):
         import multiprocessing
@@ -4432,20 +4549,31 @@ class HostDryRun:
         self._t0 = time.perf_counter()
         self._proc.start()
         send.close()
-        self._res = None
+        self._res = {}
+        self._done = False
 
-    def result(self):
-        if self._res is None:
-            t0 = time.perf_counter()
-            check(self._recv.poll(DRYRUN_WAIT_S),
+    def result(self, *names):
+        t0 = time.perf_counter()
+        while not self._done and not all(n in self._res for n in names):
+            left = DRYRUN_WAIT_S - (time.perf_counter() - t0)
+            check(left > 0 and self._recv.poll(left),
                   f"dry run: no result after {DRYRUN_WAIT_S} s")
-            status, res = self._recv.recv()
-            self._restore_threads()
-            check(status == "ok", f"dry run worker: {res}")
-            print(f"[dryrun] the worker's cells ready "
-                  f"{time.perf_counter() - self._t0:.1f} s after its start "
-                  f"(waited {time.perf_counter() - t0:.1f} s)")
-            self._res = res
+            try:
+                status, name, cell = self._recv.recv()
+            except EOFError:
+                raise SmokeFailure("dry run: the worker ended without its "
+                                   "cells") from None
+            check(status != "fail", f"dry run worker: {cell}")
+            if status == "done":
+                self._done = True
+                self._restore_threads()
+                print(f"[dryrun] the worker's cells ready "
+                      f"{time.perf_counter() - self._t0:.1f} s after its "
+                      f"start (waited {time.perf_counter() - t0:.1f} s)")
+            else:
+                self._res[name] = cell
+        missing = [n for n in names if n not in self._res]
+        check(not missing, f"dry run: no cells {missing}")
         return self._res
 
     def _restore_threads(self):
@@ -4480,36 +4608,37 @@ def dist_dryrun(dry):
             check(counts == (n_leaves, n_leaves),
                   f"dist: dry-run {name} leaf counts {counts}, want "
                   f"{n_leaves}")
-    cells = dry.result()
+    cells = dry.result(*DIST_CELLS)
     res = {}
     for name, n_leaves in DIST_CELLS.items():
         r = cells[name]
-        check(r["flops"] > 0 and r["argument_bytes"] > 0,
+        check(r["flops"] > 0 and r["argument_bytes"] > 0
+              and r["peak_bytes"] >= r["argument_bytes"]
+              and r["temp_bytes"] == r["peak_bytes"] - r["argument_bytes"],
               f"dist: dry-run {name} {r}")
-        rank = ""
         if SHAPES[name].kind == "train":
-            check(r["peak_bytes"] >= r["argument_bytes"]
-                  and r["temp_bytes"] == r["peak_bytes"] - r["argument_bytes"]
-                  and r["collectives"].get("all-gather", 0) > 0
+            check(r["collectives"].get("all-gather", 0) > 0
                   and r["collectives"].get("reduce-scatter", 0) > 0,
-                  f"dist: dry-run {name} {r}")
-            rank = (f"; a rank's peak {gib(r['peak_bytes']):.3f} GiB "
-                    f"(temp {gib(r['temp_bytes']):.3f}), outputs "
-                    f"{gib(r['output_bytes']):.3f} GiB, collectives "
-                    + ", ".join(f"{k} {gib(v):.3f}" for k, v in
-                                r["collectives"].items())
-                    + f" GiB, bytes accessed (unfused) "
-                    f"{r['bytes_per_device']:.4e}")
-        else:
-            check(r["peak_bytes"] is None and "null_reasons" in r,
                   f"dist: dry-run {name} {r}")
         res[name] = r
         print(f"[dist] dry run tinyllama-1.1b x {name} x 16x16: "
               f"{n_leaves} leaves, {r['argument_bytes'] / 2**20:.1f} MiB "
               f"of arguments a device, {r['flops']:.4e} flops "
-              f"({r['flops_per_device']:.4e} a device){rank}; built in "
-              f"{r['build_s']} s (the worker, beside the card's phases)")
+              f"({r['flops_per_device']:.4e} a device); {rank_note(r)}; "
+              f"built in {r['build_s']} s (the worker, beside the card's "
+              f"phases)")
     return res
+
+
+def rank_note(r):
+    """One rank's reckoned memory, collectives and bytes, as printed."""
+    return (f"a rank's peak {gib(r['peak_bytes']):.3f} GiB (temp "
+            f"{gib(r['temp_bytes']):.3f}), outputs "
+            f"{gib(r['output_bytes']):.3f} GiB, collectives "
+            + (", ".join(f"{k} {gib(v):.3f}" for k, v in
+                         r["collectives"].items()) or "none")
+            + f" GiB ({gib(r['collective_bytes_per_device']):.3f} in all), "
+            f"bytes accessed (unfused) {r['bytes_per_device']:.4e}")
 
 
 def phase_dist(dev, card, dry):
@@ -5034,7 +5163,7 @@ def remat_dryrun(long, dist, dry, card):
     card: the long step's peak with the registry's remat within
     REMAT_PEAK_RTOL of (b)'s; without remat against the card; phase
     16's plain step against its measured peak."""
-    cells = dry.result()
+    cells = dry.result("long_remat", "long_no_remat", "dist_plain")
     on, off, plain = (cells[k] for k in ("long_remat", "long_no_remat",
                                          "dist_plain"))
     ratio = on["peak_bytes"] / long["peak"]
@@ -5097,10 +5226,339 @@ def phase_remat(dev, card, dry, train, ssm, dist):
     return {"exact": exact, "long": long, "dryrun": dryc}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sharded decode
+# ---------------------------------------------------------------------------
+
+def sharded_greedy(cfg, params, dev, mesh=None):
+    """A prefill of the first PROMPT-1 tokens of ``kv_prompts`` and NEW
+    greedy decode steps of full-width ``cfg`` from the memory-packed tree
+    ``params`` on a fresh cache, plainly or (``mesh``) with the tree,
+    the cache and each step's tokens placed on ``mesh``
+    (``place_decode``).  Returns the greedy tokens [BATCH, NEW], each
+    step's logits, the final cache (full tensors), the launches of the
+    prefill and of the decode steps and the decode wall in seconds."""
+    import torch
+    from repro_torch.launch.mesh import (batch_shardings, distribute,
+                                         place_decode)
+    from repro_torch.models import (decode_step, init_cache, prefill_step,
+                                    shard_ctx)
+    prompts, n_prompt = kv_prompts(cfg, dev)
+    cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+    batch = {"tokens": prompts, "n_valid": n_prompt}
+    rules, p = None, params
+
+    def put(tok):
+        return tok
+    if mesh is not None:
+        rules, p, cache, batch = place_decode(mesh, cfg, params, cache, batch)
+        sh = batch_shardings(mesh, rules, {"tokens": prompts[:, -1:]})
+
+        def put(tok):
+            return distribute({"tokens": tok}, sh)["tokens"]
+
+    def full(t):
+        return t.full_tensor() if mesh is not None else t
+    with shard_ctx.use_rules(rules), torch.no_grad():
+        reset_counts()
+        cache = prefill_step(cfg, p, cache, batch["tokens"],
+                             batch["n_valid"])
+        c_pre = counts()
+        tok, gen, logits = prompts[:, -1:], [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(NEW):
+            out, cache = decode_step(cfg, p, cache, put(tok))
+            out = full(out)
+            tok = torch.argmax(out[:, -1:, :cfg.vocab], dim=-1).to(
+                torch.int32)
+            gen.append(tok)
+            logits.append(out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c_dec = counts()
+    return (torch.cat(gen, 1), logits, {k: full(v) for k, v in
+                                        cache.items()}, c_pre, c_dec, wall)
+
+
+def sharded_exact(cfg, qparams, dev, card, mesh):
+    """(a): the greedy prefill + decode of ``sharded_greedy`` plainly and
+    on the one-rank mesh, on the int8 and the bf16 cache: tokens, every
+    step's logits and every cache leaf bit for bit alike; 154 B7 a
+    prefill and 155 a decode step on both paths, no plain call."""
+    import dataclasses
+    per_step = 7 * cfg.n_layers
+    want_pre, want_dec = expect(B7=per_step), expect(B7=NEW * (per_step + 1))
+    res = {}
+    for kv_bits in (8, KV_BITS):
+        c = dataclasses.replace(cfg, serve_kv_bits=kv_bits)
+        runs = {"plain": sharded_greedy(c, qparams, dev),
+                "mesh": sharded_greedy(c, qparams, dev, mesh)}
+        for path, (_, _, _, c_pre, c_dec, _) in runs.items():
+            check(c_pre == want_pre and c_dec == want_dec,
+                  f"sharded (a) {path} kv{kv_bits}: launches prefill "
+                  f"{c_pre}, decode {c_dec}")
+        (pt, pl, pc, *_, pw), (mt, ml, mc, *_, mw) = runs["plain"], \
+            runs["mesh"]
+        check(same_bits(pt, mt), f"sharded (a) kv{kv_bits}: tokens differ")
+        check(all(same_bits(a, b) for a, b in zip(pl, ml)),
+              f"sharded (a) kv{kv_bits}: logits differ")
+        check(set(pc) == set(mc) and all(same_bits(pc[k], mc[k])
+                                          for k in pc),
+              f"sharded (a) kv{kv_bits}: caches differ")
+        check(all(bool(x.isfinite().all()) for x in ml),
+              f"sharded (a) kv{kv_bits}: non-finite logits")
+        res[kv_bits] = {"plain_ms": pw / NEW * 1e3, "mesh_ms": mw / NEW * 1e3,
+                        "prefill": runs["mesh"][3], "decode": runs["mesh"][4]}
+        print(f"[sharded] (a) {cfg.name} memory W{cfg.serve_weight_bits}, "
+              f"{'int8' if kv_bits == 8 else 'bf16'} cache: prefill "
+              f"{BATCH}x{PROMPT - 1} + {NEW} greedy steps at batch {BATCH} "
+              f"on the (1, 1) mesh (nccl, one rank) == the plain decode: "
+              f"tokens, {NEW} steps' logits and {len(pc)} cache leaves bit "
+              f"for bit; B7 {runs['mesh'][3]['B7']} a prefill, "
+              f"{runs['mesh'][4]['B7'] // NEW} a step on the mesh (plain "
+              f"{runs['plain'][4]['B7'] // NEW}); decode "
+              f"{res[kv_bits]['mesh_ms']:.1f} ms/step on the mesh, "
+              f"{res[kv_bits]['plain_ms']:.1f} plain ({card})")
+    return res
+
+
+def sharded_syncs(cfg, trees, dev):
+    """(b): one decode step of each tree (SDV and memory) under
+    ``torch.cuda.set_sync_debug_mode("warn")``: every synchronizing op
+    left, by the source line that called it; none in the cache writes
+    (``layers.decode_writes``, ``prefill_writes``, ``_put``,
+    ``_write_kv``)."""
+    import collections
+    import inspect
+    import traceback
+    import warnings
+
+    import torch
+    from repro_torch.models import (decode_step, init_cache, layers,
+                                    prefill_step)
+    spans = []
+    for fn in (layers.decode_writes, layers.prefill_writes, layers._put,
+               layers._write_kv):
+        lines, first = inspect.getsourcelines(fn)
+        spans.append((inspect.getsourcefile(fn), first, first + len(lines)))
+    prompts, n_prompt = kv_prompts(cfg, dev)
+    res = {}
+    for compute, q in trees.items():
+        cache = init_cache(cfg, BATCH, PROMPT + NEW, device=dev)
+        syncs = []
+
+        def seen(message, category, filename, lineno, file=None, line=None):
+            if "synchroniz" in str(message):
+                stack = traceback.extract_stack()[:-1]
+                ours = [f for f in stack if "repro_torch" in f.filename] \
+                    or [f for f in stack if "/torch/" not in f.filename
+                        and not f.filename.endswith("warnings.py")]
+                syncs.append((f"{Path(filename).parent.name}/"
+                              f"{Path(filename).name}:{lineno}",
+                              (f"{Path(ours[-1].filename).name}:"
+                               f"{ours[-1].lineno} {ours[-1].name}")
+                              if ours else "-",
+                              [(f.filename, f.lineno) for f in stack]))
+        with torch.no_grad():
+            cache = prefill_step(cfg, q, cache, prompts, n_prompt)
+            _, cache = decode_step(cfg, q, cache, prompts[:, -1:])
+            torch.cuda.synchronize()
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = seen
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    decode_step(cfg, q, cache, prompts[:, -1:])
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        where = collections.Counter(f"{a} from {b}" for a, b, _ in syncs)
+        in_writes = [a for a, _, stack in syncs
+                     if any(fn == f and lo <= n < hi for fn, n in stack
+                            for f, lo, hi in spans)]
+        check(not in_writes, f"sharded (b) {compute}: the cache writes "
+              f"synchronize at {in_writes}")
+        res[compute] = dict(where)
+        print(f"[sharded] (b) {cfg.name} {compute}: one decode step at batch "
+              f"{BATCH} under set_sync_debug_mode('warn'): {len(syncs)} "
+              f"synchronizing ops left"
+              + (", at " + ", ".join(f"{k} x{n}" for k, n in where.items())
+                 if where else "") + "; none in the cache writes")
+    return res
+
+
+def sharded_long(dev, card, mesh, dry):
+    """(c): full-width SHARDED_ARCH's decode_32k step (LONG_DECODE: batch
+    128, s_max 32768, int8 cache, W4 memory-packed weights) on the
+    one-rank mesh: every row at position s_max - 1 but the last, which
+    sits at s_max under advance 0.  Each of the others writes position
+    s_max - 1 in every layer, the last row writes nothing (its
+    s_max - 1 stays empty) and nothing else is written; 155 B7; finite
+    logits; the step's wall; the card's peak (above what was held
+    before the state) against the one-rank dry run's reckoning of the
+    same step, within LONG_PEAK_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import (batch_shardings, distribute,
+                                         place_decode)
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    serve_params, shard_ctx)
+    b, s = LONG_DECODE
+    cfg = get_arch(SHARDED_ARCH)
+    cell = dry.result("decode_one")["decode_one"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(dev)[0]
+    check(cell["peak_bytes"] < free,
+          f"sharded (c): the reckoned peak {gib(cell['peak_bytes']):.2f} GiB "
+          f"does not fit the {gib(free):.2f} GiB free")
+    held = torch.cuda.memory_allocated(dev)
+    qparams = serve_params(init_params(cfg, seed=0, device=dev),
+                           bits=cfg.serve_weight_bits)
+    cache = init_cache(cfg, b, s, device=dev)
+    cache["index"].fill_(s - 1)
+    cache["index"][-1] = s
+    advance = torch.ones(b, dtype=torch.int32, device=dev)
+    advance[-1] = 0
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, 1)), dtype=torch.int32, device=dev)
+    rules, p, c, bt = place_decode(mesh, cfg, qparams, cache,
+                                   {"tokens": tokens})
+    check(c["k"].to_local().data_ptr() == cache["k"].data_ptr(),
+          "sharded (c): placing the cache on the mesh copied it")
+    adv = distribute({"a": advance}, batch_shardings(mesh, rules,
+                                                     {"a": advance}))["a"]
+    del cache
+    gc.collect()
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated(dev) - held
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    with shard_ctx.use_rules(rules), torch.no_grad():
+        for i in range(2):
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, c = decode_step(cfg, p, c, bt["tokens"], advance=adv)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launched = counts()
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated(dev) - held
+                k, ks = c["k"].to_local(), c["k_scale"].to_local()
+                wrote = bool((k[:, :-1, s - 1].abs().amax(dim=(-1, -2))
+                              > 0).all()) and bool((ks[:, :-1, s - 1]
+                                                    > 0).all())
+                kept = not bool(k[:, -1, s - 1].any()) \
+                    and not bool(ks[:, -1, s - 1].any())
+                rest = not bool(k[:, :, s - 2].any())
+                index = c["index"].to_local().tolist()
+                finite = bool(logits.to_local().isfinite().all())
+            check(launched == expect(B7=7 * cfg.n_layers + 1),
+                  f"sharded (c): launches {launched}")
+    check(wrote and kept and rest,
+          f"sharded (c): writes at s_max - 1: rows {wrote}, the row at "
+          f"s_max untouched {kept}, nothing else {rest}")
+    check(index == [s] * b, f"sharded (c): index {index[-3:]}")
+    check(finite and tuple(logits.shape) == (b, 1, cfg.vocab),
+          f"sharded (c): logits {tuple(logits.shape)} finite {finite}")
+    ratio = cell["peak_bytes"] / peak
+    temp_ratio = cell["temp_bytes"] / (peak - state)
+    check(abs(ratio - 1) <= LONG_PEAK_RTOL,
+          f"sharded (c): reckoned peak {cell['peak_bytes']} vs measured "
+          f"{peak}")
+    del logits, c, p, qparams
+    print(f"[sharded] (c) {cfg.name} decode_32k on the (1, 1) mesh: batch "
+          f"{b}, s_max {s}, int8 cache, W{cfg.serve_weight_bits} memory "
+          f"weights: {b - 1} rows wrote position {s - 1} in all "
+          f"{cfg.n_layers} layers, the row at {s} (advance 0) wrote "
+          f"nothing, position {s - 2} untouched; index {s} for every row; "
+          f"finite logits; B7 {launched['B7']} a step; step walls "
+          f"{[round(w, 1) for w in walls]} ms (the second: every row at "
+          f"s_max or masked, no write); state {gib(state):.3f} GiB, peak "
+          f"{gib(peak):.3f} GiB (temp {gib(peak - state):.3f}); the dry "
+          f"run's one-rank reckoning {gib(cell['peak_bytes']):.3f} GiB "
+          f"(arguments {gib(cell['argument_bytes']):.3f}, temp "
+          f"{gib(cell['temp_bytes']):.3f}): reckoned / measured "
+          f"{ratio:.4f} (within {LONG_PEAK_RTOL:.0%}), temp {temp_ratio:.4f}"
+          f"; built in {cell['build_s']} s ({card})")
+    return {"walls_ms": walls, "peak": peak, "state": state,
+            "reckoned": cell["peak_bytes"], "ratio": ratio,
+            "temp_ratio": temp_ratio, "launches": launched}
+
+
+def sharded_dryrun(dry):
+    """(d): the worker's decode cells on the 16 x 16 production mesh,
+    SHARDED_ARCH's decode_32k and LONG_ARCH's long_500k: reckoned, and no
+    collective on a layer's local cache shard."""
+    cells = dry.result("decode_32k", "long_500k")
+    for name, arch in (("decode_32k", SHARDED_ARCH),
+                       ("long_500k", LONG_ARCH)):
+        r = cells[name]
+        check(r["peak_bytes"] >= r["argument_bytes"] > 0
+              and r["cache_collectives"] == [],
+              f"sharded (d): {arch} {name} {r}")
+        print(f"[sharded] (d) dry run {arch} x {name} x 16x16: "
+              f"{gib(r['argument_bytes']):.3f} GiB of arguments a device, "
+              f"{r['flops']:.4e} flops; {rank_note(r)}; no collective on a "
+              f"cache shard; built in {r['build_s']} s (the worker)")
+    return {name: cells[name] for name in ("decode_32k", "long_500k")}
+
+
+def phase_sharded_decode(dev, card, dry):
+    """Phase 19: the sharded decode (see the module docstring) on a
+    one-rank nccl group: (a) ``sharded_exact``, (b) ``sharded_syncs``,
+    (c) ``sharded_long``, then (d) ``sharded_dryrun``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import init_params, serve_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_arch(SHARDED_ARCH)
+        params = init_params(cfg, seed=0, device=dev)
+        trees = {"memory": serve_params(params,
+                                        bits=cfg.serve_weight_bits),
+                 "sdv": serve_params(params, bits=cfg.serve_weight_bits,
+                                     compute="sdv")}
+        del params
+        exact = sharded_exact(cfg, trees["memory"], dev, card, mesh)
+        syncs = sharded_syncs(cfg, trees, dev)
+        del trees
+        long = sharded_long(dev, card, mesh, dry)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells = sharded_dryrun(dry)
+    print(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"exact": exact, "syncs": syncs, "long": long, "dryrun": cells}
+
+
 def _to(v, d):
     if isinstance(v, dict):
         return {k: _to(x, d) for k, x in v.items()}
     return v.to(d)
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall printed as ``[time] <name> <s> s``."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        print(f"[time] {phase.__name__} {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
 
 def main() -> int:
@@ -5124,28 +5582,29 @@ def main() -> int:
     t0 = time.perf_counter()
     dry = HostDryRun()
     try:
-        phase_build()
+        timed(phase_build)
         flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
         flush = flush_buf.zero_                # evicts the 50 MB L2
-        layer = phase_kernels(dev, flush)
-        launches = phase_serve(dev)
-        phase_reference(dev)
-        conv, per_layer, head_ms = phase_conv_kernels(dev, flush)
-        ultra = phase_ultranet(dev, per_layer, card)
-        conv1d = phase_conv1d_kernels(dev, flush)
-        recurrent = phase_recurrent(dev, card, flush)
-        memory = phase_memory_kernels(dev, flush)
-        mem_launches = phase_memory_serve(dev, card)
-        phase_reference(dev, "memory")
-        eng = phase_engine(dev, card)
-        spec = phase_spec(dev, card)
-        train = phase_train(dev, card, flush)
-        moe = phase_moe(dev, card, flush)
-        fam = phase_families(dev, card, flush)
-        ssm = phase_ssm_train(dev, card, flush)
-        dist = phase_dist(dev, card, dry)
-        kv = phase_kv_bf16(dev, card)
-        phase_remat(dev, card, dry, train, ssm, dist)
+        layer = timed(phase_kernels, dev, flush)
+        launches = timed(phase_serve, dev)
+        timed(phase_reference, dev)
+        conv, per_layer, head_ms = timed(phase_conv_kernels, dev, flush)
+        ultra = timed(phase_ultranet, dev, per_layer, card)
+        conv1d = timed(phase_conv1d_kernels, dev, flush)
+        recurrent = timed(phase_recurrent, dev, card, flush)
+        memory = timed(phase_memory_kernels, dev, flush)
+        mem_launches = timed(phase_memory_serve, dev, card)
+        timed(phase_reference, dev, "memory")
+        eng = timed(phase_engine, dev, card)
+        spec = timed(phase_spec, dev, card)
+        train = timed(phase_train, dev, card, flush)
+        moe = timed(phase_moe, dev, card, flush)
+        fam = timed(phase_families, dev, card, flush)
+        ssm = timed(phase_ssm_train, dev, card, flush)
+        dist = timed(phase_dist, dev, card, dry)
+        kv = timed(phase_kv_bf16, dev, card)
+        timed(phase_remat, dev, card, dry, train, ssm, dist)
+        sharded = timed(phase_sharded_decode, dev, card, dry)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5178,7 +5637,6 @@ def main() -> int:
                       "ultranet int32": ultra["int32"]["B2"],
                       "tinyllama spec engine": spec["B2"],
                       "tinyllama QAT train": train["launches"]["B2 train"],
-                      "tinyllama QAT resume": train["launches"]["B2 resume"],
                       "tinyllama QAT export eval":
                           train["launches"]["B2 export eval"],
                       "phi3.5-moe SDV prefill":
@@ -5335,7 +5793,13 @@ def main() -> int:
                 "tinyllama bf16-KV memory decode":
                     kv["runs"]["memory", KV_BITS]["decode"]["B7"],
                 "tinyllama bf16-KV memory single_batch_loop":
-                    kv["loops"]["memory"]["B7"]},
+                    kv["loops"]["memory"]["B7"],
+                **{f"tinyllama (1, 1) mesh {kind} {path}":
+                   sharded["exact"][bits][path]["B7"]
+                   for bits, kind in ((8, "int8-KV"), (KV_BITS, "bf16-KV"))
+                   for path in ("prefill", "decode")},
+                "tinyllama (1, 1) mesh decode_32k (2 steps)":
+                    2 * sharded["long"]["launches"]["B7"]},
                ("one tinyllama memory decode step: 154 W4 projections + the "
                 "LM head, unpacked and dequantized to bf16 in one pass "
                 "(unpack_dequant_kernel); before_ms: the route it replaced "

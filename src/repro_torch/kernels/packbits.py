@@ -240,6 +240,14 @@ def unpack_dequant(words: torch.Tensor, scale: torch.Tensor, *, w: int,
         return unpack_dequant_plain(words, scale, w=w, d_out=d_out,
                                     rows_per_scale=rows_per_scale,
                                     dtype=dtype)
+    from torch.distributed.tensor import DTensor
+    if isinstance(words, DTensor) or isinstance(scale, DTensor):
+        # no data pointer of its own: materialize launches on each rank's
+        # local shard instead
+        raise TypeError(
+            "unpack_dequant launches on plain CUDA tensors, not DTensors: "
+            "materialize a PackedLinear of DTensors (it runs the kernel on "
+            "each rank's local shard), or pass to_local() shards")
     if words.shape[0] // rows_per_scale > MAX_GRID_Y:
         raise ValueError(f"the kernel takes at most {MAX_GRID_Y} groups of "
                          f"rows_per_scale rows, got "

@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import math
 import sys
@@ -62,22 +61,13 @@ from .. import tree
 from ..configs.base import SHAPES, ArchConfig, ShapeCell
 from ..configs.registry import ARCHS, get_arch
 from ..models import (cache_specs, decode_step, forward, init_cache,
-                      init_params, serve_param_specs, serve_params,
-                      shard_ctx)
+                      init_params, serve_params, shard_ctx)
 from ..models.param import PartitionSpec, is_p, specs, values
 from ..train import loop, optimizer
-from .mesh import (axis_sizes, batch_shardings, distribute,
-                   make_production_mesh, rules_for_mesh, shardings_of)
+from .mesh import (batch_shardings, distribute, make_production_mesh,
+                   rules_for_batch, serve_specs, shardings_of)
 
 META = torch.device("meta")
-
-#: the fields ``reckon_rank`` cannot give a decode cell, and why
-NULL_REASONS = {
-    key: "a decode step selects the cache rows it writes with nonzero "
-         "and writes them by index, which DTensor cannot run on a sharded "
-         "cache (the port serves on one device; no sharded decode)"
-    for key in ("peak_bytes", "temp_bytes", "output_bytes", "collectives",
-                "collective_bytes_per_device", "bytes_per_device")}
 
 #: the functional collectives DTensor runs, by the reference's HLO names
 COLLECTIVE_NAMES = {
@@ -126,20 +116,15 @@ def opt_spec_tree(ocfg: optimizer.OptConfig, params_p):
 def build_cell(cfg: ArchConfig, shape: ShapeCell, mesh):
     """Returns (rules, fn, args, in_shardings, donate) for one cell;
     ``args`` are ``meta`` tensors."""
-    rules = rules_for_mesh(mesh, fsdp=cfg.fsdp)
     # batch=1 cells (long_500k) cannot shard the batch axis; degrade to
     # replicated batch (the O(1)-state archs this shape targets don't
-    # need it).  Batch axes of one rank shard nothing: replicated too (a
-    # DTensor cannot squeeze a sharded batch dimension of one row).
-    sizes = axis_sizes(mesh)
-    bsize = math.prod(sizes[ax] for ax in rules.batch)
-    if shape.global_batch % max(1, bsize) or bsize == 1:
-        rules = dataclasses.replace(rules, batch=(), batch_degree=1)
-    params_p = init_params(cfg, device=META, rules=rules)
-    pvals, pspecs = values(params_p), specs(params_p)
+    # need it)
+    rules = rules_for_batch(mesh, shape.global_batch, fsdp=cfg.fsdp)
     b, s = shape.global_batch, shape.seq_len
 
     if shape.kind == "train":
+        params_p = init_params(cfg, device=META, rules=rules)
+        pvals, pspecs = values(params_p), specs(params_p)
         ocfg = optimizer.OptConfig(moments_8bit=cfg.opt_8bit,
                                    total_steps=10000)
         opt_abs = optimizer.init(ocfg, pvals)
@@ -153,8 +138,8 @@ def build_cell(cfg: ArchConfig, shape: ShapeCell, mesh):
 
     # serving paths run on quantized lane-packed weights (the paper's
     # packing applied to the HBM layout)
+    pvals, qspecs = serve_specs(cfg, rules)
     qvals = serve_params(pvals, bits=cfg.serve_weight_bits)
-    qspecs = serve_param_specs(pvals, pspecs, cfg.serve_weight_bits)
 
     if shape.kind == "prefill":
         batch = abstract_batch(cfg, b, s, kind="prefill")
@@ -194,14 +179,9 @@ def per_device_bytes(args, in_sh) -> int:
 
 
 def count_flops(fn, args) -> int:
-    """Matmul-class flops of ``fn(*args)`` on ``meta`` tensors.  A decode
-    step selects the cache rows it writes with ``nonzero``; on a fresh
-    cache every row writes, which is what the meta kernel of
-    ``nonzero`` assumes when told to."""
-    from torch.fx.experimental import _config as fx_config
+    """Matmul-class flops of ``fn(*args)`` on ``meta`` tensors."""
     from torch.utils.flop_counter import FlopCounterMode
-    with fx_config.patch(meta_nonzero_assume_all_nonzero=True), \
-            FlopCounterMode(display=False) as counter:
+    with FlopCounterMode(display=False) as counter:
         fn(*args)
     return int(counter.get_total_flops())
 
@@ -238,12 +218,14 @@ class RankReckoner(TorchDispatchMode):
     its largest value.  ``bytes`` sums every op's operands and results,
     each tensor once an op, views and the collectives' waits excluded;
     ``collectives`` the operand bytes of each collective op by its
-    reference name."""
+    reference name, ``operands`` (name, shape, dtype) of each collective
+    op's operands in order."""
 
     def __init__(self):
         super().__init__()
         self.live = self.peak = self.bytes = 0
         self.collectives = {}
+        self.operands = []
         self._held = WeakIdKeyDictionary()
 
     def hold(self, t):
@@ -291,16 +273,18 @@ class RankReckoner(TorchDispatchMode):
         if name is not None:
             self.collectives[name] = self.collectives.get(name, 0) + sum(
                 t.numel() * t.element_size() for t in ins)
+            self.operands += [(name, tuple(t.shape), t.dtype) for t in ins]
         return out
 
 
-def reckon_rank(rules, fn, args, in_sh) -> dict:
+def reckon_rank(rules, fn, args, in_sh, rk=None) -> dict:
     """One rank's ``peak_bytes``, ``output_bytes``, ``collectives``,
     ``collective_bytes_per_device`` and ``bytes_per_device`` of
     ``fn(*args)``, run on ``args`` placed by ``in_sh`` as ``meta``
-    ``DTensor``s under ``rules`` (``RankReckoner``)."""
+    ``DTensor``s under ``rules`` (``rk``, a fresh ``RankReckoner`` by
+    default)."""
     dargs = distribute(args, in_sh)
-    rk = RankReckoner()
+    rk = RankReckoner() if rk is None else rk
     for leaf in tree.leaves(dargs):
         rk.hold(_local(leaf))
     with shard_ctx.use_rules(rules), rk:
@@ -315,6 +299,28 @@ def reckon_rank(rules, fn, args, in_sh) -> dict:
             "collectives": dict(sorted(rk.collectives.items())),
             "collective_bytes_per_device": sum(rk.collectives.values()),
             "bytes_per_device": rk.bytes}
+
+
+def cache_collectives(rk: RankReckoner, cache, cache_sh) -> list:
+    """The collective operands ``rk`` saw that have the shape of one
+    layer's local shard of a cache leaf, in any dtype (the dequantized
+    K/V too) and with the one-long dimensions dropped (an einsum's
+    operands); a shard of fewer than two dimensions longer than one (the
+    position vector, one row's state) is left out.  A decode step that
+    keeps its cache in place has none."""
+    from torch.distributed.tensor import Shard
+
+    def key(shape):
+        return tuple(d for d in shape if d != 1)
+    leaves = set()
+    for v, sh in zip(tree.leaves(cache), tree.leaves(cache_sh)):
+        local = list(v.shape)
+        for i, pl in enumerate(sh.placements):
+            if isinstance(pl, Shard):
+                local[pl.dim] = -(-local[pl.dim] // tuple(sh.mesh.shape)[i])
+        if len(key(local[1:])) > 1:
+            leaves.add(key(local[1:]))
+    return [op for op in rk.operands if key(op[1]) in leaves]
 
 
 @contextlib.contextmanager
@@ -332,22 +338,18 @@ def fake_world(n_ranks: int):
         dist.destroy_process_group()
 
 
-def measure_cell(cfg: ArchConfig, shape: ShapeCell, mesh) -> dict:
-    """Build one cell on ``mesh`` and reckon its numbers."""
+def measure_cell(cfg: ArchConfig, shape: ShapeCell, mesh, rk=None) -> dict:
+    """Build one cell on ``mesh`` and reckon its numbers (``rk``: the
+    ``RankReckoner`` to reckon with, a fresh one by default)."""
     t0 = time.time()
     rules, fn, args, in_sh, donate = build_cell(cfg, shape, mesh)
     train = shape.kind == "train"
     with torch.set_grad_enabled(train):
         with shard_ctx.use_rules(rules):
             flops = count_flops(fn, args)
-        if shape.kind == "decode":
-            rank = {k: None for k in NULL_REASONS}
-        else:
-            rank = reckon_rank(rules, fn, args, in_sh)
+        rank = reckon_rank(rules, fn, args, in_sh, rk)
     n_dev = math.prod(tuple(mesh.shape))
     arg_bytes = per_device_bytes(args, in_sh)
-    temp = None if rank["peak_bytes"] is None \
-        else rank["peak_bytes"] - arg_bytes
     return {
         "status": "ok",
         "build_s": round(time.time() - t0, 1),
@@ -357,9 +359,7 @@ def measure_cell(cfg: ArchConfig, shape: ShapeCell, mesh) -> dict:
         "flops_per_device": flops / n_dev,
         "argument_bytes": arg_bytes,
         **rank,
-        "temp_bytes": temp,
-        **({"null_reasons": NULL_REASONS} if shape.kind == "decode"
-           else {}),
+        "temp_bytes": rank["peak_bytes"] - arg_bytes,
         "notes": ("flops: matmul-class ops of the whole global batch "
                   "(torch.utils.flop_counter), per device an even split; "
                   + ("forward and backward of every microbatch, the "
@@ -367,8 +367,7 @@ def measure_cell(cfg: ArchConfig, shape: ShapeCell, mesh) -> dict:
                      if train else
                      "the packed weights are dequantized by the plain "
                      "route on meta tensors, which does no matmul")
-                  + ". Memory, bytes and collectives (not of a decode "
-                  "cell: null_reasons): rank 0's program "
+                  + ". Memory, bytes and collectives: rank 0's program "
                   "run once on meta DTensors over the fake process "
                   "group; peak_bytes the most live storage at any op, "
                   "the arguments included (the step's arguments stay "
@@ -400,11 +399,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         print(f"[{res['arch']} x {shape_name} x {mesh_name}] "
               f"build {res['build_s']}s  flops {res['flops']:.3e} "
               f"(/dev {res['flops_per_device']:.3e})  "
-              f"args/dev {res['argument_bytes'] / 2**30:.2f} GiB"
-              + ("" if res["peak_bytes"] is None else
-                 f"  peak/dev {res['peak_bytes'] / 2**30:.2f} GiB  "
-                 f"collectives/dev "
-                 f"{res['collective_bytes_per_device'] / 2**30:.2f} GiB"))
+              f"args/dev {res['argument_bytes'] / 2**30:.2f} GiB  "
+              f"peak/dev {res['peak_bytes'] / 2**30:.2f} GiB  "
+              f"collectives/dev "
+              f"{res['collective_bytes_per_device'] / 2**30:.2f} GiB")
     return res
 
 

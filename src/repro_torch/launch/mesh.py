@@ -15,7 +15,7 @@ import dataclasses
 from typing import Any, Dict, Tuple
 
 from .. import tree
-from ..models.param import PartitionSpec, Rules, is_spec
+from ..models.param import PartitionSpec, Rules, is_spec, specs, values
 from ..models.shard_ctx import placements
 
 PRODUCTION_SHAPE = (16, 16)
@@ -64,8 +64,14 @@ class Sharding:
 
 
 def sharding(mesh, spec: PartitionSpec) -> Sharding:
-    return Sharding(mesh, placements(mesh.mesh_dim_names, spec, len(spec)),
-                    spec)
+    """The ``Sharding`` of ``spec`` on ``mesh``.  A mesh dimension of one
+    rank replicates: it shards nothing, and ``DTensor``'s view rules
+    cannot squeeze a one-long dimension sharded over it (one KV head on
+    a one-rank model axis)."""
+    from torch.distributed.tensor import Replicate
+    pls = placements(mesh.mesh_dim_names, spec, len(spec))
+    return Sharding(mesh, tuple(p if n > 1 else Replicate() for p, n in
+                                zip(pls, tuple(mesh.shape))), spec)
 
 
 def shardings_of(mesh, spec_tree):
@@ -92,5 +98,54 @@ def distribute(value_tree, sharding_tree):
                                  src_data_rank=None)
     vals = tree.leaves(value_tree)
     shs = tree.leaves(sharding_tree)
+    if len(vals) != len(shs):
+        raise ValueError(f"{len(vals)} leaves but {len(shs)} shardings: the "
+                         "trees differ")
     return tree.unflatten(value_tree, [put(v, s) for v, s in
                                        zip(vals, shs)])
+
+
+def rules_for_batch(mesh, batch_size: int, *, fsdp: bool = False) -> Rules:
+    """``rules_for_mesh`` for a batch of ``batch_size`` rows: a batch the
+    batch axes do not divide (long_500k's one row), or batch axes of one
+    rank, is replicated instead (a DTensor cannot squeeze a sharded
+    batch dimension of one row)."""
+    rules = rules_for_mesh(mesh, fsdp=fsdp)
+    sizes = axis_sizes(mesh)
+    bsize = 1
+    for ax in rules.batch:
+        bsize *= sizes[ax]
+    if batch_size % max(1, bsize) or bsize == 1:
+        rules = dataclasses.replace(rules, batch=(), batch_degree=1)
+    return rules
+
+
+def serve_specs(cfg, rules: Rules, min_size: int = 1 << 16):
+    """(float shapes, ``PartitionSpec`` tree) of ``serve_params(
+    init_params(cfg), bits=cfg.serve_weight_bits, min_size=min_size)``
+    under ``rules``: the memory-packed tree's specs, built on ``meta``
+    (nothing drawn)."""
+    from ..models import init_params, serve_param_specs
+    params_p = init_params(cfg, device="meta", rules=rules)
+    pvals = values(params_p)
+    return pvals, serve_param_specs(pvals, specs(params_p),
+                                    cfg.serve_weight_bits, min_size)
+
+
+def place_decode(mesh, cfg, params, cache, batch, *,
+                 min_size: int = 1 << 16):
+    """A memory-packed serve tree (``serve_params(..., bits=
+    cfg.serve_weight_bits, min_size=min_size)``), a decode cache and a
+    batch, full tensors the same on every rank, placed on ``mesh`` as
+    ``DTensor``s: the tree by ``serve_param_specs``, the cache by
+    ``cache_specs``, the batch along its leading axis.  Returns (rules,
+    params, cache, batch); run the model under
+    ``shard_ctx.use_rules(rules)``."""
+    from ..models import cache_specs
+    b = cache["index"].shape[0]
+    rules = rules_for_batch(mesh, b, fsdp=cfg.fsdp)
+    qspecs = serve_specs(cfg, rules, min_size)[1]
+    cspecs = cache_specs(cfg, rules, b, 0)     # specs do not depend on s
+    return (rules, distribute(params, shardings_of(mesh, qspecs)),
+            distribute(cache, shardings_of(mesh, cspecs)),
+            distribute(batch, batch_shardings(mesh, rules, batch)))

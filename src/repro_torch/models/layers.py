@@ -181,6 +181,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *,
     freq = torch.exp(-math.log(theta)
                      * torch.arange(half, dtype=torch.float32,
                                     device=x.device) / half)
+    freq = shard_ctx.replicated_like(freq, positions)
     ang = positions[..., None].to(torch.float32) * freq         # [B,S,half]
     cos = shard_ctx.replicated_like(torch.cos(ang)[:, :, None, :], x)
     sin = shard_ctx.replicated_like(torch.sin(ang)[:, :, None, :], x)
@@ -341,28 +342,65 @@ def _quantize_kv(t):
 
 
 def decode_writes(cache_index, write_mask, s_max: int):
-    """The (row, position) pairs one decode step writes: every row whose
-    ``write_mask`` is set (all rows when None) and whose position
-    ``cache_index[row]`` is inside the cache.  The JAX package scatters
-    the other rows out of bounds with ``mode="drop"``; torch has no drop
-    mode (and an out-of-bounds index on CUDA is a device assert), so the
-    kept rows are selected first."""
+    """The cache positions one decode step writes, as ``(dest, keep)``
+    [B, 1]: row b writes position ``cache_index[b]`` where it is inside
+    the cache and ``write_mask[b]`` is set (every row when None).  The
+    JAX package scatters the other rows out of bounds with
+    ``mode="drop"``; here every row scatters (``_put``) and a row that
+    drops writes back what its slot holds (``prefill_writes``)."""
     keep = cache_index < s_max
     if write_mask is not None:
         keep = keep & write_mask
-    rows = keep.nonzero().squeeze(1)
-    return rows, cache_index[rows].long()
+    return torch.remainder(cache_index, s_max)[:, None].long(), \
+        keep[:, None]
 
 
 def prefill_writes(cache_index, n_valid, c: int, s_max: int):
-    """The (row, column, position) triples a prefill chunk writes: the
-    first ``n_valid[row]`` of the C columns of each row, where inside
-    the cache."""
-    cols = torch.arange(c, dtype=torch.int32, device=cache_index.device)
+    """The cache positions a prefill chunk of ``c`` columns writes, as
+    ``(dest, keep)`` [B, min(c, s_max)]: column j of row b goes to
+    position ``cache_index[b] + j`` where j < ``n_valid[b]`` and the
+    position is inside the cache; columns at or past ``s_max`` never
+    write.  ``dest`` is that position mod ``s_max``, so the columns of a
+    row name distinct positions and a dropped column (``keep`` False)
+    writes back the entry it lands on: a fixed-shape scatter with the
+    reference's drop semantics (a clamp to ``s_max - 1`` would collide
+    with the kept column there)."""
+    cols = shard_ctx.replicated_like(
+        torch.arange(min(c, s_max), dtype=torch.int32,
+                     device=cache_index.device), cache_index)
     pos = cache_index[:, None] + cols[None, :]                   # [B, C]
     keep = (cols[None, :] < n_valid[:, None]) & (pos < s_max)
-    rows, cidx = keep.nonzero(as_tuple=True)
-    return rows, cidx, pos[rows, cidx].long()
+    return torch.remainder(pos, s_max).long(), keep
+
+
+#: [B, S or C, heads, hd] tensors that lie as the KV cache does: batch,
+#: heads and head dimension at the same places (``shard_ctx.follow``)
+_SAME = {0: 0, 2: 2, 3: 3}
+
+
+def _put(leaf, dest, keep, vals):
+    """Write vals [B, C, ...] into leaf [B, S, ...] at positions dest
+    [B, C] along dimension 1, in place, where ``keep`` [B, C] holds
+    (every entry when None); the other entries take back the value
+    they land on.  One gather and one scatter of fixed shape: no host
+    sync.  A ``DTensor`` leaf (its positions never sharded) is written
+    on each rank's local shard, ``vals`` and the rows of ``dest`` and
+    ``keep`` put on its shards first: DTensor has no in-place scatter
+    rule for a sharded leaf in every torch release."""
+    if shard_ctx.is_dtensor(leaf):
+        same = {d: d for d in range(leaf.ndim)}
+        _put(leaf.to_local(),
+             shard_ctx.follow(dest, leaf, {0: 0}).to_local(),
+             None if keep is None else
+             shard_ctx.follow(keep, leaf, {0: 0}).to_local(),
+             shard_ctx.follow(vals, leaf, same).to_local())
+        return
+    shape = tuple(dest.shape) + (1,) * (leaf.ndim - 2)
+    ix = dest.reshape(shape).expand(tuple(vals.shape))
+    if keep is not None:
+        vals = torch.where(keep.reshape(shape), vals,
+                           torch.gather(leaf, 1, ix))
+    leaf.scatter_(1, ix, vals)
 
 
 def _qkv(params, cfg: AttnConfig, x, pos):
@@ -374,9 +412,9 @@ def _qkv(params, cfg: AttnConfig, x, pos):
             rope(k, pos, theta=cfg.rope_theta), v)
 
 
-def _write_kv(cache, k, v, rows, src, dest):
-    """Write the selected entries of k/v [B, S, G, hd] into the cache:
-    cache position ``dest[j]`` of row ``rows[j]`` takes entry ``src[j]``.
+def _write_kv(cache, k, v, writes):
+    """Write k/v [B, C, G, hd] into the cache at ``writes`` = (dest,
+    keep) [B, C] (``decode_writes``/``prefill_writes``; ``_put``).
     Returns the whole K and V as float32.
 
     A float cache (the encoder-decoder's bf16 self-attention cache) takes
@@ -389,34 +427,44 @@ def _write_kv(cache, k, v, rows, src, dest):
     so, and the scales stay zero (ROADMAP Queue C, reference property
     (e))."""
     cache_k, cache_v, k_scale, v_scale = cache
+    dest, keep = writes
+    c = dest.shape[1]
+    k = shard_ctx.follow(k[:, :c], cache_k, _SAME)
+    v = shard_ctx.follow(v[:, :c], cache_k, _SAME)
     if cache_k.dtype != torch.int8:
-        for c, t in ((cache_k, k), (cache_v, v)):
-            c[rows, dest] = t[rows, src].to(c.dtype)
+        for leaf, t in ((cache_k, k), (cache_v, v)):
+            _put(leaf, dest, keep, t.to(leaf.dtype))
         return cache_k.to(torch.float32), cache_v.to(torch.float32)
     if k_scale is None:
-        for c, t in ((cache_k, k), (cache_v, v)):
-            c[rows, dest] = torch.clamp(t[rows, src].to(torch.float32),
-                                        -128, 127).to(torch.int8)
+        for leaf, t in ((cache_k, k), (cache_v, v)):
+            _put(leaf, dest, keep, torch.clamp(t.to(torch.float32), -128,
+                                               127).to(torch.int8))
         return cache_k.to(torch.float32), cache_v.to(torch.float32)
-    kq, ks = _quantize_kv(k)
-    vq, vs = _quantize_kv(v)
-    cache_k[rows, dest] = kq[rows, src]
-    cache_v[rows, dest] = vq[rows, src]
-    k_scale[rows, dest] = ks[rows, src]
-    v_scale[rows, dest] = vs[rows, src]
+    for leaf, sc, t in ((cache_k, k_scale, k), (cache_v, v_scale, v)):
+        q, s = _quantize_kv(t)
+        _put(leaf, dest, keep, q)
+        _put(sc, dest, keep, s)
     return (cache_k.to(torch.float32) * k_scale[..., None],
             cache_v.to(torch.float32) * v_scale[..., None])
 
 
 def _attend(q, kc_f, vc_f, valid, scores_eq: str, out_eq: str, hd: int):
     """Softmax attention in float32; ``valid`` masks the scores (None:
-    every key)."""
-    s = quantizer.div(torch.einsum(scores_eq, q.to(torch.float32), kc_f),
+    every key).  On a mesh both products run on the K/V's shards
+    (``shard_ctx.einsum``): scores summed over a sharded head dimension
+    are reduced before the mask, and the output leaves only its batch
+    and head shards (a head-dimension shard cannot be flattened into
+    the model width)."""
+    kv = scores_eq.split("->")[0].split(",")[1]
+    s = quantizer.div(shard_ctx.einsum(scores_eq, q.to(torch.float32),
+                                       kc_f, like=(kc_f, kv)),
                       math.sqrt(hd))
     if valid is not None:
         s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum(out_eq, p, vc_f)
+    out = shard_ctx.einsum(out_eq, p, vc_f, like=(vc_f, kv))
+    o = out_eq.split("->")[1]
+    return shard_ctx.follow(out, vc_f, {0: o.index("b"), 2: o.index("g")})
 
 
 def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
@@ -436,12 +484,13 @@ def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     r = h // g
     s_max = cache[0].shape[1]
     q, k, v = _qkv(params, cfg, x, cache_index[:, None])
-    rows, dest = writes
-    kc_f, vc_f = _write_kv(cache, k, v, rows, torch.zeros_like(rows), dest)
-    kpos = torch.arange(s_max, device=x.device)
+    kc_f, vc_f = _write_kv(cache, k, v, writes)
+    kpos = shard_ctx.replicated_like(torch.arange(s_max, device=x.device),
+                                     cache_index)
     valid = kpos[None, :] <= cache_index[:, None]
-    out = _attend(q.reshape(b, g, r, hd), kc_f, vc_f,
-                  valid[:, None, None, :], "bgrd,bkgd->bgrk",
+    # on a mesh the products run on the cache's batch and head shards
+    q4 = shard_ctx.follow(q, kc_f, _SAME).reshape(b, g, r, hd)
+    out = _attend(q4, kc_f, vc_f, valid[:, None, None, :], "bgrd,bkgd->bgrk",
                   "bgrk,bkgd->bgrd", hd)
     return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
 
@@ -474,15 +523,17 @@ def prefill_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     r = h // g
     s_max = cache[0].shape[1]
-    pos = cache_index[:, None] + torch.arange(c, dtype=torch.int32,
-                                              device=x.device)[None, :]
+    cols = shard_ctx.replicated_like(
+        torch.arange(c, dtype=torch.int32, device=x.device), cache_index)
+    pos = cache_index[:, None] + cols[None, :]
     q, k, v = _qkv(params, cfg, x, pos)
-    rows, cols, dest = writes
-    kc_f, vc_f = _write_kv(cache, k, v, rows, cols, dest)
-    kpos = torch.arange(s_max, device=x.device)
+    kc_f, vc_f = _write_kv(cache, k, v, writes)
+    kpos = shard_ctx.replicated_like(torch.arange(s_max, device=x.device),
+                                     cache_index)
     valid = kpos[None, None, :] <= pos[:, :, None]                # [B, C, S]
-    out = _attend(q.reshape(b, c, g, r, hd), kc_f, vc_f,
-                  valid[:, None, None, :, :], "bcgrd,bsgd->bgrcs",
+    q5 = shard_ctx.follow(q, kc_f, _SAME).reshape(b, c, g, r, hd)
+    out = _attend(q5, kc_f, vc_f, valid[:, None, None, :, :],
+                  "bcgrd,bsgd->bgrcs",
                   "bgrcs,bsgd->bcgrd", hd)
     return dense_apply(params["wo"], out.reshape(b, c, h * hd).to(x.dtype))
 
@@ -501,17 +552,18 @@ def decode_attention_ring(params, cfg: AttnConfig, x, *, k_cache, v_cache,
     h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     slot = torch.remainder(cache_index, window)                   # [B]
     q, k, v = _qkv(params, cfg, x, cache_index[:, None])
-    rows = torch.arange(b, device=x.device)
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+    dest = slot[:, None].long()
+    for leaf, t in ((k_cache, k), (v_cache, v)):
+        _put(leaf, dest, None, t.to(leaf.dtype))
     # entry ages: slot s holds position index - ((slot - s) mod window)
-    offs = torch.remainder(
-        slot[:, None] - torch.arange(window, device=x.device)[None, :],
-        window)
+    ring = shard_ctx.replicated_like(torch.arange(window, device=x.device),
+                                     cache_index)
+    offs = torch.remainder(slot[:, None] - ring[None, :], window)
     entry_pos = cache_index[:, None] - offs                        # [B, W]
     valid = (entry_pos >= 0) & (entry_pos >= cache_index[:, None]
                                 - window + 1)
-    out = _attend(q.reshape(b, g, h // g, hd), k_cache.to(torch.float32),
+    q4 = shard_ctx.follow(q, k_cache, _SAME).reshape(b, g, h // g, hd)
+    out = _attend(q4, k_cache.to(torch.float32),
                   v_cache.to(torch.float32), valid[:, None, None, :],
                   "bgrd,bkgd->bgrk", "bgrk,bkgd->bgrd", hd)
     return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
@@ -585,7 +637,10 @@ def moe_route(params, cfg: MoEConfig, xt):
     top_p, top_e = torch.topk(probs, k, dim=-1)
     top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
     flat_e = top_e.reshape(-1)
-    onehot = torch.nn.functional.one_hot(flat_e, e).to(torch.int32)
+    # one_hot's own range check reads the ids back to the host
+    experts = shard_ctx.replicated_like(
+        torch.arange(e, device=xt.device), flat_e)
+    onehot = (flat_e[:, None] == experts[None, :]).to(torch.int32)
     pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1   # [T*k, E]
     slot = pos.gather(1, flat_e[:, None])[:, 0]
     return top_e, top_p, slot, slot < cap, cap
@@ -601,15 +656,22 @@ def moe_apply(params, cfg: MoEConfig, x):
     tokens of the batch (ROADMAP Queue C, reference property (f))."""
     b, s, d = x.shape
     t, k = b * s, cfg.top_k
-    xt = x.reshape(t, d)
+    # the capacity counts every token: on a mesh the routing, dispatch
+    # and combine see them all (GSPMD gathers them too)
+    xt = shard_ctx.replicate(x.reshape(t, d))
     top_e, top_p, slot, keep, cap = moe_route(params, cfg, xt)
     flat_e = top_e.reshape(-1)
-    # dispatch: the kept (expert, slot) pairs are unique, so the
-    # accumulating put is the JAX package's dropping scatter-add
-    buf = torch.zeros((cfg.n_experts, cap, d), dtype=x.dtype,
-                      device=x.device)
+    # dispatch: the JAX package's fixed-shape scatter-add, a dropped
+    # choice adding 0 into its expert's last slot (a slot sums +0, one
+    # kept row at most and zeros: the same bits in any order)
+    buf = shard_ctx.replicated_like(
+        torch.zeros((cfg.n_experts * cap, d), dtype=x.dtype,
+                    device=x.device), xt)
     src = xt.repeat_interleave(k, dim=0)                       # [T*k, d]
-    buf.index_put_((flat_e[keep], slot[keep]), src[keep], accumulate=True)
+    row = flat_e * cap + torch.where(keep, slot, cap - 1)
+    buf.scatter_add_(0, row[:, None].expand(-1, d),
+                     torch.where(keep[:, None], src, 0))
+    buf = buf.reshape(cfg.n_experts, cap, d)
     buf = shard_ctx.constrain(buf, "ep", None, None)
     gate = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_gate"], x.dtype))
     up = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_up"], x.dtype))

@@ -42,6 +42,7 @@ from ..core.datapath import INT32, BSEGPlan, SDVPlan, plan_bseg, plan_sdv
 from ..kernels import bseg_common, ops, ref
 from ..quant import quantizer
 from ..tree import register_container
+from . import shard_ctx
 
 
 @dataclasses.dataclass
@@ -276,6 +277,62 @@ def bseg_conv_apply(qc: BSEGConv, x: torch.Tensor, *,
     return y.to(x.dtype), new_state
 
 
+def _materialize_shards(pl: PackedLinear, dtype):
+    """``materialize`` of a ``PackedLinear`` whose words and scale are
+    ``DTensor``s (``serve_param_specs``' placements): kernel B7 on each
+    rank's local shard (its plain version on a CPU or ``meta`` shard),
+    its output a ``DTensor`` of the words' placements and the global
+    [..., d_in, d_out] shape.  A CUDA ``DTensor`` has no data pointer of
+    its own to launch on, and DTensor's view rules for the plain
+    version's unpack differ between torch releases.
+
+    A local shard is launched as a whole tree is: its leading axes
+    (layers, experts) and its ``d_in`` rows are the rank's own, one scale
+    row per group of its ``d_in`` rows (the scale's ``d_in`` axis is one
+    long and never sharded).  Along the minor axis the rank's words hold
+    fields ``o * per ...`` (``o`` its first word); its outputs are the
+    output's own shard of ``d_out``, so the launch trims to that shard's
+    length, which is shorter on the last shard only.  Where the word,
+    scale and output shards do not start at the same field (a minor axis
+    whose words do not split evenly, Seamless's 256206-wide head), the
+    words and scale are first gathered along it and every rank launches
+    on the whole row."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_shape
+    words, scale = pl.words, pl.scale
+    mesh, minor = words.device_mesh, words.ndim - 1
+    per = 32 // pl.bits
+    out_shape = tuple(words.shape[:-1]) + (pl.d_out,)
+    want = tuple(words.placements)
+
+    def aligned(placements):
+        lw, ow = local_shape(words.shape, mesh, placements)
+        ls, os_ = local_shape(scale.shape, mesh, placements)
+        lo, oo = local_shape(out_shape, mesh, placements)
+        return ow[-1] * per == os_[-1] == oo[-1] \
+            and ls[-1] == lw[-1] * per >= lo[-1]
+
+    place = want
+    if not aligned(want):
+        place = tuple(Replicate() if p == Shard(minor) else p for p in want)
+        words = words.redistribute(mesh, place)
+        scale = scale.redistribute(mesh, place)
+    lw, ls = words.to_local(), scale.to_local().contiguous()
+    n_out = local_shape(out_shape, mesh, place)[0][-1]
+    lead = tuple(lw.shape[:-1])
+    if min(lw.shape) == 0 or n_out == 0:
+        local = torch.empty(lead + (n_out,), dtype=dtype, device=lw.device)
+    else:
+        local = ops.unpack_dequant(
+            lw.reshape(-1, lw.shape[-1]), ls, w=pl.bits, d_out=n_out,
+            rows_per_scale=lw.shape[-2], dtype=dtype).reshape(lead + (n_out,))
+    stride = torch.empty(out_shape, device="meta").stride()
+    out = DTensor.from_local(local, mesh, place, run_check=False,
+                             shape=torch.Size(out_shape), stride=stride)
+    return out if place == want else out.redistribute(mesh, want)
+
+
 def materialize(pl, dtype=torch.bfloat16) -> torch.Tensor:
     """Unpack + dequantize -> [..., d_in, d_out] in ``dtype``.
 
@@ -286,6 +343,8 @@ def materialize(pl, dtype=torch.bfloat16) -> torch.Tensor:
     ``dtype`` (bfloat16 or float32), bit for bit the reference's unpack,
     scale, trim and cast."""
     if isinstance(pl, PackedLinear):
+        if shard_ctx.is_dtensor(pl.words):
+            return _materialize_shards(pl, dtype)
         out = ops.unpack_dequant(pl.words.reshape(-1, pl.words.shape[-1]),
                                  pl.scale, w=pl.bits, d_out=pl.d_out,
                                  rows_per_scale=pl.words.shape[-2],

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from . import shard_ctx
 from .layers import (Init, dense_apply, dense_init, rmsnorm_apply,
                      rmsnorm_init, silu)
 from .quantized import BSEGConv, bseg_conv_apply
@@ -43,6 +44,9 @@ def short_conv_apply(params, x, *, state: Optional[torch.Tensor] = None):
     if state is None:
         state = torch.zeros((x.shape[0], taps - 1, x.shape[2]),
                             dtype=x.dtype, device=x.device)
+    # on a mesh the new samples join the state on its shards (a partial
+    # sum is reduced first, not the state with it)
+    x = shard_ctx.follow(x, state, {0: 0, 2: 2})
     xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = torch.zeros_like(x)
     for q in range(taps):
@@ -184,9 +188,14 @@ def ssm_apply(params, cfg: SSMConfig, x, *, conv_state=None,
         if ssm_state is None:
             ssm_state = torch.zeros((bsz, h, cfg.d_state, p),
                                     dtype=torch.float32, device=x.device)
+        # on a mesh the update runs on the state's shards
+        like = (ssm_state, "bhnp")
+        dec = shard_ctx.follow(dec, ssm_state, {0: 0, 1: 1})
         ssm_state = dec[..., None, None] * ssm_state \
-            + torch.einsum("bhn,bhp->bhnp", bh1.to(torch.float32), xdt)
-        y = torch.einsum("bhn,bhnp->bhp", ch1.to(torch.float32), ssm_state)
+            + shard_ctx.einsum("bhn,bhp->bhnp", bh1.to(torch.float32), xdt,
+                               like=like)
+        y = shard_ctx.einsum("bhn,bhnp->bhp", ch1.to(torch.float32),
+                             ssm_state, like=like)
         y = y[:, None]                                       # [B,1,H,P]
     else:
         y, ssm_state = _ssd_chunked(xh, dtp, a, bh, ch, cfg, h0=ssm_state)

@@ -10,8 +10,10 @@ reckoned (flops > 0, per-device argument bytes from the placements); a
 train cell's one-rank memory, bytes and collectives are reckoned on
 ``meta`` DTensors (the peak holds the arguments, ``fsdp`` gathers and
 reduce-scatters, a one-rank mesh has no collective, remat lowers the
-peak), a decode cell's are ``null`` with a reason; the CLI runs a
-production-mesh cell (256 fake ranks) and a skipped one."""
+peak), and so are a decode cell's (the reference test's three and
+reduced recurrentgemma-2b's ``long_500k``: no collective moves a cache
+leaf, a one-rank mesh has none); the CLI runs a production-mesh cell
+(256 fake ranks) and a skipped one."""
 import dataclasses
 import json
 
@@ -124,19 +126,59 @@ def test_one_rank_cell_has_no_collectives():
     assert r["peak_bytes"] > r["argument_bytes"] > 0
 
 
-def test_decode_cell_leaves_its_memory_fields_null(mesh):
-    cfg, shape = _cell("tinyllama-1.1b", "decode_32k")
-    res = DR.measure_cell(cfg, shape, mesh)
+#: the reference test's decode cells, and reduced recurrentgemma-2b's
+#: long_500k (batch 1: a replicated batch)
+DECODE_CELLS = [("tinyllama-1.1b", "decode_32k"),
+                ("mamba2-130m", "decode_32k"),
+                ("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                ("recurrentgemma-2b", "long_500k")]
+
+
+def _decode_cell(arch, shape_name):
+    cfg, shape = _cell(arch, shape_name)
+    if shape_name == "long_500k":
+        shape = dataclasses.replace(shape, global_batch=1)
+    return cfg, shape
+
+
+@pytest.mark.parametrize("arch,shape_name", DECODE_CELLS)
+def test_decode_cell_is_reckoned_without_moving_the_cache(mesh, arch,
+                                                          shape_name):
+    """A decode step's one-rank memory, bytes and collectives, reckoned
+    on meta DTensors as a train cell's: the peak holds the arguments; no
+    collective moves a cache leaf (``cache_collectives``: none has an
+    operand of the shape of a layer's local cache shard)."""
+    cfg, shape = _decode_cell(arch, shape_name)
+    rk = DR.RankReckoner()
+    res = DR.measure_cell(cfg, shape, mesh, rk)
     assert res["status"] == "ok" and res["devices"] == 8
     assert res["flops"] > 0 and res["flops_per_device"] == res["flops"] / 8
-    for key, why in DR.NULL_REASONS.items():
-        assert res[key] is None and res["null_reasons"][key] == why
     _, _, args, in_sh, _ = DR.build_cell(cfg, shape, mesh)
     assert res["argument_bytes"] == DR.per_device_bytes(args, in_sh)
-    # the KV cache [L, B, S, KV, hd] int8 shards B over "data" (4) and
-    # the KV heads over "model" (2): an eighth a rank
-    k = args[1]["k"]
-    assert DR.per_device_bytes(k, in_sh[1]["k"]) == k.numel() // 8
+    assert res["peak_bytes"] >= res["argument_bytes"] > 0
+    assert res["temp_bytes"] == res["peak_bytes"] - res["argument_bytes"]
+    assert res["output_bytes"] > 0 and res["bytes_per_device"] > 0
+    assert res["collective_bytes_per_device"] == sum(
+        res["collectives"].values())
+    assert DR.cache_collectives(rk, args[1], in_sh[1]) == []
+    assert len(rk.operands) > 0         # the fake mesh's gathers were seen
+    if arch == "tinyllama-1.1b":
+        # the KV cache [L, B, S, KV, hd] int8 shards B over "data" (4) and
+        # the KV heads over "model" (2): an eighth a rank
+        k = args[1]["k"]
+        assert DR.per_device_bytes(k, in_sh[1]["k"]) == k.numel() // 8
+
+
+@pytest.mark.parametrize("arch,shape_name", DECODE_CELLS)
+def test_one_rank_decode_cell_has_no_collectives(arch, shape_name):
+    from torch.distributed.device_mesh import init_device_mesh
+    cfg, shape = _decode_cell(arch, shape_name)
+    with DR.fake_world(1):
+        one = init_device_mesh("cpu", (1, 1),
+                               mesh_dim_names=("data", "model"))
+        r = DR.measure_cell(cfg, shape, one)
+    assert r["collectives"] == {} and r["collective_bytes_per_device"] == 0
+    assert r["peak_bytes"] >= r["argument_bytes"] > 0
 
 
 def test_cli_production_mesh_cell_and_skip(tmp_path, capsys):

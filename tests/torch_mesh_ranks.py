@@ -3,7 +3,8 @@
 WORLD ranks (``torch.multiprocessing``, spawn), each running JOB on the
 inputs ``torch.load(IN)`` and writing its results to ``OUT/rank<r>.pt``.
 The process group's address is ``tcp://localhost`` on a free port.  A
-helper of ``test_torch_grad_compress.py`` and ``test_torch_mesh_train.py``
+helper of ``test_torch_grad_compress.py``, ``test_torch_mesh_train.py``
+and ``test_torch_sharded_decode.py``
 (not a test module itself: it imports no JAX)."""
 import os
 import socket
@@ -106,7 +107,53 @@ def _mesh_train(rank, inputs, out):
     out["launch_steps"] = checkpoint.latest_step(inputs["launch_dir"])
 
 
-JOBS = {"grad_compress": _grad_compress, "mesh_train": _mesh_train}
+def _mesh_decode(rank, inputs, out):
+    """Each case's ``decode_step``s on a (2, 2) mesh from its memory-packed
+    tree and cache (``place_decode``), the logits gathered; then
+    ``materialize`` of ``PackedLinear``s of CPU ``DTensor``s (the per-shard
+    route the card takes, each shard's call on the plain version)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import (Sharding, batch_shardings,
+                                         distribute, place_decode)
+    from repro_torch.models import (PackedLinear, decode_step, materialize,
+                                    shard_ctx)
+    torch.set_num_threads(1)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    for name, case in inputs["cases"].items():
+        cfg, tokens = case["cfg"], case["tokens"]
+        rules, p, c, _ = place_decode(mesh, cfg, case["params"],
+                                      case["cache"], {"tokens": tokens[0]},
+                                      min_size=inputs["min_size"])
+        sh = batch_shardings(mesh, rules, {"tokens": tokens[0]})
+        logits = []
+        with shard_ctx.use_rules(rules), torch.no_grad():
+            for t in tokens:
+                lg, c = decode_step(cfg, p, c,
+                                    distribute({"tokens": t}, sh)["tokens"])
+                logits.append(lg.full_tensor())
+        out[name] = torch.stack(logits)
+        out[name + "/index"] = c["index"].full_tensor()
+    mats = []
+    for pl, placements in inputs["packed"]:
+        pls = [Shard(d) if d is not None else Replicate()
+               for d in placements]
+        dw = distribute({"w": pl.words, "s": pl.scale},
+                        {"w": Sharding(mesh, tuple(pls), None),
+                         "s": Sharding(mesh, tuple(
+                             Replicate() if p == Shard(pl.words.ndim - 2)
+                             else p for p in pls), None)})
+        got = materialize(
+            PackedLinear(words=dw["w"], scale=dw["s"], bits=pl.bits,
+                         d_out=pl.d_out, stacked=pl.stacked), torch.bfloat16)
+        mats.append((tuple(got.placements) == tuple(pls),
+                     got.full_tensor()))
+    out["materialize"] = mats
+
+
+JOBS = {"grad_compress": _grad_compress, "mesh_train": _mesh_train,
+        "mesh_decode": _mesh_decode}
 
 
 def _rank(rank, job, world, port, in_path, out_dir):
