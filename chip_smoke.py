@@ -160,8 +160,9 @@ exit at the first failure:
      plan, 898 B2 a step (2 microbatches of 155 in the forward and 294 in
      the backward's recompute under the registry's remat, ``qat_launches``)
      and 155 an eval batch and nothing else, step walls, peak memory and
-     one profiled step split into B2, ``prepare_sdv_weights`` (a profiler
-     range) and the rest (``qat_run``, which phase 15 runs too); one more
+     one profiled step split into B2, ``prepare_sdv_weights`` (the
+     program's span) and the rest (``qat_run``, which phase 15 runs
+     too); one more
      step from the last state with ``remat=False``, bit for bit the
      remat step's loss and parameters; the step-3 parameters exported by ``export_for_serving``
      evaluate within 0.1 of the QAT eval (154 B2) and decode through
@@ -211,9 +212,10 @@ exit at the first failure:
      greedy steps at batch 8 (seamless 108 B1 / 109 B7 a step, llava 224
      B1 / 225 B7), ``single_batch_loop`` as the CLI runs it, nothing else
      and no plain call; ms/step, tok/s, peak memory, one decode step's busy
-     share split into B1 or B7, the bf16 GEMMs (``aten::mm``), the SDV LM
-     head's plain-torch decode (a profiler range; also timed by CUDA
-     events) and the rest; then one ``forward(mode="last_logits")`` at
+     share split into B1 or B7, the LM head (the program's span: the SDV
+     head's plain-torch decode, also timed by CUDA events, and its
+     product), the other bf16 GEMMs (``aten::mm``) and the rest; then
+     one ``forward(mode="last_logits")`` at
      batch 2 (seamless 512 frames + 512 tokens: 216 B2 / 217 B7; llava
      1152 patches + 64 tokens: 224 B2 / 225 B7);
  15. ssm — the ssm and hybrid families' full-sequence path (after the
@@ -272,7 +274,7 @@ exit at the first failure:
      greedy steps (154 B2 a prefill and 154 B1 a step / 154 and 155 B7,
      nothing else and no plain call), ms/step, tok/s, peak memory, the
      cache's bytes, one decode step's busy share split into B1 or B7, the
-     KV write and attention (a profiler range) and the rest; on the bf16
+     KV write and attention (the program's spans) and the rest; on the bf16
      cache ``single_batch_loop`` as the CLI runs it, and speculative
      decoding (k = 3, the W4A4 draft, round by round as the engine runs
      it), whose tokens must equal plain decode's; (c)
@@ -319,7 +321,6 @@ before them.
 """
 from __future__ import annotations
 
-import contextlib
 import gc
 import json
 import math
@@ -443,8 +444,9 @@ FAMILY_ARCHS = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 FAMILY_FORWARD = {"seamless-m4t-large-v2": (2, 512, 512),
                   "llava-next-mistral-7b": (2, 1152, 64)}
 FAMILY_REFERENCE_STEPS = 8
-#: the profiler range around the SDV LM head's plain-torch weight decode
-HEAD_DECODE = "sdv_lm_head_decode"
+#: the program's span of the LM head: the SDV head's plain-torch weight
+#: decode (a memory-packed head's B7) and its product
+HEAD_SPAN = "repro_torch.head"
 #: the ssm phase: full-size mamba2-130m and full-width recurrentgemma-2b,
 #: one forward each at SSM_FORWARD = (batch, tokens) in SDV and memory
 #: mode (mamba2: 8 SSD chunks of 256; recurrentgemma: its whole window of
@@ -455,14 +457,14 @@ HEAD_DECODE = "sdv_lm_head_decode"
 #: otherwise: 1.2e-5 observed on the SSD's final state after 4 chunks of
 #: 256, H100, 700 W); the SSD run with TF32 on (a 10-bit mantissa) must
 #: miss it; the
-#: profiler ranges of the SSD scan, the RG-LRU's associative scan and
+#: program's spans of the SSD scan, the RG-LRU's associative scan and
 #: the STE weight packing
 SSM_ARCHS = ("mamba2-130m", "recurrentgemma-2b")
 SSM_FORWARD = (2, 2048)
 SSM_LOSS_ATOL = 5e-3
 SSM_SCAN_RTOL = 1e-4
-SSM_RANGES = ("ssd_chunked_scan", "rglru_associative_scan",
-              "prepare_sdv_weights")
+SSM_SPANS = ("repro_torch.ssm.scan", "repro_torch.rglru.scan",
+             "repro_torch.qat.pack")
 #: recurrentgemma-2b's QAT depth: the largest 3g + 2 layers whose peak,
 #: reckoned at the bytes a parameter the train phase measured (a 37.99
 #: GiB peak over tinyllama-1.1b's 1.100e9 parameters, H100, 700 W), is
@@ -518,11 +520,11 @@ LONG_PEAK_RTOL = 0.05
 LONG_ARCH = "recurrentgemma-2b"
 #: phase 17: the reduced models held card against CPU on the bf16 KV
 #: cache (``serve_kv_bits = KV_BITS``), their decode steps, and the
-#: profiler range of the decode step's KV write and attention
+#: program's spans of the decode step's KV write and attention
 KV_ARCHS = ("tinyllama-1.1b", "phi3.5-moe", "llava-next-mistral-7b")
 KV_BITS = 16
 KV_REFERENCE_STEPS = 8
-KV_RANGE = "kv_write_and_attend"
+KV_SPANS = ("repro_torch.attn.kv", "repro_torch.attn.core")
 
 
 #: SDV plans wider than int8 (fault C1), byte-sliced in B1/B2: (word,
@@ -1172,8 +1174,9 @@ def device_events(prof):
     (name, ms, the host op that launched them or None), and the host ops
     by correlation id, read from the raw kineto trace.  The profiler's
     ``key_averages`` builds a Python event tree first, which takes about
-    0.5 ms an event on the host: minutes for a train step.  A range's own
-    device-side copy (a user annotation, not a kernel) is left out."""
+    0.5 ms an event on the host: minutes for a train step.  A user
+    range's own device-side copy (an annotation, not a kernel) is left
+    out."""
     from torch.autograd import DeviceType
     host, dev = {}, []
     for e in prof.profiler.kineto_results.events():
@@ -1182,18 +1185,17 @@ def device_events(prof):
                 host[e.correlation_id()] = e
         else:
             dev.append(e)
-    ranges = {HEAD_DECODE, KV_RANGE, *SSM_RANGES} | {
-        e.name() for e in host.values()
-        if getattr(e, "is_user_annotation", lambda: False)()}
+    ranges = {e.name() for e in host.values()
+              if getattr(e, "is_user_annotation", lambda: False)()}
     return [(e.name(), e.duration_ns() / 1e6,
              host.get(e.linked_correlation_id()))
             for e in dev if e.name() not in ranges], host
 
 
-def device_ms_under(events, host, pick):
-    """Device ms of ``events`` launched inside a host op that ``pick``
-    (a predicate on a ``_HostOp``) selects: the launching op is that op
-    or runs within it on the same thread."""
+def launched_under(events, host, pick):
+    """Whether each of ``events`` was launched inside a host op that
+    ``pick`` (a predicate on a ``_HostOp``) selects: the launching op is
+    that op or runs within it on the same thread."""
     import bisect
     spans = {}
     for e in host.values():
@@ -1209,15 +1211,15 @@ def device_ms_under(events, host, pick):
             else:
                 out.append([a, b])
         merged[tid] = ([a for a, _ in out], [b for _, b in out])
-    total = 0.0
-    for _, ms, op in events:
-        if op is None or op.start_thread_id() not in merged:
-            continue
-        starts, ends = merged[op.start_thread_id()]
-        i = bisect.bisect_right(starts, op.start_ns()) - 1
-        if i >= 0 and op.end_ns() <= ends[i]:
-            total += ms
-    return total
+    out = []
+    for _, _, op in events:
+        hit = False
+        if op is not None and op.start_thread_id() in merged:
+            starts, ends = merged[op.start_thread_id()]
+            i = bisect.bisect_right(starts, op.start_ns()) - 1
+            hit = i >= 0 and op.end_ns() <= ends[i]
+        out.append(hit)
+    return out
 
 
 def profile(label, fn, steps, wall_ms):
@@ -2871,24 +2873,6 @@ def moe_kernels(cfg, dev, flush, card):
     return out
 
 
-@contextlib.contextmanager
-def recorded_routes(out):
-    """Record (expert ids, slots, kept) of every ``layers.moe_route`` call
-    in ``out``, on the CPU, in call order."""
-    from repro_torch.models import layers
-    orig = layers.moe_route
-
-    def spy(params, cfg, xt):
-        r = orig(params, cfg, xt)
-        out.append(tuple(t.cpu() for t in (r[0], r[2], r[3])))
-        return r
-    layers.moe_route = spy
-    try:
-        yield
-    finally:
-        layers.moe_route = orig
-
-
 def moe_card_vs_cpu(dev):
     """Reduced phi3.5-moe and llama4-maverick (``moe_every`` 2, a shared
     expert) in SDV and memory modes on the card against the same models
@@ -2908,6 +2892,7 @@ def moe_card_vs_cpu(dev):
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill_step, serve_params)
+    from repro_torch.tracing import expert_routes
     cpu = torch.device("cpu")
     for arch in MOE_REFERENCE_ARCHS:
         cfg = get_arch(arch).reduced()
@@ -2920,8 +2905,7 @@ def moe_card_vs_cpu(dev):
             for d in (cpu, dev):
                 q = serve_params(_to(params, d), bits=4, min_size=1024,
                                  compute=compute)
-                routes[d.type] = []
-                with recorded_routes(routes[d.type]):
+                with expert_routes() as calls:
                     cache = init_cache(cfg, 3, 16, device=d)
                     cache = prefill_step(
                         cfg, q, cache,
@@ -2932,6 +2916,7 @@ def moe_card_vs_cpu(dev):
                         out, cache = decode_step(cfg, q, cache, torch.tensor(
                             t, dtype=torch.int32, device=d))
                         logits.append(out.cpu())
+                routes[d.type] = [tuple(t.cpu() for t in r) for r in calls]
                 outs[d.type] = torch.stack(logits)
                 caches[d.type] = {k: v.cpu() for k, v in cache.items()}
             err = float((outs["cuda"] - outs["cpu"]).abs().max())
@@ -2976,8 +2961,10 @@ def step_split(tag, label, fn, wall_ms, card, kernels, host_ops,
     port's ``kernels`` ({name: kernel function name}, by the device
     events' names), the device time under the host ops ``host_ops``
     picks ({name: predicate on a ``_HostOp``, e.g. ``aten::bmm`` on a
-    bank (``shapes``: the profiler records input shapes), or a profiler
-    range}) and the rest (``device_events``, ``device_ms_under``).
+    bank (``shapes``: the profiler records input shapes), or one of the
+    program's spans}) and the rest (``device_events``,
+    ``launched_under``).  Each device event counts once, in the first
+    category that takes it: the kernels, then the host ops in order.
     Returns the split, or None when the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity
@@ -2994,10 +2981,16 @@ def step_split(tag, label, fn, wall_ms, card, kernels, host_ops,
         print(f"[{tag}] {label}: the profiler saw no device time; split "
               "not measured")
         return None
-    split = {k: sum(ms for n, ms, _ in events if name in n)
-             for k, name in kernels.items()}
-    split.update({k: device_ms_under(events, host, pick)
-                  for k, pick in host_ops.items()})
+    hits = {k: [name in n for n, _, _ in events]
+            for k, name in kernels.items()}
+    hits.update({k: launched_under(events, host, pick)
+                 for k, pick in host_ops.items()})
+    taken = [False] * len(events)
+    split = {}
+    for k, hit in hits.items():
+        split[k] = sum(ms for (_, ms, _), h, t in zip(events, hit, taken)
+                       if h and not t)
+        taken = [t or h for t, h in zip(taken, hit)]
     split["rest"] = busy - sum(split.values())
     print(f"[{tag}] {label}: unprofiled wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms ({busy / wall_ms:.1%}): "
@@ -3368,27 +3361,6 @@ def family_card_vs_cpu(dev):
                               for k, (n, m) in differ.items()))
 
 
-@contextlib.contextmanager
-def labelled_head_decode():
-    """Run the SDV LM head's weight decode (``layers.mat`` of an
-    ``SDVLinear``: ``ref.sdv_unpack_words_ref`` and the dequant, plain
-    torch, every call) inside a profiler range named ``HEAD_DECODE``."""
-    import torch
-    from repro_torch.models import layers, quantized
-    orig = layers.mat
-
-    def mat(w, dtype):
-        if not quantized.is_sdv(w):
-            return orig(w, dtype)
-        with torch.profiler.record_function(HEAD_DECODE):
-            return orig(w, dtype)
-    layers.mat = mat
-    try:
-        yield
-    finally:
-        layers.mat = orig
-
-
 def family_serve(cfg, dev, card, compute):
     """Full-width ``cfg`` from a seeded torch init packed by
     ``serve_params(compute=compute, min_size=1024)`` (the bf16 tree freed
@@ -3397,9 +3369,9 @@ def family_serve(cfg, dev, card, compute):
     (encdec has no chunked prefill); 16 greedy decode steps; the serve
     CLI's ``single_batch_loop``; each with exactly ``family_launches``'
     kernels and no plain call; one decode step profiled (``step_split``:
-    B1 or B7, the bf16 GEMMs (``aten::mm``: the memory-mode projections
-    and the LM head product; attention runs ``aten::bmm``), the SDV LM
-    head's decode under ``HEAD_DECODE``); then one
+    B1 or B7, the LM head's span ``HEAD_SPAN`` (the SDV head's decode and
+    its product), the other bf16 GEMMs (``aten::mm``: the memory-mode
+    projections; attention runs ``aten::bmm``)); then one
     ``forward(mode="last_logits")`` at
     ``FAMILY_FORWARD``.  Returns the counts, walls, peak memory and the
     split."""
@@ -3515,13 +3487,12 @@ def family_serve(cfg, dev, card, compute):
 
     def step():
         _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
-    with labelled_head_decode():
-        split = step_split(
-            "families", f"{cfg.name} {compute} decode step at batch "
-            f"{BATCH}", step, step_ms, card,
-            {"B1": "sdv_gemv_kernel", "B7": "unpack_dequant_kernel"},
-            {"bf16 GEMMs": lambda e: e.key == "aten::mm",
-             "SDV LM head decode": lambda e: e.key == HEAD_DECODE})
+    split = step_split(
+        "families", f"{cfg.name} {compute} decode step at batch {BATCH}",
+        step, step_ms, card,
+        {"B1": "sdv_gemv_kernel", "B7": "unpack_dequant_kernel"},
+        {"LM head (decode, product)": lambda e: e.key == HEAD_SPAN,
+         "bf16 GEMMs": lambda e: e.key == "aten::mm"})
     head_ms = None
     if compute == "sdv":
         head_ms = event_ms(lambda: mat(qparams["lm_head"], torch.bfloat16), 3)
@@ -3603,53 +3574,18 @@ def phase_families(dev, card, flush):
 # phase 15: the ssm and hybrid full-sequence forward, packed QAT, oracles
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def labelled_ranges():
-    """Run the chunked SSD scan (``ssm._ssd_chunked``), the RG-LRU's
-    associative scan (``rglru.associative_scan``, its outermost call) and
-    the STE weight packing (``ops.prepare_sdv_weights``) inside profiler
-    ranges named by ``SSM_RANGES``."""
-    import torch
-    from repro_torch.kernels import ops
-    from repro_torch.models import rglru, ssm
-    patched = [(ssm, "_ssd_chunked"), (rglru, "associative_scan"),
-               (ops, "prepare_sdv_weights")]
-    origs = [getattr(mod, name) for mod, name in patched]
-    depth = [0]
-
-    def labelled(orig, label):
-        def fn(*args, **kw):
-            if depth[0]:                    # the scan's own recursion
-                return orig(*args, **kw)
-            depth[0] += 1
-            try:
-                with torch.profiler.record_function(label):
-                    return orig(*args, **kw)
-            finally:
-                depth[0] -= 1
-        return fn
-    for (mod, name), orig, label in zip(patched, origs, SSM_RANGES):
-        setattr(mod, name, labelled(orig, label))
-    try:
-        yield
-    finally:
-        for (mod, name), orig in zip(patched, origs):
-            setattr(mod, name, orig)
-
-
 def ssm_split(label, fn, wall_ms, card, tag="ssm"):
     """``step_split`` of one call of ``fn`` into B2, B4, B7, the SSD scan,
-    the RG-LRU scan, the STE weight packing and the rest (the float
-    GEMMs outside the scans among it: the ranges hold GEMMs of their
-    own, so a GEMM category would count them twice)."""
-    with labelled_ranges():
-        return step_split(
-            tag, label, fn, wall_ms, card,
-            {"B2": "sdv_gemm_kernel", "B4": "bseg_conv1d_kernel",
-             "B7": "unpack_dequant_kernel"},
-            {name: (lambda e, r=r: e.key == r)
-             for name, r in zip(("SSD scan", "RG-LRU scan",
-                                 "prepare_sdv_weights"), SSM_RANGES)})
+    the RG-LRU scan, the STE weight packing (the program's spans
+    ``SSM_SPANS``) and the rest (the float GEMMs outside the scans among
+    it)."""
+    return step_split(
+        tag, label, fn, wall_ms, card,
+        {"B2": "sdv_gemm_kernel", "B4": "bseg_conv1d_kernel",
+         "B7": "unpack_dequant_kernel"},
+        {name: (lambda e, r=r: e.key == r)
+         for name, r in zip(("SSD scan", "RG-LRU scan",
+                             "prepare_sdv_weights"), SSM_SPANS)})
 
 
 def ssm_card_vs_cpu(dev):
@@ -4676,27 +4612,6 @@ def phase_dist(dev, card, dry):
 # phase 17: the bf16 KV cache of the dense, moe and vlm families; examples
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def labelled_kv_attention():
-    """Run the decode step's KV write and softmax attention
-    (``layers._write_kv``, ``layers._attend``: torch ops) inside a
-    profiler range named ``KV_RANGE``."""
-    import torch
-    from repro_torch.models import layers
-    orig = layers._write_kv, layers._attend
-
-    def labelled(fn):
-        def run(*args, **kwargs):
-            with torch.profiler.record_function(KV_RANGE):
-                return fn(*args, **kwargs)
-        return run
-    layers._write_kv, layers._attend = map(labelled, orig)
-    try:
-        yield
-    finally:
-        layers._write_kv, layers._attend = orig
-
-
 def kv_card_vs_cpu(dev):
     """Reduced ``KV_ARCHS`` at ``serve_kv_bits = KV_BITS`` in SDV and
     memory modes on the card against the same models on the CPU (plain
@@ -4783,7 +4698,7 @@ def kv_decode_run(cfg, qparams, dev, card, compute, profiled=True):
     the expected launches (SDV 154 B2 / 154 B1 a step, memory 154 / 155
     B7) and no plain call; ms/step, tok/s, peak memory, the cache's
     bytes and (``profiled``) one decode step's busy share split into B1 or
-    B7, the KV write and attention (a profiler range, ``KV_RANGE``) and
+    B7, the KV write and attention (the program's spans ``KV_SPANS``) and
     the rest.  Returns the readings and the greedy tokens [BATCH, NEW]."""
     import torch
     from repro_torch.launch.serve import cache_note
@@ -4838,11 +4753,10 @@ def kv_decode_run(cfg, qparams, dev, card, compute, profiled=True):
         _, state["cache"] = decode_step(cfg, qparams, state["cache"], tok)
     split = None
     if profiled:
-        with labelled_kv_attention():
-            split = step_split("kv", f"{cfg.name} {label}: one decode step "
-                               f"at batch {BATCH}", step, ms, card, kern,
-                               {"KV write + attention (torch)":
-                                lambda e: e.key == KV_RANGE})
+        split = step_split("kv", f"{cfg.name} {label}: one decode step at "
+                           f"batch {BATCH}", step, ms, card, kern,
+                           {"KV write + attention (torch)":
+                            lambda e: e.key in KV_SPANS})
     print(f"[kv] {cfg.name} {label}: prefill {BATCH}x{PROMPT} "
           f"{t_prefill * 1e3:.1f} ms, decode {ms:.3f} ms/step "
           f"({BATCH * NEW / t_decode:.1f} tok/s), peak {peak:.3f} GiB, cache "

@@ -79,6 +79,7 @@ from ..core import bseg as core_bseg
 from ..core import limbs
 from ..core.datapath import BSEGPlan, SDVPlan, plan_sdv
 from ..core.signed_split import pack_unsigned, split_signed
+from ..tracing import spanned
 from . import bseg_common, packbits, ref
 from . import bseg_conv1d as bseg1d_kernel
 from . import bseg_conv2d as bseg2d_kernel
@@ -131,6 +132,7 @@ def quant_matmul(x: torch.Tensor, w_packed: torch.Tensor,
         scale.reshape(-1).to(torch.float32).contiguous(), w=w)
 
 
+@spanned("repro_torch.qat.pack")
 def prepare_sdv_weights(w_int: torch.Tensor, plan) -> torch.Tensor:
     """[M, K] ints (w_a-bit, signedness per ``plan.signed_a``) -> [K, G]
     int32 storage words, or [2, K, G] int32 limb planes for the wide

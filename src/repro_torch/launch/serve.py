@@ -255,6 +255,7 @@ def run_engine(cfg, args, params, device):
           f"{snap['tokens_per_s']:.1f} tok/s, "
           f"p50 {snap['latency']['p50_ms']:.1f} ms, "
           f"p99 {snap['latency']['p99_ms']:.1f} ms, "
+          f"first token p50 {snap['ttft']['p50_ms']:.1f} ms, "
           f"{snap['waves']['count']} waves, "
           f"{snap['waves']['midwave_joins']} mid-wave joins, "
           f"{decode_ms:.1f} ms per decode iteration ({device})")

@@ -27,6 +27,7 @@ import torch
 
 from ..device import constant
 from ..quant import quantizer
+from ..tracing import record_route, span, spanned
 from . import shard_ctx
 from .param import P, Rules
 from .quantized import is_packed, is_sdv, materialize, sdv_matmul_apply
@@ -403,6 +404,7 @@ def _put(leaf, dest, keep, vals):
     leaf.scatter_(1, ix, vals)
 
 
+@spanned("repro_torch.attn.qkv")
 def _qkv(params, cfg: AttnConfig, x, pos):
     h, g, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = shard_ctx.split_heads(dense_apply(params["wq"], x), h, hd)
@@ -412,6 +414,7 @@ def _qkv(params, cfg: AttnConfig, x, pos):
             rope(k, pos, theta=cfg.rope_theta), v)
 
 
+@spanned("repro_torch.attn.kv")
 def _write_kv(cache, k, v, writes):
     """Write k/v [B, C, G, hd] into the cache at ``writes`` = (dest,
     keep) [B, C] (``decode_writes``/``prefill_writes``; ``_put``).
@@ -448,6 +451,7 @@ def _write_kv(cache, k, v, writes):
             cache_v.to(torch.float32) * v_scale[..., None])
 
 
+@spanned("repro_torch.attn.core")
 def _attend(q, kc_f, vc_f, valid, scores_eq: str, out_eq: str, hd: int):
     """Softmax attention in float32; ``valid`` masks the scores (None:
     every key).  On a mesh both products run on the K/V's shards
@@ -467,6 +471,7 @@ def _attend(q, kc_f, vc_f, valid, scores_eq: str, out_eq: str, hd: int):
     return shard_ctx.follow(out, vc_f, {0: o.index("b"), 2: o.index("g")})
 
 
+@spanned("repro_torch.attn")
 def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
                      writes):
     """Single-token decode against a KV cache.
@@ -492,9 +497,12 @@ def decode_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     q4 = shard_ctx.follow(q, kc_f, _SAME).reshape(b, g, r, hd)
     out = _attend(q4, kc_f, vc_f, valid[:, None, None, :], "bgrd,bkgd->bgrk",
                   "bgrk,bkgd->bgrd", hd)
-    return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+    with span("repro_torch.attn.out"):
+        return dense_apply(params["wo"],
+                           out.reshape(b, 1, h * hd).to(x.dtype))
 
 
+@spanned("repro_torch.attn")
 def cross_decode_attention(params, cfg: AttnConfig, x, *, cross_k,
                            cross_v):
     """The encoder-decoder's decode-time cross attention, as the JAX
@@ -507,9 +515,12 @@ def cross_decode_attention(params, cfg: AttnConfig, x, *, cross_k,
     q = dense_apply(params["wq"], x).reshape(b, g, h // g, hd)
     out = _attend(q, cross_k.to(torch.float32), cross_v.to(torch.float32),
                   None, "bgrd,bkgd->bgrk", "bgrk,bkgd->bgrd", hd)
-    return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+    with span("repro_torch.attn.out"):
+        return dense_apply(params["wo"],
+                           out.reshape(b, 1, h * hd).to(x.dtype))
 
 
+@spanned("repro_torch.attn")
 def prefill_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
                       writes):
     """Teacher-forced chunked prefill against an int8 KV cache.
@@ -535,9 +546,12 @@ def prefill_attention(params, cfg: AttnConfig, x, *, cache, cache_index,
     out = _attend(q5, kc_f, vc_f, valid[:, None, None, :, :],
                   "bcgrd,bsgd->bgrcs",
                   "bgrcs,bsgd->bcgrd", hd)
-    return dense_apply(params["wo"], out.reshape(b, c, h * hd).to(x.dtype))
+    with span("repro_torch.attn.out"):
+        return dense_apply(params["wo"],
+                           out.reshape(b, c, h * hd).to(x.dtype))
 
 
+@spanned("repro_torch.attn")
 def decode_attention_ring(params, cfg: AttnConfig, x, *, k_cache, v_cache,
                           cache_index, window: int):
     """Sliding-window single-token decode against a bf16 ring buffer of
@@ -566,9 +580,12 @@ def decode_attention_ring(params, cfg: AttnConfig, x, *, k_cache, v_cache,
     out = _attend(q4, k_cache.to(torch.float32),
                   v_cache.to(torch.float32), valid[:, None, None, :],
                   "bgrd,bkgd->bgrk", "bgrk,bkgd->bgrd", hd)
-    return dense_apply(params["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+    with span("repro_torch.attn.out"):
+        return dense_apply(params["wo"],
+                           out.reshape(b, 1, h * hd).to(x.dtype))
 
 
+@spanned("repro_torch.mlp")
 def mlp_apply(params, x, *, act: str = "swiglu"):
     gate = shard_ctx.constrain(dense_apply(params["wi_gate"], x),
                                "batch", None, "tp")
@@ -646,6 +663,7 @@ def moe_route(params, cfg: MoEConfig, xt):
     return top_e, top_p, slot, slot < cap, cap
 
 
+@spanned("repro_torch.moe")
 def moe_apply(params, cfg: MoEConfig, x):
     """x [B, S, d] -> [B, S, d]: capacity-dropped token-choice routing
     (``moe_route``), dispatch into an [E, cap, d] buffer, the expert
@@ -653,38 +671,45 @@ def moe_apply(params, cfg: MoEConfig, x):
     memory-packed bank is one kernel-B7 call), combine weighted by the
     routing probabilities, plus the shared expert.  The capacity counts
     every token of the call, so a token's output depends on the other
-    tokens of the batch (ROADMAP Queue C, reference property (f))."""
+    tokens of the batch (ROADMAP Queue C, reference property (f)).  The
+    routing goes, as returned, to the open ``tracing.expert_routes``
+    records."""
     b, s, d = x.shape
     t, k = b * s, cfg.top_k
     # the capacity counts every token: on a mesh the routing, dispatch
     # and combine see them all (GSPMD gathers them too)
     xt = shard_ctx.replicate(x.reshape(t, d))
-    top_e, top_p, slot, keep, cap = moe_route(params, cfg, xt)
+    with span("repro_torch.moe.route"):
+        top_e, top_p, slot, keep, cap = moe_route(params, cfg, xt)
+    record_route(top_e, slot, keep)
     flat_e = top_e.reshape(-1)
-    # dispatch: the JAX package's fixed-shape scatter-add, a dropped
-    # choice adding 0 into its expert's last slot (a slot sums +0, one
-    # kept row at most and zeros: the same bits in any order)
-    buf = shard_ctx.replicated_like(
-        torch.zeros((cfg.n_experts * cap, d), dtype=x.dtype,
-                    device=x.device), xt)
-    src = xt.repeat_interleave(k, dim=0)                       # [T*k, d]
-    row = flat_e * cap + torch.where(keep, slot, cap - 1)
-    buf.scatter_add_(0, row[:, None].expand(-1, d),
-                     torch.where(keep[:, None], src, 0))
-    buf = buf.reshape(cfg.n_experts, cap, d)
-    buf = shard_ctx.constrain(buf, "ep", None, None)
-    gate = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_gate"], x.dtype))
-    up = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_up"], x.dtype))
-    a = silu(gate) if cfg.act == "swiglu" else gelu_tanh(gate)
-    out_e = torch.einsum("ecf,efd->ecd", a * up,
-                         mat(params["wo"], x.dtype))           # [E, C, d]
-    # combine
-    gathered = out_e[flat_e, torch.where(keep, slot, 0)]       # [T*k, d]
-    gathered = gathered.masked_fill(~keep[:, None], 0)
-    w = top_p.reshape(-1)[:, None].to(x.dtype)
-    y = (gathered * w).reshape(t, k, d).sum(dim=1).reshape(b, s, d)
-    if cfg.shared_expert:
-        y = y + mlp_apply(params["shared"], x, act=cfg.act)
+    with span("repro_torch.moe.dispatch"):
+        # the JAX package's fixed-shape scatter-add, a dropped choice
+        # adding 0 into its expert's last slot (a slot sums +0, one kept
+        # row at most and zeros: the same bits in any order)
+        buf = shard_ctx.replicated_like(
+            torch.zeros((cfg.n_experts * cap, d), dtype=x.dtype,
+                        device=x.device), xt)
+        src = xt.repeat_interleave(k, dim=0)                   # [T*k, d]
+        row = flat_e * cap + torch.where(keep, slot, cap - 1)
+        buf.scatter_add_(0, row[:, None].expand(-1, d),
+                         torch.where(keep[:, None], src, 0))
+        buf = buf.reshape(cfg.n_experts, cap, d)
+        buf = shard_ctx.constrain(buf, "ep", None, None)
+    with span("repro_torch.moe.experts"):
+        gate = torch.einsum("ecd,edf->ecf", buf,
+                            mat(params["wi_gate"], x.dtype))
+        up = torch.einsum("ecd,edf->ecf", buf, mat(params["wi_up"], x.dtype))
+        a = silu(gate) if cfg.act == "swiglu" else gelu_tanh(gate)
+        out_e = torch.einsum("ecf,efd->ecd", a * up,
+                             mat(params["wo"], x.dtype))       # [E, C, d]
+    with span("repro_torch.moe.combine"):
+        gathered = out_e[flat_e, torch.where(keep, slot, 0)]   # [T*k, d]
+        gathered = gathered.masked_fill(~keep[:, None], 0)
+        w = top_p.reshape(-1)[:, None].to(x.dtype)
+        y = (gathered * w).reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+        if cfg.shared_expert:
+            y = y + mlp_apply(params["shared"], x, act=cfg.act)
     return y
 
 

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..tracing import span
 from .layers import Init, dense_apply, dense_init, gelu_tanh
 from .ssm import short_conv_apply, short_conv_init, softplus
 
@@ -98,7 +99,8 @@ def _rglru_core(params, u, h0: Optional[torch.Tensor]):
     if h0 is not None:
         first = gated[:, :1] + a[:, :1] * h0.to(torch.float32)[:, None]
         gated = torch.cat([first, gated[:, 1:]], dim=1)
-    _, h = associative_scan(a, gated)
+    with span("repro_torch.rglru.scan"):
+        _, h = associative_scan(a, gated)
     return h.to(u.dtype), h[:, -1, :]
 
 

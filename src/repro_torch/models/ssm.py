@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..tracing import spanned
 from . import shard_ctx
 from .layers import (Init, dense_apply, dense_init, rmsnorm_apply,
                      rmsnorm_init, silu)
@@ -100,6 +101,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+@spanned("repro_torch.ssm.scan")
 def _ssd_chunked(x, dt, a, b_in, c_in, cfg: SSMConfig,
                  h0: Optional[torch.Tensor] = None):
     """Chunked SSD scan.

@@ -72,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..tracing import spanned
 from . import layers as L
 from . import rglru as R
 from . import shard_ctx
@@ -307,6 +308,7 @@ def _embed(cfg: ArchConfig, params, tokens):
     return shard_ctx.constrain(x.to(cfg.dtype), "batch", None, None)
 
 
+@spanned("repro_torch.head")
 def unembed_hidden(cfg: ArchConfig, params, h):
     """Project already-normed hidden states to float32 logits.  The LM
     head is materialized and multiplied in bf16, as in the JAX package:
@@ -692,6 +694,7 @@ def _mlp_residual(cfg: ArchConfig, bp, y):
 # decode / prefill
 # ---------------------------------------------------------------------------
 
+@spanned("repro_torch.decode_step")
 def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                 advance=None):
     """One decode step.  tokens [B, 1] int; returns (logits [B, 1, V]
@@ -858,6 +861,7 @@ def _prefill_forward(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
     return x, dict(cache, index=index + n_valid)
 
 
+@spanned("repro_torch.prefill_step")
 def prefill_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                  n_valid: torch.Tensor):
     """One chunked-prefill step.
@@ -903,6 +907,7 @@ def prefill_slot(cfg: ArchConfig, params, cache, slot: int,
     return _slot_merge(cache, slot, new)
 
 
+@spanned("repro_torch.verify_step")
 def verify_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor,
                 n_valid: torch.Tensor):
     """The speculative verification wave: chunked teacher forcing with

@@ -158,6 +158,7 @@ class Session:
     fed: int = 0
     midwave: bool = False           # joined a running wave (not at start)
     tokens: List[int] = dataclasses.field(default_factory=list)
+    first_token_t: Optional[float] = None   # the step that gave tokens[0]
 
     @property
     def prompt_len(self) -> int:
@@ -215,6 +216,7 @@ class Completion:
     submit_t: float
     start_t: float
     finish_t: float
+    first_token_t: float            # after the sync that gave the first token
     deadline: Optional[float] = None
     midwave_join: bool = False      # session joined its wave mid-flight
 
@@ -1012,6 +1014,8 @@ class Engine:
                     continue                    # discarded
             tok = int(last[slot].argmax())
             s.tokens.append(tok)
+            if s.first_token_t is None:
+                s.first_token_t = finish_t
             emitted += 1
             if s.done():                        # leave mid-wave: free slot
                 table.leave(slot)
@@ -1020,12 +1024,14 @@ class Engine:
                     prompt_len=s.prompt_len, bucket_key=bucket.key,
                     submit_t=s.request.submit_t,
                     start_t=s.start_t, finish_t=finish_t,
+                    first_token_t=s.first_token_t,
                     deadline=s.request.deadline, midwave_join=s.midwave)
                 completions.append(comp)
                 self._set_outcome(comp.rid, "ok", bucket.key)
                 self.metrics.record_completion(
                     submit_t=comp.submit_t, start_t=comp.start_t,
-                    finish_t=comp.finish_t, n_tokens=len(comp.tokens))
+                    finish_t=comp.finish_t, n_tokens=len(comp.tokens),
+                    first_token_t=comp.first_token_t)
         self.metrics.record_decode_launch(emitted)
         return completions
 
@@ -1099,6 +1105,8 @@ class Engine:
             if s.fed < s.prompt_len:
                 s.fed += 1                      # consumed: last prompt tok
             s.tokens.extend(int(g) for g in greedy[slot, :t])
+            if s.first_token_t is None and s.tokens:
+                s.first_token_t = finish_t
             accepted.append(t)
             w.spec_tokens += t
             if s.done():
@@ -1108,12 +1116,14 @@ class Engine:
                     prompt_len=s.prompt_len, bucket_key=bucket.key,
                     submit_t=s.request.submit_t,
                     start_t=s.start_t, finish_t=finish_t,
+                    first_token_t=s.first_token_t,
                     deadline=s.request.deadline, midwave_join=s.midwave)
                 completions.append(comp)
                 self._set_outcome(comp.rid, "ok", bucket.key)
                 self.metrics.record_completion(
                     submit_t=comp.submit_t, start_t=comp.start_t,
-                    finish_t=comp.finish_t, n_tokens=len(comp.tokens))
+                    finish_t=comp.finish_t, n_tokens=len(comp.tokens),
+                    first_token_t=comp.first_token_t)
         self.metrics.record_spec_round(bucket.key, accepted=accepted,
                                        draft_s=draft_s,
                                        verify_s=verify_s)

@@ -163,6 +163,7 @@ class EngineMetrics:
     clock: Callable[[], float]
     latencies_s: List[float] = dataclasses.field(default_factory=list)
     queue_wait_s: List[float] = dataclasses.field(default_factory=list)
+    ttft_s: List[float] = dataclasses.field(default_factory=list)
     depth_samples: List[int] = dataclasses.field(default_factory=list)
     rejected: int = 0
     rejected_infeasible: int = 0    # admission control: hopeless deadline
@@ -205,10 +206,15 @@ class EngineMetrics:
             self.started_t = self.clock()
 
     def record_completion(self, *, submit_t: float, start_t: float,
-                          finish_t: float, n_tokens: int) -> None:
+                          finish_t: float, n_tokens: int,
+                          first_token_t: Optional[float] = None) -> None:
+        """One finished request; ``first_token_t`` (the port's, absent
+        from the reference) adds its time to first token."""
         self.record_start()
         self.latencies_s.append(finish_t - submit_t)
         self.queue_wait_s.append(start_t - submit_t)
+        if first_token_t is not None:
+            self.ttft_s.append(first_token_t - submit_t)
         self.tokens_out += n_tokens
         self.finished_t = finish_t
 
@@ -380,6 +386,7 @@ class EngineMetrics:
             "speculative": self._spec_snapshot(),
             "latency": latency_summary(self.latencies_s),
             "queue_wait": latency_summary(self.queue_wait_s),
+            "ttft": latency_summary(self.ttft_s),
             "queue_depth": {
                 "mean": (sum(depth) / len(depth)) if depth else 0.0,
                 "max": max(depth) if depth else 0,

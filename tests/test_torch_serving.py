@@ -261,8 +261,9 @@ def _metrics_script(mod, seed):
 
 
 def _drop_port_only(snap):
-    """The port's per-bucket decode/prefill iteration walls (absent from
-    the reference's snapshot)."""
+    """The port's per-bucket decode/prefill iteration walls and its time
+    to first token (absent from the reference's snapshot)."""
+    snap.pop("ttft", None)
     for b in snap["buckets"].values():
         for k in ("decode_steps", "decode_wall_s", "prefill_calls",
                   "prefill_wall_s"):
