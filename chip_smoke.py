@@ -5,14 +5,16 @@ Drives the port's main paths on one CUDA card and stops with a nonzero
 exit at the first failure:
 
   1. build — compiles kernels B1 (SDV GEMV) and B2 (SDV GEMM) from
-     ``src/repro_torch/kernels/csrc/sdv.cu``, B3 (BSEG conv2d) from
+     ``src/repro_torch/kernels/csrc/sdv.cu``, B2 at many rows (TMA and
+     wgmma) from ``csrc/sdv_wgmma.cu``, B3 (BSEG conv2d) from
      ``csrc/bseg.cu``, B4 (BSEG depthwise conv1d) from
      ``csrc/bseg1d.cu``, B6/B7 (lane pack/unpack) from
      ``csrc/packbits.cu`` and B5 (quantized matmul) from
      ``csrc/quant_matmul.cu`` with nvcc for sm_90a, one nvcc per source,
      all started together; prints ptxas's registers and spills of each
      B1/B2/B3 instantiation, B1/B2's dynamic shared memory (B3's, which
-     follows the layer, is printed with each conv case);
+     follows the layer, is printed with each conv case; B2's wgmma
+     kernel's at n = 1, 2, 3);
   2. kernels — each kernel against its plain torch version bit for bit,
      and against the exact integer product (float64 on the card, exact
      while |sum| < 2^53), at the main path's (K, M) shapes, for the
@@ -194,7 +196,11 @@ exit at the first failure:
      shape of a full-width seamless-m4t-large-v2 decoder layer (d 1024, 16
      heads of 64, d_ff 8192) and llava-next-mistral-7b layer (d 4096, K up
      to 14336) on the INT32 W4A8 plan against the plain version and the
-     exact product; B6 at every leaf shape that memory-mode
+     exact product; B2's row sweep (``B2_SWEEP_ROWS``, 32 to 4096) on a
+     llava layer on both of its kernels (mma.sync and wgmma), each equal
+     to the exact product, beside the bound, ``_int_mm`` and the plain
+     version (the sweep behind ``sdv_matmul.WGMMA_MIN_ROWS``), and
+     recurrentgemma-2b's projections at 4096 rows; B6 at every leaf shape that memory-mode
      ``serve_params`` packs of both models (up to llava's [458752, 4096]
      stack, 1.88e9 values), the fused B7 at every decode projection shape
      and both LM heads, against their plain versions (and B7 the replaced
@@ -208,7 +214,8 @@ exit at the first failure:
      (the entries that differ counted); then each full-width model from a
      seeded init in SDV and memory mode (``serve_params``, min_size 1024,
      the bf16 tree freed): llava's 16-token prefill of 8 prompts (224 B2 /
-     224 B7), seamless's 15 prompt tokens replayed by ``decode_step``, 16
+     224 B7) and, in SDV mode, one prefill chunk of 8 x 512 (224 B2, all on
+     the wgmma kernel: ``sdv_matmul.wgmma_launches``), seamless's 15 prompt tokens replayed by ``decode_step``, 16
      greedy steps at batch 8 (seamless 108 B1 / 109 B7 a step, llava 224
      B1 / 225 B7), ``single_batch_loop`` as the CLI runs it, nothing else
      and no plain call; ms/step, tok/s, peak memory, one decode step's busy
@@ -443,6 +450,14 @@ CACHE_SCALE_RTOL = 2.0 ** -7
 FAMILY_ARCHS = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 FAMILY_FORWARD = {"seamless-m4t-large-v2": (2, 512, 512),
                   "llava-next-mistral-7b": (2, 1152, 64)}
+#: a llava prefill chunk as the benchmark's prefill cell runs it: 8
+#: prompts x 512 columns (B2 at 4096 rows, on its wgmma kernel)
+CHUNK_BATCH, CHUNK_COLS = 8, 512
+#: B2's row sweep on a llava layer (both kernels: the crossover
+#: ``sdv_matmul.WGMMA_MIN_ROWS`` is read from it) and the many-row shapes
+#: of other main paths: recurrentgemma-2b's SDV forward at 2 x 2048
+B2_SWEEP_ROWS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+B2_MANY_ROWS = 4096
 FAMILY_REFERENCE_STEPS = 8
 #: the program's span of the LM head: the SDV head's plain-torch weight
 #: decode (a memory-packed head's B7) and its product
@@ -599,7 +614,8 @@ def bound_ms(nbytes, ops, ops_per_s=INT8_OPS_PER_S):
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    names = ("sdv", "bseg", "bseg1d", "packbits", "quant_matmul")
+    names = ("sdv", "sdv_wgmma", "bseg", "bseg1d", "packbits",
+             "quant_matmul")
     with ThreadPoolExecutor(len(names)) as pool:     # one nvcc per source
         list(pool.map(build.build, names))
     for name in names:
@@ -610,7 +626,7 @@ def phase_build():
         print(f"[build] {name}.cu -> {build.library_path(name).name} (nvcc "
               f"{build.build_seconds[name]:.1f} s); {len(regs)} kernels, "
               f"e.g. {regs[:2]}")
-        if name in ("sdv", "bseg", "bseg1d", "quant_matmul"):
+        if name in ("sdv", "sdv_wgmma", "bseg", "bseg1d", "quant_matmul"):
             for line in ptxas_report(log):
                 print(f"[build]   {line}")
         if name == "sdv":
@@ -619,13 +635,24 @@ def phase_build():
                 f"{k} {w} words {lib.sdv_smem_bytes(gemm, limb)} B"
                 for k, gemm in (("B1", 0), ("B2", 1))
                 for w, limb in (("INT32", 0), ("two-limb", 1))))
+        if name == "sdv_wgmma":
+            from repro_torch.kernels import sdv_matmul
+            geo = {n: sdv_matmul.wgmma_geometry(4096, 4096, 7168, n, sms=132)
+                   for n in (1, 2, 3)}
+            lib = build.library(name)
+            print("[build]   dynamic shared memory per block (B2 at many "
+                  "rows): " + ", ".join(
+                      f"n={n} {g.stages} stages "
+                      f"{lib.sdv_wgmma_smem_bytes(g.bgw, g.stages)} B"
+                      for n, g in geo.items()))
     print(f"[build] all sources in {time.perf_counter() - t0:.1f} s")
 
 
 def ptxas_report(log):
     """One line per kernel of an ``-Xptxas -v`` log: its name with its
     template arguments (sdv.cu: <two-limb words, .u8 lanes, .u8
-    activations>, the ``_sliced`` kernels <two-limb words>; bseg.cu:
+    activations>, the ``_sliced`` kernels <two-limb words>;
+    sdv_wgmma.cu: <.u8 lanes, .u8 activations, n unrolled (0: any)>; bseg.cu:
     <n-tiles of 8 output channels>; bseg1d.cu: <word form, taps a
     pass>; quant_matmul.cu: <w, x rows, float32 x>),
     registers, spills and static shared memory (the tiles are dynamic
@@ -3361,6 +3388,167 @@ def family_card_vs_cpu(dev):
                               for k, (n, m) in differ.items()))
 
 
+#: recurrentgemma-2b's projection shapes (K, M) as its SDV tree packs
+#: them (``serve_params(compute="sdv", min_size=1024)``)
+RGEMMA_SHAPES = ((2560, 256), (2560, 2560), (2560, 7680), (7680, 2560))
+#: and mamba2-130m's
+MAMBA2_SHAPES = ((768, 24), (768, 256), (768, 1536), (1536, 768))
+
+
+def b2_case(plan, k, m, rows, gen, flush, plain=False):
+    """B2 at ``rows`` on both of its kernels, random W4 weights [M, K] in
+    ``plan``'s words: ``sdv_matmul.sdv_matmul`` on the activations in the
+    container the serving path casts them to (``ops.sdv_operand_dtype``),
+    which takes the wgmma kernel exactly where ``takes_wgmma`` says
+    (``wgmma_launches`` moves by one there, by none elsewhere); the
+    mma.sync kernel (``sdv_matmul.launch`` on int32 activations) and the
+    wgmma kernel (``launch_wgmma`` on their byte container) each equal to
+    the exact product, and with ``plain`` all three equal to the plain
+    version on the card.  Returns CUDA-event ms of each kernel (the wgmma
+    one through ``sdv_matmul`` where the dispatch takes it), of
+    ``_int_mm`` and (with ``plain``) the plain version's host ms; the
+    bytes of ``b2_roofline_pct``'s bound (A8 activations, W4 weights,
+    bf16 outputs, each once) and the operations; which kernel the
+    dispatch takes."""
+    import torch
+    from repro_torch.kernels import ops, ref, sdv_matmul
+    w = torch.randint(-8, 8, (m, k), generator=gen, device=gen.device)
+    words = ops.prepare_sdv_weights(w, plan)
+    g = words.shape[-1]
+    qmax = (1 << plan.w_b - 1) - 1
+    x = torch.randint(-qmax, qmax + 1, (rows, k), generator=gen,
+                      device=gen.device, dtype=torch.int32)
+    x8 = sdv_matmul.wgmma_operand(x, plan)
+    xs = x.to(ops.sdv_operand_dtype(rows, words, plan))
+    wgmma = sdv_matmul.takes_wgmma(rows, g, plan)
+
+    def old():
+        return sdv_matmul.launch("sdv_gemm", x, words, plan, rows, k, g)
+
+    def new():
+        if wgmma:
+            return sdv_matmul.sdv_matmul(xs, words, plan=plan)
+        return sdv_matmul.launch_wgmma(x8, words, plan, rows, k, g)
+    where = f"K={k} M={m} rows={rows}"
+    wg0 = sdv_matmul.sdv_matmul.wgmma_launches
+    got = sdv_matmul.sdv_matmul(xs, words, plan=plan)
+    check(sdv_matmul.sdv_matmul.wgmma_launches - wg0 == int(wgmma),
+          f"B2 at {where}: the dispatch did not take the "
+          f"{'wgmma' if wgmma else 'mma.sync'} kernel")
+    exact = ref.sdv_matmul_ref(x, w)
+    outs = {"mma.sync": old(), "wgmma": new()}
+    for name, out in outs.items():
+        check(torch.equal(out.reshape(rows, -1)[:, :m], exact),
+              f"B2 ({name}) != exact product at {where}")
+    plain_ms = None
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = sdv_matmul.sdv_matmul_plain(x, words, plan)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for name, out in (("sdv_matmul", got), *outs.items()):
+            check(torch.equal(out, want), f"B2 ({name}) != plain at {where}")
+    return dict(old=event_ms(old, reps=5, flush=flush),
+                new=event_ms(new, reps=5, flush=flush),
+                library=int_mm_ms(x, w, flush), plain=plain_ms,
+                bytes=x.numel() + m * k // 2 + rows * m * 2,
+                ops=2 * rows * m * k, wgmma=wgmma)
+
+
+def b2_many_rows(dev, flush, card):
+    """B2's two kernels on a llava-next-mistral-7b layer (7 projections,
+    INT32 W4A8) at ``B2_SWEEP_ROWS`` rows, each equal to the exact
+    product, timed beside the bound (``b2_case``'s bytes, or int8
+    operations), ``_int_mm`` and the plain version of the layer's k/v
+    projection (4096 -> 1024, on the card): the sweep that sets
+    ``sdv_matmul.WGMMA_MIN_ROWS``, the smallest swept row count from
+    which the wgmma kernel is the faster on every shape (printed beside
+    the constant); then ``b2_shapes``: recurrentgemma-2b's and
+    mamba2-130m's four projection shapes at ``B2_MANY_ROWS`` rows and the
+    UltraNet head's im2col GEMM, both kernels in this one run.  Returns
+    the sweep by rows."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.datapath import DATAPATHS, plan_bseg
+    from repro_torch.kernels import ops, sdv_matmul
+    from repro_torch.models.quantized import default_sdv_plan
+    from repro_torch.models.ultranet import ultranet_layer_shapes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    plan = default_sdv_plan(4, 8)
+    cfg = get_arch(FAMILY_ARCHS[1])
+    shapes = family_layer_shapes(cfg)
+    sweep = {}
+    for rows in B2_SWEEP_ROWS:
+        acc = dict(old=0.0, new=0.0, library=0.0, bytes=0, ops=0)
+        plain_ms = None
+        for (k, m), mult in shapes.items():
+            r = b2_case(plan, k, m, rows, gen, flush,
+                        plain=(k, m) == (cfg.d_model,
+                                         cfg.n_kv * cfg.hd))
+            plain_ms = r["plain"] if r["plain"] is not None else plain_ms
+            acc[k, m] = (r["old"], r["new"])
+            print(f"[b2]   K={k} M={m} at {rows} rows: mma.sync "
+                  f"{r['old']:.4f} ms, wgmma {r['new']:.4f} ms")
+            for key in ("old", "new", "library", "bytes", "ops"):
+                acc[key] += mult * r[key]
+        acc["bound"], acc["bound_by"] = bound_ms(acc["bytes"], acc["ops"])
+        acc["plain_kv"] = plain_ms
+        acc["takes_wgmma"] = sdv_matmul.takes_wgmma(rows, cfg.d_model // 2,
+                                                    plan)
+        sweep[rows] = acc
+        print(f"[b2] llava layer (7 projections, int32 W4A8) at {rows} rows:"
+              f" mma.sync {acc['old']:.4f} ms, wgmma {acc['new']:.4f} ms "
+              f"(bound {acc['bound']:.4f} ms by {acc['bound_by']}: "
+              f"{acc['bound'] / acc['old']:.1%} / "
+              f"{acc['bound'] / acc['new']:.1%}), _int_mm "
+              f"{acc['library']:.4f} ms, plain (k/v projection alone) "
+              f"{plain_ms:.1f} ms; the dispatch takes "
+              f"{'wgmma' if acc['takes_wgmma'] else 'mma.sync'} ({card})")
+    faster = [r for r in B2_SWEEP_ROWS
+              if all(sweep[r][km][1] < sweep[r][km][0] for km in shapes)]
+    crossover = next((r for r in B2_SWEEP_ROWS
+                      if all(q in faster for q in B2_SWEEP_ROWS if q >= r)),
+                     None)
+    print(f"[b2] the wgmma kernel is the faster on every shape from "
+          f"{crossover} rows of this sweep; sdv_matmul.WGMMA_MIN_ROWS = "
+          f"{sdv_matmul.WGMMA_MIN_ROWS} ({card})")
+    head = ultranet_layer_shapes(ULTRA_SIZE, ULTRA_SIZE)[-1]
+    head_plan = ops._im2col_sdv_plan(plan_bseg(DATAPATHS["int32"], 4, 4))
+    for name, cplan, rows, kms in (
+            ("recurrentgemma-2b", plan, B2_MANY_ROWS, RGEMMA_SHAPES),
+            ("mamba2-130m", plan, B2_MANY_ROWS, MAMBA2_SHAPES),
+            ("UltraNet head (im2col plan)", head_plan,
+             ULTRA_BATCH * head["h"] * head["w"],
+             ((head["cin"], head["cout"]),))):
+        b2_shapes(name, cplan, rows, kms, gen, flush, card)
+    return sweep
+
+
+def b2_shapes(name, plan, rows, kms, gen, flush, card):
+    """``b2_case`` at each (K, M) of ``kms``: both kernels timed in this
+    one run beside ``_int_mm``, the kernel the dispatch gives activations
+    in their one-byte container (int32 ones always take mma.sync) and
+    the faster one, and the sum over the shapes beside its bound."""
+    tot = dict(old=0.0, new=0.0, library=0.0, bytes=0, ops=0)
+    for k, m in kms:
+        r = b2_case(plan, k, m, rows, gen, flush)
+        for key in tot:
+            tot[key] += r[key]
+        print(f"[b2] {name} K={k} M={m} at {rows} rows: mma.sync "
+              f"{r['old']:.4f} ms, wgmma {r['new']:.4f} ms, _int_mm "
+              f"{r['library']:.4f} ms; one-byte activations take "
+              f"{'wgmma' if r['wgmma'] else 'mma.sync'}, the faster is "
+              f"{'wgmma' if r['new'] < r['old'] else 'mma.sync'} ({card})")
+    b_ms, b_by = bound_ms(tot["bytes"], tot["ops"])
+    print(f"[b2] {name}, one of each projection shape at {rows} rows: "
+          f"mma.sync {tot['old']:.4f} ms, wgmma {tot['new']:.4f} ms "
+          f"(bound {b_ms:.4f} ms by {b_by}: {b_ms / tot['old']:.1%} / "
+          f"{b_ms / tot['new']:.1%}), _int_mm {tot['library']:.4f} ms "
+          f"({card})")
+
+
 def family_serve(cfg, dev, card, compute):
     """Full-width ``cfg`` from a seeded torch init packed by
     ``serve_params(compute=compute, min_size=1024)`` (the bf16 tree freed
@@ -3541,13 +3729,54 @@ def family_serve(cfg, dev, card, compute):
           f"(first call at these shapes), launches {c_fwd}, peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
           f"({card})")
+    chunk = prefill_chunk_launches(cfg, qparams, dev, card) \
+        if vlm and compute == "sdv" else None
     del qparams, last, frames
     gc.collect()
     torch.cuda.empty_cache()
     return {"pack": c_pack, "prefill": c_prefill, "decode": c_decode,
             "loop": c_loop, "forward": c_fwd, "step_ms": step_ms,
             "peak_gib": peak, "split": split, "head_ms": head_ms,
-            "forward_ms": t_fwd * 1e3}
+            "forward_ms": t_fwd * 1e3, "chunk": chunk}
+
+
+def prefill_chunk_launches(cfg, qparams, dev, card):
+    """One ``prefill_step`` of a prefill chunk as the benchmark's llava
+    prefill cell runs it (``CHUNK_BATCH`` prompts x ``CHUNK_COLS``
+    columns: B2 at 4096 rows) on a fresh cache: 7 B2 a layer, each on the
+    wgmma kernel (``sdv_matmul.wgmma_launches``), nothing else and no
+    plain call.  Returns the B2 and wgmma counts and the wall."""
+    import torch
+    from repro_torch.kernels import sdv_matmul
+    from repro_torch.models import init_cache, prefill_step
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (CHUNK_BATCH, CHUNK_COLS),
+                           generator=gen, device=dev, dtype=torch.int32)
+    n_valid = torch.full((CHUNK_BATCH,), CHUNK_COLS, dtype=torch.int32,
+                         device=dev)
+
+    def chunk():
+        cache = init_cache(cfg, CHUNK_BATCH, CHUNK_COLS, device=dev)
+        return prefill_step(cfg, qparams, cache, tokens, n_valid)
+    chunk()                                                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    wg0 = sdv_matmul.sdv_matmul.wgmma_launches
+    t0 = time.perf_counter()
+    chunk()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    wgmma = sdv_matmul.sdv_matmul.wgmma_launches - wg0
+    want = 7 * cfg.n_layers
+    check(c == expect(B2=want) and wgmma == want,
+          f"{cfg.name} prefill chunk launches {c}, wgmma {wgmma}, want "
+          f"B2 = wgmma = {want}")
+    print(f"[families] {cfg.name} SDV prefill_step of a {CHUNK_BATCH} x "
+          f"{CHUNK_COLS} chunk ({CHUNK_BATCH * CHUNK_COLS} B2 rows): "
+          f"{wall * 1e3:.1f} ms, launches {c}, of which on the wgmma kernel "
+          f"{wgmma} ({card})")
+    return {"B2": c["B2"], "wgmma": wgmma, "ms": wall * 1e3}
 
 
 def phase_families(dev, card, flush):
@@ -3563,6 +3792,7 @@ def phase_families(dev, card, flush):
     torch.cuda.reset_peak_memory_stats(dev)
     t_phase = time.perf_counter()
     kern = family_kernels(dev, flush, card)
+    kern["b2_rows"] = b2_many_rows(dev, flush, card)
     family_card_vs_cpu(dev)
     runs = {(arch, compute): family_serve(get_arch(arch), dev, card, compute)
             for arch in FAMILY_ARCHS for compute in ("sdv", "memory")}
@@ -5557,6 +5787,8 @@ def main() -> int:
                           moe["runs"]["sdv"]["prefill"]["B2"],
                       f"{FAMILY_ARCHS[1]} SDV prefill":
                           fam["runs"][FAMILY_ARCHS[1], "sdv"]["prefill"]["B2"],
+                      f"{FAMILY_ARCHS[1]} SDV prefill chunk (wgmma)":
+                          fam["runs"][FAMILY_ARCHS[1], "sdv"]["chunk"]["B2"],
                       **{f"{a} SDV forward": fam["runs"][a, "sdv"]["forward"]
                          ["B2"] for a in FAMILY_ARCHS},
                       **{f"{a} SDV forward": ssm["forward"][a, "sdv"]

@@ -5,11 +5,17 @@ their time, on one CUDA card.
 Builds the shipped source and copies of it with one phase taken out
 (text patches of the source, for timing only: their outputs are wrong),
 and times each at tinyllama-1.1b's projection shapes on the INT32 W4A8
-plan (B1 at 8 rows, B2 at 128), beside a plain streaming read of the
-same word bytes and an empty launch.  Timing as in
+plan (B1 at 8 rows, B2 at 128) and at a llava-next-mistral-7b prefill
+chunk's largest call (B2 at 4096 rows, K 4096 -> M 14336), beside a
+plain streaming read of the same word bytes and an empty launch.  Timing as in
 ``breakdown_common``, in microseconds.
 
   PYTHONPATH=src python scripts/sdv_breakdown.py
+
+Then the same for B2's wgmma kernel (``csrc/sdv_wgmma.cu``) at a llava
+prefill chunk's 4096 rows, every projection shape of a layer, with its
+own variants (``WGMMA_PATCHES``): without the decode, without the
+products, without the stores, and the TMA ring alone.
 
 Variants:
   shipped      the source as it is
@@ -27,6 +33,10 @@ import sys
 from breakdown_common import OUT, Timer, build_variants, print_card
 
 SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
+#: (kernel, rows, shapes): the tinyllama shapes at decode and prefill
+#: rows, and llava's wi / wg at the 4096 rows of a prefill chunk
+CASES = (("B1", 8, SHAPES), ("B2", 128, SHAPES),
+         ("B2", 4096, ((4096, 14336),)))
 
 _MEMSET = "  if (p.accumulate) {   // split-K blocks add into a zeroed output"
 _DECODE = "    decode_stage(p, sm, t % kStages, ia);\n"
@@ -49,6 +59,23 @@ PATCHES = {
     "empty": [(_MEMSET, "  if (false) {"),
               (_BODY, _BODY + "  if (p.rows > 0) return;\n")],
 }
+_W_DECODE0 = "    dec.run(p, sm.w(it % p.stages), sm.a(c, 0), c, tl);\n"
+_W_DECODE1 = "        dec.run(p, sm.w(s1), sm.a(c, (t + 1) & 1), c, tl);\n"
+_W_MMA = ("      Wgmma<kAU8, kBU8>::run(d, da, db);\n"
+          "      Wgmma<kAU8, kBU8>::run(d, da + 2, db + 2);")
+_W_STORE = "    store(p, d, r0, g0, c, tl);\n"
+_W_NO_STORE = "    if (d[0] == 0x7fffffff) store(p, d, r0, g0, c, tl);\n"
+WGMMA_PATCHES = {
+    "shipped": [],
+    "no-decode": [(_W_DECODE0, ""), (_W_DECODE1, "")],
+    "no-mma": [(_W_MMA, "")],
+    "no-store": [(_W_STORE, _W_NO_STORE)],
+    "loads-only": [(_W_DECODE0, ""), (_W_DECODE1, ""), (_W_MMA, ""),
+                   (_W_STORE, _W_NO_STORE)],
+}
+#: llava-next-mistral-7b's projection shapes (K, M): q/o, k/v, gate/up,
+#: down
+LLAVA_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 STREAM = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,8 +123,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sink = torch.zeros(4, dtype=torch.int32, device=dev)
     print("kernel K x M rows | " + " | ".join(PATCHES) + " | stream")
-    for kname, rows in (("B1", 8), ("B2", 128)):
-        for k, m in SHAPES:
+    for kname, rows, shapes in CASES:
+        for k, m in shapes:
             w = torch.randint(-8, 8, (m, k), generator=gen, device=dev)
             words = ops.prepare_sdv_weights(w, plan)
             g = words.shape[-1]
@@ -123,6 +150,32 @@ def main() -> int:
                 stream)))
             print(f"{kname} {k} x {m} {rows} (grid {geo.grid}) | "
                   + " | ".join(f"{t:.1f}" for t in times), flush=True)
+    wgmma, _ = build_variants("sdv_wgmma", WGMMA_PATCHES)
+    rows = 4096
+    print("wgmma K x M rows | " + " | ".join(WGMMA_PATCHES) + " | stream")
+    for k, m in LLAVA_SHAPES:
+        w = torch.randint(-8, 8, (m, k), generator=gen, device=dev)
+        words = ops.prepare_sdv_weights(w, plan)
+        g = words.shape[-1]
+        x = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                          dtype=torch.int32)
+        x8 = sdv_matmul.wgmma_operand(x, plan)
+        geo = sdv_matmul.wgmma_geometry(rows, k, g, plan.n, sms=sms)
+
+        def call(lib):
+            return sdv_matmul.launch_wgmma(x8, words, plan, rows, k, g,
+                                           lib=lib)
+        out = call(wgmma["shipped"])
+        exact = (x.double() @ w.double().T).long()
+        if not torch.equal(out.reshape(rows, -1)[:, :m].long(), exact):
+            raise SystemExit(f"sdv_gemm_wgmma K={k} M={m}: not exact")
+        times = [timer.us(lambda lib=lib: call(lib))
+                 for lib in wgmma.values()]
+        times.append(timer.us(lambda: stream_lib.stream(
+            words.data_ptr(), words.numel() * 4, sink.data_ptr(), stream)))
+        print(f"wgmma {k} x {m} {rows} ({geo.grid} blocks, "
+              f"{geo.row_tiles * geo.col_tiles} tiles, {geo.stages} stages) "
+              "| " + " | ".join(f"{t:.1f}" for t in times), flush=True)
     return 0
 
 

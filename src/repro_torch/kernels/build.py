@@ -88,6 +88,11 @@ _SIGNATURES = {
         "sdv_smem_bytes": ([_INT, _INT], _INT),
         "sdv_error_string": ([_INT], ctypes.c_char_p),
     },
+    "sdv_wgmma": {
+        "sdv_gemm_wgmma": ([_PTR, _PTR, _PTR] + [_INT] * 12 + [_PTR], _INT),
+        "sdv_wgmma_smem_bytes": ([_INT, _INT], _INT),
+        "sdv_wgmma_error_string": ([_INT], ctypes.c_char_p),
+    },
     "bseg": {
         "bseg_conv2d": ([_PTR, _PTR, _PTR] + [_INT] * 20 + [_PTR], _INT),
         "bseg_error_string": ([_INT], ctypes.c_char_p),

@@ -1,5 +1,9 @@
 // Packed SDV GEMV (B1) and GEMM (B2) for Hopper (sm_90a), on the int8
-// tensor cores.
+// tensor cores.  B2 at many rows (sdv_matmul.WGMMA_MIN_ROWS and up) of
+// single-limb words and operands within 8 bits runs csrc/sdv_wgmma.cu
+// instead (TMA, wgmma, the words decoded once for 256 rows); this file
+// keeps the GEMV, B2 at fewer rows, the two-limb DSP48E2/DSP58 words and
+// the byte-sliced operands.
 //
 // Replaces the two TPU kernels of the JAX package's decode/prefill path:
 //   B1  repro/kernels/sdv_matvec.py::sdv_matvec  (decode, <= 8 rows)

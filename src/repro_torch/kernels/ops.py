@@ -12,9 +12,12 @@ Dispatch table for ``packed_matmul`` (mode -> kernel -> constraints):
   mode           kernel                      weight format      constraints
   -------------  --------------------------  -----------------  ------------------------------
   sdv_matmul     kernels/sdv_matmul (B2,     SDV storage words  integer x; ``plan`` given;
-                 csrc/sdv.cu GEMM)           [K, G] int32, or   ``plan.spec.exact_wrap``;
-                                             [2, K, G] limb     rows > GEMV_MAX_ROWS in auto
-                                             planes
+                 csrc/sdv.cu GEMM; at        [K, G] int32, or   ``plan.spec.exact_wrap``;
+                 WGMMA_MIN_ROWS and up on    [2, K, G] limb     rows > GEMV_MAX_ROWS in auto
+                 single-limb words within    planes
+                 8 bits and one-byte x
+                 csrc/sdv_wgmma.cu,
+                 ``sdv_matmul.takes_wgmma``)
   sdv_matvec     kernels/sdv_matvec (B1,     same               same word gates as sdv_matmul;
                  csrc/sdv.cu GEMV)                              signed-element storage only;
                                                                 rows <= GEMV_MAX_ROWS in auto
@@ -255,6 +258,16 @@ def select_packed_route(rows: int, *, plan=None, use_kernel: bool = True,
               "blocked batched GEMM")
 
 
+def sdv_operand_dtype(rows: int, w: torch.Tensor, plan) -> torch.dtype:
+    """The integer container in which ``packed_matmul(plan=plan)`` hands
+    ``rows`` rows of activations against the words ``w`` to their kernel
+    as they are, for a quantizer to cast to once: one byte where B2 runs
+    on its wgmma kernel (``sdv_matmul.takes_wgmma``), else int32."""
+    if sdvmm_kernel.takes_wgmma(rows, w.shape[-1], plan):
+        return sdvmm_kernel.byte_dtype(plan)
+    return torch.int32
+
+
 def packed_matmul(x: torch.Tensor, w: torch.Tensor, *, plan=None,
                   m: Optional[int] = None,
                   scale: Optional[torch.Tensor] = None,
@@ -305,8 +318,9 @@ def packed_matmul(x: torch.Tensor, w: torch.Tensor, *, plan=None,
     if route == "sdv_matvec":
         y = sdv_matvec(x2, w, plan=plan, m=m)
         return y.reshape(batch_shape + (m,))
-    lanes = sdvmm_kernel.sdv_matmul(x2.to(torch.int32).contiguous(), w,
-                                    plan=plan)               # [R, G, n]
+    if x2.dtype not in sdvmm_kernel.operand_dtypes(plan):
+        x2 = x2.to(torch.int32)
+    lanes = sdvmm_kernel.sdv_matmul(x2.contiguous(), w, plan=plan)  # [R, G, n]
     y = lanes.reshape(x2.shape[0], -1)[:, :m]
     return y.reshape(batch_shape + (m,))
 

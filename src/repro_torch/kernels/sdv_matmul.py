@@ -6,13 +6,27 @@ integer activations ``[R, K]`` against SDV storage words ``[K, G]``
 (``[2, K, G]`` limb planes for the wide DSP48E2/DSP58 words), returning
 ``[R, G, n]`` int32.
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-``csrc/sdv.cu::sdv_gemm_kernel``, which decodes each word once into its
-``n`` lanes as int8 and multiplies them on the int8 tensor cores
-(``decode_lanes_plain`` mirrors that decode and its tile layout).
-Operands wider than 8 bits go through in byte slices, one slice pair per
-block, shifted together mod 2^32 (``slice_counts``, ``slice_pairs``).  On a
-CPU tensor it runs ``sdv_matmul_plain``, the paper's packed arithmetic
+On a CUDA tensor it launches one of two hand-written Hopper kernels,
+chosen from the row count, the plan and the word columns
+(``takes_wgmma``) and the activations' container:
+
+- ``csrc/sdv_wgmma.cu::sdv_gemm_kernel_wgmma`` for many rows
+  (``WGMMA_MIN_ROWS`` and up) of single-limb words and operands of at
+  most 8 bits, brought in their one-byte container (the quantizer of the
+  model's linears casts to it, ``ops.sdv_operand_dtype``): persistent
+  blocks of 2 x 64 lane slots x 256 rows fed by TMA through a ring of
+  mbarrier stages, the words decoded once a block for all 256 rows and
+  multiplied by ``wgmma`` on int8 (uint8) activations (``wgmma_operand``;
+  ``wgmma_slot_channels`` mirrors its tile layout);
+- ``csrc/sdv.cu::sdv_gemm_kernel`` for the rest (fewer rows, the
+  two-limb DSP48E2/DSP58 words, operands wider than 8 bits, int32
+  activations): it decodes each word once into its ``n`` lanes as int8
+  and multiplies them with ``mma.sync`` (``decode_lanes_plain`` mirrors
+  that decode and its tile layout), splitting K to fill the card.  Operands wider than 8 bits go
+  through in byte slices, one slice pair per block, shifted together
+  mod 2^32 (``slice_counts``, ``slice_pairs``).
+
+On a CPU tensor it runs ``sdv_matmul_plain``, the paper's packed arithmetic
 step by step in int64 tensor ops: the in-word pre-adder ``D - A``, one
 wide multiply per (row, group, k) carrying ``n`` MACs, mod-4 spill-over
 tracking at every lane boundary (with a virtual observer lane at
@@ -40,6 +54,21 @@ TILE_M, MAX_GROUPS, TILE_K = 128, 64, 64
 GEMM_ROWS = 128
 GEMV_BLOCKS_PER_SM, GEMM_BLOCKS_PER_SM = 2, 1
 MAX_SLICES = 4
+#: the wgmma kernel (mirrors csrc/sdv_wgmma.cu): consumer warpgroups a
+#: block, lane slots (M) a warpgroup, activation rows (N) a block, k a
+#: stage, the deepest ring of loads, the decoded A tiles in flight, the
+#: block's shared-memory limit
+WGMMA_CONSUMERS, WGMMA_SLOTS, WGMMA_ROWS, WGMMA_TILE_K = 2, 64, 256, 64
+WGMMA_MAX_STAGES, WGMMA_A_BUFS = 6, 2
+SMEM_LIMIT = 232448
+#: rows from which B2 runs on the wgmma kernel: the smallest row count of
+#: chip_smoke's sweep on a llava layer from which it is the faster on
+#: every one of the layer's projection shapes (below it a narrow
+#: projection's few 256-row tiles leave the card idle where the mma.sync
+#: kernel splits K).  Row count and plan alone decide: at the other
+#: many-row shapes (recurrentgemma-2b, mamba2-130m, the UltraNet head) it
+#: is the faster too, but for mamba2's 768 -> 24 by ~1 us (PERF.md)
+WGMMA_MIN_ROWS = 512
 _SIGNED_A, _SIGNED_B, _TWO_LIMB = 1, 2, 4
 _SLICES_A, _SLICES_B = 3, 5      # flag bits of (slices - 1)
 
@@ -59,8 +88,10 @@ def check_operands(x: torch.Tensor, w_words: torch.Tensor, plan, *,
     if plan.n > MAX_LANES or plan.n * plan.lane + 2 > 64:
         raise ValueError(f"plan n={plan.n}, L={plan.lane} exceeds the "
                          f"kernels' limit of {MAX_LANES} lanes in 64 bits")
-    if x.dtype != torch.int32 or x.ndim != 2:
-        raise ValueError(f"activations must be 2-D int32, got "
+    dtypes = operand_dtypes(plan)
+    if x.dtype not in dtypes or x.ndim != 2:
+        raise ValueError(f"activations must be 2-D "
+                         f"{' or '.join(map(str, dtypes))}, got "
                          f"{tuple(x.shape)} {x.dtype}")
     want_ndim = 3 if ws.limbs == 2 else 2
     if w_words.dtype != torch.int32 or w_words.ndim != want_ndim:
@@ -265,12 +296,130 @@ def decode_lanes_plain(w_words: torch.Tensor, plan,
                        plan.signed_a)
 
 
+def wgmma_groups(n: int) -> int:
+    """Word columns one warpgroup of the wgmma kernel decodes: its ``n``
+    lanes fill at most ``WGMMA_SLOTS`` slots, in multiples of 4 columns
+    (the word tile's 16-byte TMA rows)."""
+    return WGMMA_SLOTS // n // 4 * 4
+
+
+def wgmma_slot_channels(g: int, n: int) -> torch.Tensor:
+    """Output channel of each A-tile slot of the wgmma kernel (-1 for
+    padding), warpgroup by warpgroup: warpgroup ``c`` of column tile
+    ``t`` decodes groups ``(t * WGMMA_CONSUMERS + c) * bgw`` onwards, and
+    its slot ``s`` holds lane ``s % n`` of its group ``s // n``, so the
+    slots below ``n * bgw`` are consecutive output channels."""
+    bgw = wgmma_groups(n)
+    wgs = -(-g // (WGMMA_CONSUMERS * bgw)) * WGMMA_CONSUMERS
+    slot = torch.arange(WGMMA_SLOTS)
+    chan = torch.arange(wgs)[:, None] * bgw * n + slot
+    chan = torch.where((slot < n * bgw) & (chan < g * n), chan, -1)
+    return chan.reshape(-1)
+
+
 def activation_slice_plain(x: torch.Tensor, plan,
                            b_slice: int) -> torch.Tensor:
     """The kernels' B tile of activation byte ``b_slice``, plain: int8
     for the top slice of signed activations, else uint8."""
     top = b_slice == slice_counts(plan)[1] - 1
     return _slice_byte(x.to(torch.int64), b_slice, top, plan.signed_b)
+
+
+def byte_dtype(plan) -> torch.dtype:
+    """The one-byte container of activations within ``plan.w_b <= 8``
+    bits: int8 for signed activations, uint8 for unsigned."""
+    return torch.int8 if plan.signed_b else torch.uint8
+
+
+def takes_wgmma(rows: int, g: int, plan) -> bool:
+    """Whether B2 runs on the wgmma kernel: ``WGMMA_MIN_ROWS`` rows or
+    more, single-limb exact-wrap words whose ``g`` columns are 16-byte
+    TMA rows (``g % 4 == 0``), and operands of at most 8 bits (one byte
+    slice each).  Everything else takes the mma.sync kernel."""
+    return (rows >= WGMMA_MIN_ROWS and g % 4 == 0 and plan.spec.exact_wrap
+            and bseg_common.sdv_word_spec(plan).limbs == 1
+            and slice_counts(plan) == (1, 1))
+
+
+def operand_dtypes(plan) -> tuple:
+    """The activation containers ``sdv_matmul`` takes: int32, and at
+    ``plan.w_b <= 8`` (one byte slice) ``byte_dtype(plan)``, the one its
+    wgmma kernel reads as it is."""
+    if slice_counts(plan)[1] > 1:
+        return (torch.int32,)
+    return (torch.int32, byte_dtype(plan))
+
+
+class WgmmaGeometry(NamedTuple):
+    bgw: int          # word columns a warpgroup
+    stages: int       # the ring's depth
+    row_tiles: int    # blocks of WGMMA_ROWS rows
+    col_tiles: int    # blocks of WGMMA_CONSUMERS * bgw word columns
+    k_stages: int     # stages of WGMMA_TILE_K along K
+    grid: int         # persistent blocks: one an SM, at most one a tile
+
+
+def wgmma_smem_bytes(bgw: int, stages: int) -> int:
+    """Dynamic shared memory of one wgmma block (mirrors
+    ``csrc/sdv_wgmma.cu::smem_bytes``): the 1024-byte alignment, per
+    stage the activation tile, the word tile and two barriers, and
+    ``WGMMA_A_BUFS`` A tiles a warpgroup."""
+    x_stage = WGMMA_ROWS * WGMMA_TILE_K
+    w_stage = WGMMA_TILE_K * WGMMA_CONSUMERS * bgw * 4
+    a_buf = WGMMA_CONSUMERS * WGMMA_SLOTS * WGMMA_TILE_K
+    return 1024 + stages * (x_stage + w_stage + 16) + WGMMA_A_BUFS * a_buf
+
+
+def wgmma_geometry(rows: int, k: int, g: int, n: int, *,
+                   sms: int) -> WgmmaGeometry:
+    """The wgmma kernel's launch: tiles of 2 x ``wgmma_groups(n)`` word
+    columns x ``WGMMA_ROWS`` rows, row tiles fastest (tile ``i`` is row
+    tile ``i % row_tiles`` of column tile ``i // row_tiles``), walked by
+    ``min(tiles, sms)`` persistent blocks; the ring as deep as shared
+    memory allows, at most ``WGMMA_MAX_STAGES``."""
+    bgw = wgmma_groups(n)
+    stages = WGMMA_MAX_STAGES
+    while wgmma_smem_bytes(bgw, stages) > SMEM_LIMIT:
+        stages -= 1
+    row_tiles = -(-rows // WGMMA_ROWS)
+    col_tiles = -(-g // (WGMMA_CONSUMERS * bgw))
+    return WgmmaGeometry(bgw, stages, row_tiles, col_tiles,
+                         -(-k // WGMMA_TILE_K),
+                         min(row_tiles * col_tiles, sms))
+
+
+def wgmma_operand(x: torch.Tensor, plan) -> torch.Tensor:
+    """Activations [R, K] as the wgmma kernel's TMA reads them: the
+    plan's byte container (``byte_dtype``), K padded with zeros to a
+    multiple of 16 (16-byte rows), on a 16-byte boundary."""
+    k = x.shape[1]
+    kp = -(-k // 16) * 16
+    x8 = x.to(byte_dtype(plan))
+    if kp != k:
+        x8 = torch.nn.functional.pad(x8, (0, kp - k))
+    return x8.clone() if x8.data_ptr() % 16 else x8
+
+
+def launch_wgmma(x8: torch.Tensor, w_words: torch.Tensor, plan, rows: int,
+                 k: int, g: int, *, lib=None) -> torch.Tensor:
+    """Launch ``csrc/sdv_wgmma.cu``'s kernel on CUDA tensors (``x8`` from
+    ``wgmma_operand``); returns [rows, G, n] int32.  ``lib`` defaults to
+    the built source (a breakdown script passes patched copies)."""
+    dev = x8.device.index if x8.device.index is not None \
+        else torch.cuda.current_device()
+    geo = wgmma_geometry(rows, k, g, plan.n, sms=sm_count(dev))
+    out = torch.empty((rows, g, plan.n), dtype=torch.int32, device=x8.device)
+    if lib is None:
+        lib = build.library("sdv_wgmma")
+    flags = (_SIGNED_A if plan.signed_a else 0) \
+        | (_SIGNED_B if plan.signed_b else 0)
+    err = lib.sdv_gemm_wgmma(
+        x8.data_ptr(), w_words.data_ptr(), out.data_ptr(), rows, k,
+        x8.shape[1], g, plan.n, plan.lane, plan.w_a, plan.packed_width,
+        flags, geo.bgw, geo.stages, geo.grid,
+        torch.cuda.current_stream(x8.device).cuda_stream)
+    build.check(lib, err, "sdv_gemm_wgmma")
+    return out
 
 
 def launch(name: str, x: torch.Tensor, w_words: torch.Tensor, plan,
@@ -299,8 +448,13 @@ def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
     """Packed GEMM (kernel B2).
 
     Args:
-      x_q: [R, K] int32 activations (row-major), values within w_b bits
-        (signed or unsigned per ``plan.signed_b``).
+      x_q: [R, K] activations (row-major), values within w_b bits
+        (signed or unsigned per ``plan.signed_b``): int32, or at
+        ``plan.w_b <= 8`` the byte container ``byte_dtype(plan)``, which
+        takes the wgmma kernel where ``takes_wgmma`` (else it is widened
+        to int32).  int32 always takes the mma.sync kernel: at the sizes
+        its callers bring (the UltraNet head's im2col GEMM) the cast to
+        one byte costs more than the kernel gains (PERF.md).
       w_words: [K, G] int32 storage words (``ops.prepare_sdv_weights``),
         or [2, K, G] limb planes for the wide words.
       plan: SDV lane plan on an exact-wrap datapath, n <= 15, any
@@ -312,12 +466,18 @@ def sdv_matmul(x_q: torch.Tensor, w_words: torch.Tensor, *,
     r, k, g = check_operands(x_q, w_words, plan, k_axis=1)
     if plain_route(x_q):
         return sdv_matmul_plain(x_q, w_words, plan)
-    out = launch("sdv_gemm", x_q, w_words, plan, r, k, g)
+    if x_q.dtype != torch.int32 and takes_wgmma(r, g, plan):
+        out = launch_wgmma(wgmma_operand(x_q, plan), w_words, plan, r, k, g)
+        sdv_matmul.wgmma_launches += 1
+    else:
+        out = launch("sdv_gemm", x_q.to(torch.int32), w_words, plan, r, k, g)
     sdv_matmul.launches += 1
     return out
 
 
+#: B2 launches (either kernel), and those on the wgmma kernel
 sdv_matmul.launches = 0
+sdv_matmul.wgmma_launches = 0
 
 
 def sdv_num_multiplies(rows: int, m: int, k: int, plan) -> int:

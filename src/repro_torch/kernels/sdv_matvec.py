@@ -23,8 +23,8 @@ def sdv_matvec(x_t: torch.Tensor, w_words: torch.Tensor, *,
     """Packed GEMV (kernel B1).
 
     Args:
-      x_t: [K, B] int32 activations (K-major), B <= 8, values within
-        w_b bits.
+      x_t: [K, B] activations (K-major), B <= 8, values within w_b
+        bits: int32, or the one-byte container at w_b <= 8.
       w_words: [K, G] int32 storage words, or [2, K, G] limb planes.
       plan: SDV lane plan on an exact-wrap datapath, n <= 15, any
         operand widths.
@@ -38,7 +38,8 @@ def sdv_matvec(x_t: torch.Tensor, w_words: torch.Tensor, *,
                          f"got {b}")
     if plain_route(x_t):
         return sdv_matmul_plain(x_t.T, w_words, plan)
-    out = launch("sdv_gemv", x_t, w_words, plan, b, k, g)
+    out = launch("sdv_gemv", x_t.to(torch.int32).contiguous(), w_words,
+                 plan, b, k, g)
     sdv_matvec.launches += 1
     return out
 

@@ -171,7 +171,8 @@ def sdv_matmul_apply(qw: SDVLinear, x: torch.Tensor) -> torch.Tensor:
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
     xs = quantizer.symmetric_scale(amax, qw.plan.w_b)
-    xq = quantizer.symmetric_qvalues(xf, xs, qw.plan.w_b).to(torch.int32)
+    dtype = ops.sdv_operand_dtype(xf.shape[:-1].numel(), qw.words, qw.plan)
+    xq = quantizer.symmetric_qvalues(xf, xs, qw.plan.w_b).to(dtype)
     y = ops.packed_matmul(xq, qw.words, plan=qw.plan, m=qw.d_out)
     return (y.to(torch.float32) * xs * qw.scale).to(x.dtype)
 

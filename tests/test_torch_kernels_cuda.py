@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from repro_torch.core.datapath import DATAPATHS, plan_bseg, plan_sdv
-from repro_torch.kernels import (bseg_common, bseg_conv1d, bseg_conv2d, ops,
-                                 packbits, quant_matmul, ref, sdv_matmul,
+from repro_torch.kernels import (bseg_common, bseg_conv1d, bseg_conv2d, build,
+                                 ops, packbits, quant_matmul, ref, sdv_matmul,
                                  sdv_matvec)
 
 
@@ -158,6 +158,84 @@ def test_kernels_at_the_im2col_head_shape(cuda):
     x = rng.integers(0, 16, (5408, 64))
     words = ops.prepare_sdv_weights(torch.tensor(w), plan)
     _check_both_kernels(cuda, plan, w, x, words)
+
+
+#: B2's wgmma kernel (``sdv_matmul.takes_wgmma``): every signedness of
+#: lanes and activations, the UltraNet head's im2col plan (w_a = 4, w_b =
+#: 5, n = 3), n = 1 (64 word columns a warpgroup, a 4-stage ring) and the
+#: most lanes (n = 10 on INT32 2x2 unsigned)
+_WGMMA_PLANS = [("int32", 4, 8, True, True, None),
+                ("int32", 4, 8, True, False, None),
+                ("int32", 8, 8, False, True, None),
+                ("int32", 8, 8, False, False, None),
+                ("int32", 4, 5, True, True, None),
+                ("int32", 8, 8, True, True, 1),
+                ("int32", 2, 2, False, True, None)]
+
+
+@pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b,n", _WGMMA_PLANS)
+@pytest.mark.parametrize("rows", [sdv_matmul.WGMMA_MIN_ROWS, 4096, 5408,
+                                  8192, 4096 + 77])
+def test_wgmma_kernel_matches_plain_and_exact(cuda, spec, wa, wb, signed_a,
+                                              signed_b, n, rows):
+    """B2 at many rows on the wgmma kernel == its plain version (on the
+    card: thousands of rows) == the exact product, bit for bit.  K = 700
+    is no multiple of the 64-deep stage (nor of 16: the activations are
+    padded), G = 296 columns no multiple of a block's; 4096 + 77 rows end
+    in a partial row tile.  On the byte container both launch counters
+    move by one; int32 activations take the mma.sync kernel, which
+    agrees."""
+    m = 8 * 37 * (n or plan_sdv(DATAPATHS[spec], wa, wb, signed_a=signed_a,
+                                signed_b=signed_b,
+                                park_sign_bits=signed_a).n)
+    plan, w, x, words = _case(spec, wa, wb, signed_a, m, 700, rows,
+                              rows + wa, signed_b=signed_b, n=n)
+    assert sdv_matmul.takes_wgmma(rows, words.shape[-1], plan)
+    xd = torch.tensor(x, dtype=torch.int32, device=cuda)
+    x8 = xd.to(sdv_matmul.byte_dtype(plan))
+    wd = words.to(cuda)
+    b2, wg = sdv_matmul.sdv_matmul.launches, sdv_matmul.sdv_matmul.wgmma_launches
+    got = sdv_matmul.sdv_matmul(x8, wd, plan=plan)
+    torch.cuda.synchronize()
+    assert sdv_matmul.sdv_matmul.launches == b2 + 1
+    assert sdv_matmul.sdv_matmul.wgmma_launches == wg + 1
+    assert torch.equal(got, sdv_matmul.sdv_matmul_plain(xd, wd, plan))
+    exact = (xd.double() @ torch.tensor(w, device=cuda).double().T).long()
+    assert torch.equal(got.reshape(rows, -1)[:, :m].long(), exact)
+    assert torch.equal(sdv_matmul.sdv_matmul(xd, wd, plan=plan), got)
+    assert sdv_matmul.sdv_matmul.launches == b2 + 2
+    assert sdv_matmul.sdv_matmul.wgmma_launches == wg + 1
+
+
+def test_wgmma_kernel_through_the_serving_path(cuda, monkeypatch):
+    """``sdv_matmul_apply`` at a prefill chunk's 4096 rows on the serve
+    plan quantizes straight to int8 and runs the wgmma kernel once; its
+    output equals the same apply with B2 held below the crossover (the
+    mma.sync kernel on int32 activations) bit for bit.  The Python mirror
+    of the kernel's shared memory is the kernel's own."""
+    from repro_torch.models import quantized
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    qw = quantized.pack_linear_sdv(
+        torch.randn(512, 1024, generator=gen, device=cuda),
+        quantized.default_sdv_plan(4, 8))
+    x = torch.randn(8, 512, 512, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    wg = sdv_matmul.sdv_matmul.wgmma_launches
+    got = quantized.sdv_matmul_apply(qw, x)
+    torch.cuda.synchronize()
+    assert sdv_matmul.sdv_matmul.wgmma_launches == wg + 1
+    monkeypatch.setattr(sdv_matmul, "WGMMA_MIN_ROWS", 1 << 30)
+    want = quantized.sdv_matmul_apply(qw, x)
+    torch.cuda.synchronize()
+    assert sdv_matmul.sdv_matmul.wgmma_launches == wg + 1
+    assert torch.equal(got, want)
+    # the geometry's shared-memory mirror is the kernel's
+    lib = build.library("sdv_wgmma")
+    for n in (1, 2, 3, 10):
+        geo = sdv_matmul.wgmma_geometry(4096, 4096, 7168, n, sms=132)
+        assert lib.sdv_wgmma_smem_bytes(geo.bgw, geo.stages) \
+            == sdv_matmul.wgmma_smem_bytes(geo.bgw, geo.stages)
 
 
 def test_unsigned_elements_on_gemm(cuda):

@@ -17,7 +17,11 @@ paper's packed arithmetic bit for bit is checked here without a card:
   lanes and of the activations, shifted together mod 2^32, give the
   exact product, and ``sdv_matmul``, ``sdv_matvec`` and
   ``ops.packed_matmul(plan=...)`` equal the reference's on such plans;
-- the operand types and flags.
+- the operand types and flags;
+- B2's wgmma kernel at many rows: its persistent launch and tile layout
+  (``wgmma_slot_channels``) cover every output once at the main paths'
+  shapes, and ``takes_wgmma`` gives it exactly the single-limb calls
+  within 8 bits at or above ``WGMMA_MIN_ROWS`` rows.
 
 The kernels themselves are held against ``sdv_matmul_plain`` and the
 exact product on the card in ``test_torch_kernels_cuda``.
@@ -237,6 +241,144 @@ def test_launch_geometry_covers_every_output_once(kname, rows, k, m, n):
     if gx * gy < sms * per_sm and k >= 2 * tmm.TILE_K:
         assert gz > 1                      # split-K where the grid is small
     assert blocks <= max(gx * gy, 2 * sms * per_sm)
+
+
+#: the wgmma kernel's launches on the main paths at many rows (rows, K,
+#: M, n): llava-next-mistral-7b's projections (q/o, k/v, gate/up, down)
+#: at a prefill chunk's 4096 rows, recurrentgemma-2b's and mamba2-130m's
+#: at their SDV ``forward``'s 2 x 2048, the UltraNet head's im2col GEMM,
+#: and ragged rows and word columns
+_LLAVA = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+_WGMMA_CASES = (
+    [(4096, k, m, 2) for k, m in _LLAVA + _RGEMMA + _MAMBA2]
+    + [_HEAD + (3,), (1100, 700, 296, 2), (8192, 64, 40, 10),
+       (1300, 136, 200, 1), (tmm.WGMMA_MIN_ROWS, 4096, 4096, 2)])
+
+
+@pytest.mark.parametrize("rows,k,m,n", _WGMMA_CASES)
+def test_wgmma_geometry_covers_every_output_once(rows, k, m, n):
+    """Replays the wgmma kernel's persistent tile walk and its epilogue
+    indexing: the blocks walk every tile once, the tiles are the product
+    of the row tiles (each row once) and the column tiles, whose
+    warpgroups store each channel once in ``wgmma_slot_channels``'
+    order, so each (row, channel) of [rows, G, n] is stored exactly once;
+    the stages tile [0, K); the ring fits shared memory."""
+    sms = 132
+    g = -(-m // n)
+    assert tmm.takes_wgmma(rows, g, tdp.plan_sdv(tdp.DATAPATHS["int32"], 4,
+                                                  8, signed_a=True,
+                                                  signed_b=True,
+                                                  park_sign_bits=True))
+    geo = tmm.wgmma_geometry(rows, k, g, n, sms=sms)
+    bgw = geo.bgw
+    assert bgw % 4 == 0 and n * bgw <= tmm.WGMMA_SLOTS
+    assert 2 <= geo.stages <= tmm.WGMMA_MAX_STAGES
+    assert tmm.wgmma_smem_bytes(bgw, geo.stages) <= tmm.SMEM_LIMIT
+    assert geo.k_stages * tmm.WGMMA_TILE_K >= k \
+        > (geo.k_stages - 1) * tmm.WGMMA_TILE_K
+    tiles = geo.row_tiles * geo.col_tiles
+    assert geo.grid == min(tiles, sms)
+    walked = sorted(t for b in range(geo.grid)
+                    for t in range(b, tiles, geo.grid))
+    assert walked == list(range(tiles))
+    pairs = {(t % geo.row_tiles, t // geo.row_tiles) for t in walked}
+    assert len(pairs) == tiles and max(ct for _, ct in pairs) \
+        == geo.col_tiles - 1
+    cover_r = torch.zeros(rows, dtype=torch.int32)
+    for rt in range(geo.row_tiles):
+        cover_r[rt * tmm.WGMMA_ROWS:(rt + 1) * tmm.WGMMA_ROWS] += 1
+    assert (cover_r == 1).all()
+    slots = tmm.wgmma_slot_channels(g, n).reshape(-1, tmm.WGMMA_SLOTS)
+    cover_c = torch.zeros(g * n, dtype=torch.int32)
+    slot = torch.arange(tmm.WGMMA_SLOTS)
+    for ct in range(geo.col_tiles):
+        for c in range(tmm.WGMMA_CONSUMERS):
+            ch = (ct * tmm.WGMMA_CONSUMERS * bgw + c * bgw) * n + slot
+            ok = (slot < n * bgw) & (ch < g * n)
+            wg = ct * tmm.WGMMA_CONSUMERS + c
+            assert torch.equal(slots[wg], torch.where(ok, ch, -1))
+            cover_c[ch[ok]] += 1
+    assert (cover_c == 1).all()
+
+
+#: (spec, w_a, w_b, signed_a, signed_b, n, rows, g): whether B2 takes the
+#: wgmma kernel: the serve plan at the crossover and one row below it,
+#: every signedness, n = 1 and the most lanes, the im2col head; never
+#: the two-limb words (the verify and QAT plan dsp48e2 n=3 at 512 and
+#: 4096 rows, DSP58), byte-sliced lanes or activations, word columns
+#: that are no 16-byte row, or the rounding FP32M datapath
+_KERNEL_CHOICE = [
+    ("int32", 4, 8, True, True, None, tmm.WGMMA_MIN_ROWS, 2048, True),
+    ("int32", 4, 8, True, True, None, tmm.WGMMA_MIN_ROWS - 1, 2048, False),
+    ("int32", 4, 8, True, True, None, 4096, 7168, True),
+    ("int32", 4, 8, True, True, None, 32, 7168, False),
+    ("int32", 4, 8, True, False, None, 4096, 512, True),
+    ("int32", 8, 8, False, True, None, 4096, 512, True),
+    ("int32", 8, 8, False, False, None, 4096, 512, True),
+    ("int32", 8, 8, True, True, 1, 4096, 512, True),
+    ("int32", 2, 2, False, True, None, 4096, 512, True),
+    ("int32", 4, 5, True, True, None, 5408, 12, True),
+    ("int32", 4, 8, True, True, None, 4096, 7170, False),
+    ("dsp48e2", 4, 8, True, True, None, 512, 2048, False),
+    ("dsp48e2", 4, 8, True, True, None, 4096, 2048, False),
+    ("dsp58", 4, 4, True, True, None, 4096, 2048, False),
+    ("int32", 4, 9, True, True, None, 4096, 2048, False),
+    ("int32", 9, 3, False, True, None, 4096, 2048, False),
+    ("fp32m", 4, 4, True, True, None, 4096, 2048, False),
+]
+
+
+@pytest.mark.parametrize("spec,wa,wb,signed_a,signed_b,n,rows,g,wgmma",
+                         _KERNEL_CHOICE)
+def test_b2_kernel_choice(spec, wa, wb, signed_a, signed_b, n, rows, g,
+                          wgmma):
+    """``takes_wgmma`` gives B2's wgmma kernel exactly the single-limb,
+    unsliced calls at or above ``WGMMA_MIN_ROWS`` rows; the activation
+    container a quantizer casts to follows it (``ops.sdv_operand_dtype``:
+    one byte there, int32 elsewhere), and the dispatch table's route
+    stays the reference's ``sdv_matmul`` (the planner reads it)."""
+    kw = {} if n is None else dict(n=n)
+    tplan = tdp.plan_sdv(tdp.DATAPATHS[spec], wa, wb, signed_a=signed_a,
+                         signed_b=signed_b, park_sign_bits=signed_a, **kw)
+    assert tmm.takes_wgmma(rows, g, tplan) == wgmma
+    byte = torch.int8 if signed_b else torch.uint8
+    words = torch.zeros((64, g), dtype=torch.int32)
+    assert tops.sdv_operand_dtype(rows, words, tplan) == (byte if wgmma
+                                                          else torch.int32)
+    if spec != "fp32m":
+        jplan, _ = _plans(spec, wa, wb, signed_a, signed_b, **kw)
+        assert tops.select_packed_route(rows, plan=tplan, explain=True) \
+            == jops.select_packed_route(rows, plan=jplan, explain=True)
+
+
+@pytest.mark.parametrize("signed_b", [True, False])
+@pytest.mark.parametrize("k", [64, 37])
+def test_wgmma_operand_and_byte_activations(k, signed_b):
+    """The wgmma kernel's activations: the plan's byte container, K padded
+    with zeros to 16-byte rows; ``sdv_matmul`` and ``packed_matmul`` on
+    the CPU take that container as they take int32 (the exact product),
+    and refuse it on a plan whose activations need byte slices."""
+    _, tplan = _plans("int32", 4, 8, True, signed_b)
+    rng = np.random.default_rng(k)
+    rows, m = tmm.WGMMA_MIN_ROWS, 8
+    w = _ints(True, 4, (m, k), rng)
+    x = _ints(signed_b, 8, (rows, k), rng)
+    tw = tops.prepare_sdv_weights(torch.tensor(w), tplan)
+    x8 = tmm.wgmma_operand(torch.tensor(x, dtype=torch.int32), tplan)
+    assert x8.dtype == tmm.byte_dtype(tplan)
+    assert x8.shape == (rows, -(-k // 16) * 16)
+    assert (x8[:, :k].to(torch.int64).numpy() == x).all()
+    assert (x8[:, k:] == 0).all()
+    want = x @ w.T
+    y = tmm.sdv_matmul(torch.tensor(x).to(x8.dtype), tw, plan=tplan)
+    assert (y.reshape(rows, -1)[:, :m].numpy() == want).all()
+    y = tops.packed_matmul(torch.tensor(x), tw, plan=tplan, m=m)
+    assert (y.numpy() == want).all()
+    _, wide = _plans("int32", 4, 9, True, True)
+    with pytest.raises(ValueError, match="activations must be"):
+        tmm.check_operands(x8, tops.prepare_sdv_weights(torch.tensor(w),
+                                                        wide), wide,
+                           k_axis=1)
 
 
 #: plans wider than int8 (fault C1), all signed, sign bits parked: the
